@@ -1,0 +1,144 @@
+"""Port's fused layer step (kernel 1) and RT core against the JAX package.
+
+The port's wrapper takes its plain torch version for CPU tensors; the JAX
+side runs its Pallas kernel in interpret mode. Both in float64, so the two
+differ only by the summation order of the batched matmuls: the bound is
+max|diff| / max|ref| < 1e-12.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vsmartmom.core import rt as jrt
+from vsmartmom.pallas.layer_step_kernel import fused_layer_step as jax_step
+
+from vsmartmom_torch.core import rt as trt
+from vsmartmom_torch.cuda.layer_step_kernel import (fused_layer_step,
+                                                    launch_config)
+
+torch.set_num_threads(2)
+
+F64_BOUND = 1e-12
+
+
+def _elemental(S, n, nd, seed, tau_scat=0.5, mqm=0.2):
+    """Passive elemental-like slab (sub-stochastic r, t ~ attenuated I), as
+    tests/test_pallas_doubling.py:_fixture builds it."""
+    rng = np.random.default_rng(seed)
+    sched = jrt.ns_doubling_schedule(tau_scat, mqm, nd)
+    dtau = tau_scat / 2 ** nd
+    r0 = rng.uniform(0, 1, (S, n, n)) * dtau / (n * mqm)
+    t0 = (np.broadcast_to(np.eye(n) * np.exp(-dtau / mqm), (S, n, n)).copy()
+          + rng.uniform(0, 1, (S, n, n)) * dtau / (2 * n * mqm))
+    jp = rng.uniform(0, dtau, (S, n))
+    jm = rng.uniform(0, dtau, (S, n))
+    ek = np.full((S,), np.exp(-dtau / 0.7))
+    return sched, r0, t0, jp, jm, ek
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / max(np.abs(a).max(), 1e-300)
+
+
+# (S, N, D pattern, nd, ns_schedule override, ni): the doubling fixture of
+# test_pallas_doubling.py (N = 16), Stokes_I at N = 12 and at the flagship's
+# N = 15, polarized signs, ragged S, zero-iteration schedules
+CASES = [
+    (40, 16, (1.0,), 6, None, 4),
+    (40, 15, (1.0,), 12, None, 3),
+    (40, 16, (1.0, 1.0, -1.0, -1.0), 6, None, 2),
+    (40, 12, (1.0,), 8, None, 4),
+    (37, 12, (1.0,), 4, (0, 0, 1, 2), 0),
+    (40, 12, (1.0, 1.0, -1.0), 5, (4, 4, 4, 4, 4), 1),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"S{c[0]}N{c[1]}"
+                         f"d{len(c[2])}nd{c[3]}ni{c[5]}")
+def test_fused_layer_step_matches_jax_interpret(case):
+    S, n, dpat, nd, sched_override, ni = case
+    sched, r0, t0, jp, jm, ek = _elemental(S, n, nd, seed=n + nd)
+    if sched_override is not None:
+        sched = sched_override
+    d = np.tile(dpat, n // len(dpat))
+    # a non-trivial composite: two JAX layer steps from vacuum
+    comp = jrt.vacuum_layer(S, n, jnp.float64)
+    for scale, it in ((1.0, 4), (0.6, 3)):
+        comp = jax_step(comp, jnp.asarray(r0 * scale), jnp.asarray(t0),
+                        jnp.asarray(jp), jnp.asarray(jm), jnp.asarray(ek), d,
+                        ns_schedule=sched, ni=it, interpret=True)
+    ref = jax_step(comp, jnp.asarray(r0 * 0.8), jnp.asarray(t0),
+                   jnp.asarray(jp), jnp.asarray(jm), jnp.asarray(ek), d,
+                   ns_schedule=sched, ni=ni, interpret=True)
+    got = fused_layer_step(trt.LayerRT(*(_t(x) for x in comp)),
+                           _t(r0 * 0.8), _t(t0), _t(jp), _t(jm), _t(ek),
+                           _t(d), ns_schedule=sched, ni=ni)
+    for name, a, b in zip(trt.LayerRT._fields, ref, got):
+        assert b.shape == np.asarray(a).shape
+        assert _rel(a, b.numpy()) < F64_BOUND, (name, _rel(a, b.numpy()))
+
+
+@pytest.mark.parametrize("sched", [None, "schulz"])
+def test_doubling_matches_jax(sched):
+    S, n, nd = 24, 12, 6
+    ns, r0, t0, jp, jm, ek = _elemental(S, n, nd, seed=7)
+    eye_j = jnp.broadcast_to(jnp.eye(n), (S, n, n))
+    eye_t = torch.eye(n, dtype=torch.float64).expand(S, n, n)
+    kw_j = dict(rsolve=jrt.rsolve_lu)
+    kw_t = dict(rsolve=trt.rsolve_lu)
+    if sched == "schulz":
+        kw_j = dict(rsolve=jrt.make_rsolve("schulz"), ns_schedule=ns)
+        kw_t = dict(rsolve=trt.make_rsolve("schulz"), ns_schedule=ns)
+    ref = jrt.doubling(jnp.asarray(r0), jnp.asarray(t0), jnp.asarray(jp),
+                       jnp.asarray(jm), jnp.asarray(ek), nd, eye_j, **kw_j)
+    got = trt.doubling(_t(r0), _t(t0), _t(jp), _t(jm), _t(ek), nd, eye_t,
+                       **kw_t)
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-12,
+                                   atol=1e-15)
+
+
+@pytest.mark.parametrize("solver", ["lu", "schulz"])
+def test_interaction_matches_jax(solver):
+    S, n, nd = 24, 12, 5
+    ns, r0, t0, jp, jm, ek = _elemental(S, n, nd, seed=11)
+    rng = np.random.default_rng(12)
+    eye_j = jnp.broadcast_to(jnp.eye(n), (S, n, n))
+    eye_t = torch.eye(n, dtype=torch.float64).expand(S, n, n)
+    comp = [r0 * 3.0, r0.transpose(0, 2, 1) * 2.0, t0 * 0.9, t0 * 0.8,
+            jp * 2.0, jm * 3.0]
+    added = [r0, r0 * 0.5, t0, t0 * 0.95, jp,
+             jm + rng.uniform(0, 1e-3, jm.shape)]
+    ref = jrt.interaction(jrt.LayerRT(*map(jnp.asarray, comp)),
+                          jrt.LayerRT(*map(jnp.asarray, added)), eye_j,
+                          rsolve=jrt.make_rsolve(solver))
+    got = trt.interaction(trt.LayerRT(*map(_t, comp)),
+                          trt.LayerRT(*map(_t, added)), eye_t,
+                          rsolve=trt.make_rsolve(solver))
+    for a, b in zip(ref, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-12,
+                                   atol=1e-15)
+
+
+def test_schedule_helpers_match_jax():
+    assert trt.ns_doubling_schedule(0.7, 0.05, 9) == \
+        jrt.ns_doubling_schedule(0.7, 0.05, 9)
+    tau = [1e-4, 1e-3, 0.01, 0.3, 1.0]
+    assert trt.ns_interaction_iters(tau, 0.07) == \
+        jrt.ns_interaction_iters(tau, 0.07)
+    for b in (0.0, 0.1, 0.64, 0.99, 1.0):
+        assert trt.ns_iters_for_bound(b) == jrt.ns_iters_for_bound(b)
+
+
+def test_launch_config_fits_hopper_shared_memory():
+    """Every N the kernel takes (<= 63) fits one block's 227 KB."""
+    for n in (1, 12, 15, 44, 63):
+        pts, smem = launch_config(n)
+        assert pts >= 1 and smem <= 232448, (n, pts, smem)

@@ -1,0 +1,90 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+building a kernel waits for the first launch on a CUDA tensor."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "vsmartmom_torch"
+
+_SCRIPT = """
+import sys
+sys.modules["jax"] = None            # any JAX import now raises
+import numpy as np, torch
+torch.set_num_threads(1)
+import vsmartmom_torch
+from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+from vsmartmom_torch.scattering.phase import Polarization, get_greek_rayleigh
+from vsmartmom_torch.util.quadrature import rt_set_streams
+import vsmartmom_torch.cuda.layer_step_kernel
+import vsmartmom_torch.cuda.voigt_kernel
+pol = Polarization.from_name("Stokes_IQU")
+quad = rt_set_streams("GaussQuadFullSphere", 8, 30.0, [0.0], pol.n)
+band = BandRTInputs(tau=np.full((1, 3), 0.2), omega=np.ones((1, 3)),
+                    zw=np.ones((1, 1, 3)), greeks=[get_greek_rayleigh(0.0)])
+R, T = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
+                   {"type": "LambertianSurfaceScalar", "albedo": 0.1})
+assert R.shape == (1, 3, 3) and np.isfinite(R).all() and R[0, 0, 0] > 0
+assert not any(m == "jax" or m.startswith(("jax.", "vsmartmom."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("OK")
+"""
+
+
+def test_imports_and_runs_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", _SCRIPT], cwd="/",
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for mod in _imports(path):
+        assert mod != "jax" and not mod.startswith("jax."), (path, mod)
+        assert mod != "vsmartmom" and not mod.startswith("vsmartmom."), \
+            (path, mod)
+
+
+def test_cuda_wrappers_build_nothing_for_cpu_tensors():
+    """CPU tensors take the plain versions: no library is built or
+    loaded, and no launch is counted."""
+    from vsmartmom_torch.core.rt import vacuum_layer
+    from vsmartmom_torch.cuda import build
+    from vsmartmom_torch.cuda import layer_step_kernel as lsk
+    from vsmartmom_torch.cuda import voigt_kernel as vk
+    from vsmartmom_torch.cuda.layer_step_kernel import fused_layer_step
+    from vsmartmom_torch.cuda.voigt_kernel import VoigtPlan
+
+    n0, v0 = lsk.launches, vk.launches
+    S, n = 3, 4
+    comp = vacuum_layer(S, n, torch.float32, "cpu")
+    r = torch.full((S, n, n), 0.01)
+    t = torch.eye(n).repeat(S, 1, 1) * 0.9
+    v = torch.full((S, n), 0.01)
+    out = fused_layer_step(comp, r, t, v, v, torch.full((S,), 0.99),
+                           torch.ones(n), ns_schedule=(1, 2), ni=1)
+    assert all(torch.isfinite(x).all() for x in out)
+    plan = VoigtPlan(np.linspace(13000.0, 13001.0, 50), [13000.5], 5.0)
+    sig = plan.run([13000.5], [1e-22], [0.01], [0.5])
+    assert sig.shape == (50,) and float(sig.max()) > 0
+    assert build._lib is None
+    assert (lsk.launches, vk.launches) == (n0, v0)

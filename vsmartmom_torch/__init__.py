@@ -1,0 +1,21 @@
+"""vsmartmom_torch: the PyTorch/CUDA port of vsmartmom.
+
+Polarized doubling-adding radiative transfer with HITRAN line-by-line
+absorption and Mie/NAI2 aerosols, batched over the hyperspectral axis. Host
+set-up is numpy; device work is torch on an explicit ``device``; the two
+hot kernels (the fused layer step and the tiled Voigt line sum) are CUDA C++
+for Hopper (``csrc/``), built at first use.
+
+Public API (mirrors the JAX package):
+  parameters_from_yaml, default_parameters, model_from_parameters, rt_run
+"""
+
+from vsmartmom_torch.config.params import (default_parameters,
+                                           parameters_from_yaml)
+from vsmartmom_torch.core.api import rt_run
+from vsmartmom_torch.core.model import model_from_parameters
+
+__version__ = "0.1.0"
+
+__all__ = ["parameters_from_yaml", "default_parameters",
+           "model_from_parameters", "rt_run", "__version__"]

@@ -1,0 +1,404 @@
+"""rt_run_band: the forward RT simulation driver.
+
+Pipeline (ref: src/CoreRT/rt_run.jl:41-230):
+  for each Fourier moment m:
+    - assemble Z component matrices (host, numpy)
+    - the layer scan TOA -> BOA (elemental -> doubling -> interaction),
+      then the surface layer and its interaction, on ``device``
+    - azimuthal synthesis of the small (n_vza, n_stokes, nSpec) outputs
+
+The spectral axis (nSpec) is the batch axis of every device operation.
+
+Engines for the layer scan:
+  "torch"  — batched torch ops (the JAX package's ``xla`` engine);
+  "kernel" — per layer, the elemental layer in torch and the fused CUDA
+             layer step (doubling + adding, cuda/layer_step_kernel.py; the
+             JAX package's ``pallas_step`` engine). Needs the Newton-Schulz
+             solver's static schedules; CPU tensors take the kernel's plain
+             torch version.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vsmartmom_torch.core.rt import (bmv, elemental_flipped, interaction,
+                                     make_added_layer, make_rsolve,
+                                     ns_doubling_schedule,
+                                     ns_interaction_iters, vacuum_layer)
+from vsmartmom_torch.core.surface import lambertian_surface_layer
+from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
+from vsmartmom_torch.util.quadrature import QuadPoints, nearest_point
+
+#: largest stream count N the fused layer-step kernel takes (its per-point
+#: shared-memory arena at N = 63 is 188 KB of the 227 KB a block may use)
+KERNEL_MAX_N = 63
+
+#: engines of the JAX package that the port does not run yet
+_NOT_PORTED_ENGINES = {
+    "xla_dev": "the direct/diffuse split form (ROADMAP queue 1, item 3)",
+    "pallas_dd": "the split-form layer-step kernel (ROADMAP queue 2, item 2)",
+    "pallas": "the doubling-only kernel (ROADMAP queue 2, item 4)",
+    "pallas_scan": "the fused layer-scan kernel (ROADMAP queue 2, item 5)",
+    "pallas_lanes": "the lanes layer-step kernel (ROADMAP queue 2, item 6)",
+}
+
+
+@dataclasses.dataclass
+class BandRTInputs:
+    """Per-band inputs of the RT core (host numpy).
+
+    tau:   (nZ, nSpec) total layer optical depth (scattering + absorption)
+    omega: (nZ, nSpec) total single-scattering albedo
+    zw:    (nZ, K, nSpec) normalized scattering-component mixing weights
+           (K = 1 Rayleigh + n_aerosols); the per-layer phase matrix is
+           Z(layer) = sum_k zw[k] * Z_k, assembled on the device so no
+           (nZ, nSpec, N, N) tensor is ever materialized.
+    greeks: list of K GreekCoefs (Rayleigh first, then aerosols).
+    """
+    tau: np.ndarray
+    omega: np.ndarray
+    zw: np.ndarray
+    greeks: list
+
+
+def schedule_buckets(layer_schedules):
+    """Runs of consecutive layers sharing one (ndoubl, NS schedule, ni)
+    entry, as (entry, start, count) triples."""
+    buckets = []
+    for iz, entry in enumerate(layer_schedules):
+        if buckets and buckets[-1][0] == entry:
+            buckets[-1][2] += 1
+        else:
+            buckets.append([entry, iz, 1])
+    return [tuple(b) for b in buckets]
+
+
+def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
+                  albedo, spectral_albedo, mu0, mu0_node, min_qp_mu,
+                  *, i_mu0_n, n_stokes, is_m0, solver, layer_schedules,
+                  engine):
+    """One Fourier moment: layer scan + surface. Returns the composite
+    layer and the surface-leaving source vector (hdr).
+
+    ``layer_schedules``: one (ndoubl, ns_schedule, ni) entry per layer;
+    ndoubl None derives each layer's doubling count from its optical depth,
+    ns_schedule None doubles with ``solver``, ni None solves the
+    interaction with ``solver``.
+    """
+    rsolve = make_rsolve(solver)
+    dtype, device = tau.dtype, tau.device
+    n_spec = tau.shape[1]
+    n = qp.shape[0]
+    eye = torch.eye(n, dtype=dtype, device=device).expand(n_spec, n, n)
+    wct02 = torch.tensor(0.5 if is_m0 else 0.25, dtype=dtype, device=device)
+    wct2 = wt / 2.0 if is_m0 else wt / 4.0
+
+    # cumulative optical depth above each layer (TOA -> BOA)
+    tau_sum_all = torch.cat([torch.zeros((1, n_spec), dtype=dtype,
+                                         device=device),
+                             torch.cumsum(tau, dim=0)], dim=0)
+
+    if engine == "kernel":
+        from vsmartmom_torch.cuda.layer_step_kernel import fused_layer_step
+
+    comp = vacuum_layer(n_spec, n, dtype, device)
+    for (nd, sched, ni), start, count in schedule_buckets(layer_schedules):
+        if engine == "kernel" and sched is None:
+            raise ValueError("the kernel engine needs the schulz solver's "
+                             "static Newton-Schulz schedules")
+        irs = (make_rsolve("schulz", ni)
+               if solver == "schulz" and ni is not None else rsolve)
+        for iz in range(start, start + count):
+            z_pp = torch.einsum("kn,kij->nij", zw[iz], z_pp_c)
+            z_mp = torch.einsum("kn,kij->nij", zw[iz], z_mp_c)
+            if engine == "kernel":
+                r_f, t, jp, jm_f, ek, _ = elemental_flipped(
+                    tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
+                    wct2, wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
+                    d_vec, min_qp_mu, ndoubl_static=nd)
+                comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek, d_vec,
+                                        ns_schedule=sched, ni=ni)
+            else:
+                added = make_added_layer(
+                    tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
+                    wct2, wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
+                    d_vec, min_qp_mu, eye, rsolve=rsolve, ndoubl_static=nd,
+                    ns_schedule=sched)
+                comp = interaction(comp, added, eye, rsolve=irs)
+
+    surf = lambertian_surface_layer(
+        albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1], mu0,
+        is_m0, spectral_albedo=spectral_albedo)
+    comp = interaction(comp, surf, eye, rsolve=rsolve)
+
+    # Surface-leaving radiance for hemispheric (HDRF/BHR) outputs: upwelling
+    # just above the surface = surface reflection of the full downwelling
+    # field + direct-beam reflection (ref: CoreKernel/interaction_hdrf.jl:9-45)
+    hdr_j_m = bmv(surf.r_mp, comp.j_p) + surf.j_m
+    return comp, hdr_j_m
+
+
+# ndoubl quantization step of the per-layer schedules: both packages
+# discretize identically, so the engines agree to rounding
+_ND_QUANT = 4
+
+
+def build_layer_schedules(tau, omega, min_qp_mu: float, solver: str):
+    """Host-side static doubling/solver schedules for one band profile.
+
+    Returns (ndoubl_static, ns_schedule, layer_schedules):
+      - nearly-uniform per-layer doubling counts -> one static count
+        `ndoubl_static` (+ per-step NS schedule for schulz);
+      - widely-spread counts (real profiles: thin stratosphere above thick
+        low layers) + schulz -> per-layer static `layer_schedules` of
+        3-tuples (ndoubl, ns_doubling_schedule, ns_interaction_iters), nd
+        quantized UP to a multiple of _ND_QUANT (a finer elemental slab,
+        so accuracy is unaffected or better) and at most 6 distinct
+        entries;
+      - anything else -> (None, None, None): per-layer counts derived from
+        each layer's optical depth.
+
+    An error here propagates: the kernel engine runs only on these
+    schedules, so a failure must not quietly hand the run to torch ops.
+    """
+    if not (isinstance(tau, np.ndarray) and isinstance(omega, np.ndarray)):
+        return None, None, None
+    tau_scat = np.max(tau * omega, axis=1)
+    pos = tau_scat > 0
+    if not np.any(pos):
+        return None, None, None
+    dmax = np.minimum(tau_scat[pos], 0.004 * min_qp_mu)
+    nd = np.ceil(np.log2(np.maximum(tau_scat[pos] / dmax, 1.0)))
+    if nd.max() - nd.min() <= 2:
+        ndoubl_static = int(nd.max())
+        ns_schedule = None
+        if solver == "schulz":
+            ns_schedule = ns_doubling_schedule(
+                float(tau_scat.max()), min_qp_mu, ndoubl_static)
+        return ndoubl_static, ns_schedule, None
+    if solver != "schulz":
+        return None, None, None
+
+    nd_all = np.zeros(len(tau_scat), dtype=int)
+    nd_all[pos] = nd.astype(int)
+    q = _ND_QUANT
+    nd_all = q * np.ceil(np.maximum(nd_all, 1) / q).astype(int)
+    dm = 0.004 * min_qp_mu
+    ni_all = ns_interaction_iters(tau_scat, min_qp_mu)
+    layer_schedules = tuple(
+        (int(k), ns_doubling_schedule(dm * 2.0 ** int(k), min_qp_mu,
+                                      int(k)),
+         int(ni))
+        for k, ni in zip(nd_all, ni_all))
+    if len(set(layer_schedules)) > 6:
+        # too many distinct (nd, sched, ni) entries: quantize ni UP to the
+        # max within each (nd, sched) group — extra NS iterations only
+        # tighten the residual
+        group_ni: dict = {}
+        for nd_e, sched_e, ni_e in layer_schedules:
+            key = (nd_e, sched_e)
+            group_ni[key] = max(group_ni.get(key, 0), ni_e)
+        layer_schedules = tuple(
+            (nd_e, sched_e, group_ni[(nd_e, sched_e)])
+            for nd_e, sched_e, _ in layer_schedules)
+    if len(set(layer_schedules)) > 6:
+        # still too many: give up interaction adaptivity entirely
+        layer_schedules = tuple(e[:2] + (4,) for e in layer_schedules)
+    if len(set(layer_schedules)) > 6:
+        # collapse to one global (max) schedule
+        k = int(nd_all.max())
+        sched = ns_doubling_schedule(dm * 2.0 ** k, min_qp_mu, k)
+        layer_schedules = tuple((k, sched, 4) for _ in nd_all)
+    return None, None, layer_schedules
+
+
+def _per_layer_schedules(n_z, solver, ndoubl_static, ns_schedule,
+                          layer_schedules):
+    """The builder's result as one (ndoubl, ns_schedule, ni) entry per
+    layer: a uniform schedule is one bucket."""
+    if layer_schedules is not None:
+        return tuple((nd, tuple(s), ni) for nd, s, ni in layer_schedules)
+    ni = 4 if solver == "schulz" else None
+    sched = tuple(ns_schedule) if ns_schedule is not None else None
+    return ((ndoubl_static, sched, ni if ndoubl_static is not None
+             else None),) * n_z
+
+
+def select_engine(engine: str, device: torch.device, dtype, n: int,
+                  static_schulz: bool) -> str:
+    """Resolve ``engine`` ("auto", "torch" or "kernel").
+
+    "auto" takes the fused kernel for float32 CUDA tensors with N <= 63
+    and the schulz solver's static schedules, and torch ops otherwise.
+    float32 on CUDA with N > 63 needs the split form, which is not ported.
+    """
+    if engine in _NOT_PORTED_ENGINES:
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported yet: "
+            f"{_NOT_PORTED_ENGINES[engine]}")
+    if engine == "auto":
+        if device.type == "cuda" and dtype == torch.float32 \
+                and static_schulz:
+            if n > KERNEL_MAX_N:
+                raise NotImplementedError(
+                    f"float32 with N = {n} > {KERNEL_MAX_N} on CUDA runs "
+                    f"the direct/diffuse split form, which is not ported "
+                    f"yet (ROADMAP queue 1, item 3)")
+            return "kernel"
+        return "torch"
+    if engine not in ("torch", "kernel"):
+        raise ValueError(f"unknown engine {engine!r}")
+    return engine
+
+
+def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
+                vza, vaz, max_m: int, surface, dtype=torch.float64,
+                device="cpu", solver: Optional[str] = None,
+                return_hdr: bool = False,
+                engine: str = "auto", sfi: bool = True):
+    """Run the full Fourier-moment loop for one band; azimuthally synthesize.
+
+    surface: dict like {"type": "LambertianSurfaceScalar", "albedo": 0.1}
+    (or "LambertianSurfaceSpectrum" with an (nSpec,) albedo).
+    Returns (R_SFI, T_SFI) of shape (n_vza, n_stokes, nSpec); with
+    ``return_hdr`` also (hdr, bhr_uw, bhr_dw): the hemispheric-directional
+    surface-leaving radiance per VZA plus the bi-hemispheric up/downwelling
+    fluxes at the surface (ref: rt_run.jl:187-226 RAMI outputs).
+    ``solver``: "lu" (default on the CPU) or "schulz" (default on CUDA).
+    ``engine``: "auto", "torch" or "kernel" (see select_engine).
+    ``sfi``: True synthesizes radiances from the single-beam source vectors
+    J0-/J0+; False from the R-+/T++ operator columns at the mu0 node (ref:
+    postprocessing_vza.jl:30-56), which needs the beam as a real node
+    (RadauQuad).
+
+    Float32 matmuls run in full float32 for the duration of the call
+    (TF32 off): the plain-form algebra fails the accuracy gates with
+    reduced-mantissa products.
+    """
+    device = torch.device(device)
+    if solver is None:
+        solver = "lu" if device.type == "cpu" else "schulz"
+    n_spec = band.tau.shape[1]
+    n_z = band.tau.shape[0]
+    n = len(quad.qp_mu_n)
+    n_stokes = pol.n
+    vza = np.asarray(vza, dtype=np.float64)
+    vaz = np.asarray(vaz, dtype=np.float64)
+
+    i0_vec = np.zeros(n)
+    i0_vec[quad.i_mu0_n:quad.i_mu0_n + n_stokes] = pol.i0
+    d_vec = np.tile(pol.d, quad.n_quad)
+    mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
+    min_qp_mu = float(np.min(quad.qp_mu))
+
+    def to_dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    albedo = 0.0
+    spectral_albedo = None
+    if surface["type"] == "LambertianSurfaceScalar":
+        albedo = float(surface["albedo"])
+    elif surface["type"] == "LambertianSurfaceSpectrum":
+        spectral_albedo = to_dev(surface["albedo"])
+    elif surface["type"] in ("LambertianSurfaceLegendre", "rpvSurfaceScalar",
+                             "RossLiSurfaceScalar"):
+        raise NotImplementedError(
+            f"surface {surface['type']!r} is not ported yet "
+            f"(core/brdf.py, ROADMAP queue 1, item 6)")
+    else:
+        raise NotImplementedError(surface["type"])
+
+    R_SFI = np.zeros((len(vza), n_stokes, n_spec))
+    T_SFI = np.zeros((len(vza), n_stokes, n_spec))
+    hdr = np.zeros((len(vza), n_stokes, n_spec))
+    bhr_uw = np.zeros(n_spec)
+    bhr_dw = np.zeros(n_spec)
+
+    ndoubl_static, ns_schedule, layer_schedules = build_layer_schedules(
+        band.tau, band.omega, min_qp_mu, solver)
+    engine = select_engine(
+        engine, device, dtype, n,
+        ns_schedule is not None or layer_schedules is not None)
+    schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
+                                      ns_schedule, layer_schedules)
+
+    from vsmartmom_torch.util.logging import run_banner
+    run_banner(pol, quad, n_spec, n_z, max_m, surface, engine, solver,
+               dtype, device)
+
+    prev_precision = torch.get_float32_matmul_precision()
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
+                                to_dev(band.zw))
+        qp_d, wt_d = to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n)
+        d_d, i0_d = to_dev(d_vec), to_dev(i0_vec)
+        albedo_d, mu0_d, mu0_node_d, min_mu_d = (
+            to_dev(v) for v in (albedo, quad.mu0, mu0_node, min_qp_mu))
+        for m in range(max_m):
+            z_pp_list, z_mp_list = [], []
+            for gc in band.greeks:
+                zpp, zmp = compute_Z_moments(pol, quad.qp_mu, gc, m)
+                z_pp_list.append(zpp)
+                z_mp_list.append(zmp)
+            comp, hdr_j_m_dev = _fourier_step(
+                tau_d, omega_d, zw_d, to_dev(np.stack(z_pp_list)),
+                to_dev(np.stack(z_mp_list)), qp_d, wt_d, d_d, i0_d,
+                albedo_d, spectral_albedo, mu0_d, mu0_node_d, min_mu_d,
+                i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
+                is_m0=(m == 0), solver=solver, layer_schedules=schedules,
+                engine=engine)
+
+            # --- azimuthal synthesis (ref: tools/postprocessing_vza.jl:9-60)
+            if sfi:
+                j_m = comp.j_m.cpu().numpy()     # (nSpec, N)
+                j_p = comp.j_p.cpu().numpy()
+            else:
+                # operator columns at the mu0 node applied to the discretized
+                # delta beam I0/(w0 mu0); the operators carry the quadrature
+                # weight on the incoming column, so the beam node's weight
+                # divides out
+                sl0 = slice(quad.i_mu0_n, quad.i_mu0_n + n_stokes)
+                i0_blk = np.asarray(pol.i0, np.float64)
+                w0 = float(quad.wt_mu_n[quad.i_mu0_n])
+                r_cols = comp.r_mp[:, :, sl0].cpu().numpy()
+                t_cols = comp.t_pp[:, :, sl0].cpu().numpy()
+                j_m = (r_cols @ i0_blk) / w0                # (nSpec, N)
+                j_p = (t_cols @ i0_blk) / w0
+            hdr_j_m = hdr_j_m_dev.cpu().numpy() if return_hdr else None
+            weight = 0.5 if m == 0 else 1.0
+            for i in range(len(vza)):
+                i_mu = nearest_point(quad.qp_mu, np.cos(np.deg2rad(vza[i])))
+                sl = slice(n_stokes * i_mu, n_stokes * (i_mu + 1))
+                cm = np.cos(np.deg2rad(m * vaz[i]))
+                sm = np.sin(np.deg2rad(m * vaz[i]))
+                big_cs = weight * np.array([cm, cm, sm, sm][:n_stokes])
+                R_SFI[i] += big_cs[:, None] * j_m[:, sl].T
+                T_SFI[i] += big_cs[:, None] * j_p[:, sl].T
+                if return_hdr:
+                    hdr[i] += big_cs[:, None] * hdr_j_m[:, sl].T
+
+            if return_hdr and m == 0:
+                # bi-hemispheric fluxes: mu-weighted quadrature sums of the
+                # intensity components, + direct beam for the downwelling
+                # (ref: interaction_hdrf.jl:27-45)
+                qw = (quad.qp_mu_n * quad.wt_mu_n)[::n_stokes]
+                bhr_uw[:] = hdr_j_m[:, ::n_stokes] @ qw
+                i_sol = quad.i_mu0_n
+                direct = i0_vec[i_sol] * np.exp(
+                    -np.asarray(band.tau).sum(axis=0) / mu0_node) * mu0_node
+                bhr_dw[:] = j_p[:, ::n_stokes] @ qw + direct
+    finally:
+        torch.set_float32_matmul_precision(prev_precision)
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+    out = [R_SFI, T_SFI]
+    if return_hdr:
+        out += [hdr, bhr_uw, bhr_dw]
+    return tuple(out)

@@ -1,0 +1,340 @@
+// Fused RT layer step for Hopper: doubling of the elemental layer plus the
+// adding of the doubled layer under the running composite, one launch per
+// atmospheric layer.
+//
+// Replaces the TPU kernel vsmartmom/pallas/layer_step_kernel.py:
+// _layer_step_kernel (doubling via vsmartmom/pallas/doubling_kernel.py:
+// doubling_body). Same algebra, same Newton-Schulz schedules, same
+// push-through single-solve interaction.
+//
+// Bound: every spectral point runs a chain of small dependent N x N products
+// (N <= 63) on its own data, O(N^3) fp32 FMAs per product against O(N^2)
+// bytes of device memory per layer, so the kernel is bound by arithmetic and
+// shared-memory bandwidth, not by device memory. Design: one block of 256
+// threads owns P points; each point has a private arena in dynamic shared
+// memory that holds its whole state (elemental layer, NS iterates, packed
+// right-hand operands) for the entire step. The composite operands are read
+// from device memory where a product needs them; the new composite is
+// written once at the end. All threads of the block sweep the
+// (point, row, column) outputs of each product together. fp32 FMA on the
+// CUDA cores: no TF32, no tensor cores (a first, exact version).
+//
+// Per-point arena layout (floats; nn = n*n):
+//   R [nn] | T [nn] | JP [n] | JM [n] | EK [1] | scratch [10 nn + 4 n]
+// scratch: A [nn] | M0 [nn] | M1 [nn] | TMP [nn] | packed operands:
+//   doubling:    W1 [n x (2n+2)] | W2 [n x (2n+2)]
+//   interaction: X  [n x (4n+2)] | X2 [n x (2n+1)]
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxSched = 64;
+
+struct Schedule {
+  int nd;                 // doubling steps
+  int ni;                 // NS iterations of the interaction solve
+  int it[kMaxSched];      // NS iterations of each doubling step
+};
+
+__host__ __device__ inline int arena_floats(int n) {
+  return 12 * n * n + 6 * n + 1;
+}
+
+// C[p] (n x k, row stride ldc) = A[p] (n x n, lda) @ B[p] (n x k, ldb) for
+// the block's np points; sc/sa/sb step between points. acc adds to C.
+// Pointers are generic: shared arenas or device memory.
+__device__ void mm(float* C, int ldc, int sc, const float* A, int lda, int sa,
+                   const float* B, int ldb, int sb, int n, int k, int np,
+                   bool acc) {
+  const int per = n * k;
+  for (int idx = threadIdx.x; idx < np * per; idx += blockDim.x) {
+    const int p = idx / per;
+    const int r = idx - p * per;
+    const int i = r / k;
+    const int j = r - i * k;
+    const float* a = A + p * sa + i * lda;
+    const float* b = B + p * sb + j;
+    float s = 0.f;
+    for (int l = 0; l < n; ++l) s = fmaf(a[l], b[l * ldb], s);
+    float* c = C + p * sc + i * ldc + j;
+    *c = acc ? *c + s : s;
+  }
+}
+
+// Newton-Schulz approximate inverse of A = I - B (A already in the arena):
+// M0 = 2I - A, then M <- M (2I - A M) `iters` times. Returns the offset of
+// the buffer holding the result (M0 or M1).
+__device__ int ns_solve(float* ar, int AR, int n, int np, int offA, int offM0,
+                        int offM1, int offT, int iters) {
+  const int nn = n * n;
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
+    float* a = ar + p * AR;
+    a[offM0 + e] = (i == j ? 2.f : 0.f) - a[offA + e];
+  }
+  __syncthreads();
+  int cur = offM0, oth = offM1;
+  for (int q = 0; q < iters; ++q) {
+    mm(ar + offT, n, AR, ar + offA, n, AR, ar + cur, n, AR, n, n, np, false);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+      const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
+      float* tmp = ar + p * AR + offT;
+      tmp[e] = (i == j ? 2.f : 0.f) - tmp[e];
+    }
+    __syncthreads();
+    mm(ar + oth, n, AR, ar + cur, n, AR, ar + offT, n, AR, n, n, np, false);
+    __syncthreads();
+    const int s = cur; cur = oth; oth = s;
+  }
+  return cur;
+}
+
+// A = I - A in place (A holds a product)
+__device__ void eye_minus(float* ar, int AR, int n, int np, int offA) {
+  const int nn = n * n;
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
+    float* a = ar + p * AR + offA;
+    a[e] = (i == j ? 1.f : 0.f) - a[e];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+layer_step_kernel(const float* __restrict__ c_rmp,
+                  const float* __restrict__ c_rpm,
+                  const float* __restrict__ c_tpp,
+                  const float* __restrict__ c_tmm,
+                  const float* __restrict__ c_jp,
+                  const float* __restrict__ c_jm,
+                  const float* __restrict__ r_f, const float* __restrict__ t,
+                  const float* __restrict__ jp, const float* __restrict__ jm_f,
+                  const float* __restrict__ ek, const float* __restrict__ d,
+                  float* __restrict__ o_rmp, float* __restrict__ o_rpm,
+                  float* __restrict__ o_tpp, float* __restrict__ o_tmm,
+                  float* __restrict__ o_jp, float* __restrict__ o_jm,
+                  int S, int n, int P, Schedule sch) {
+  extern __shared__ float smem[];
+  const int nn = n * n;
+  const int AR = arena_floats(n);
+  float* dv = smem;          // D-matrix diagonal, shared by all points
+  float* ar = smem + n;      // P per-point arenas
+  const int p0 = blockIdx.x * P;
+  const int np = min(P, S - p0);
+
+  const int oR = 0, oT = nn, oJP = 2 * nn, oJM = 2 * nn + n;
+  const int oEK = 2 * nn + 2 * n, oS = oEK + 1;
+  const int oA = oS, oM0 = oS + nn, oM1 = oS + 2 * nn, oTMP = oS + 3 * nn;
+  const int oW1 = oS + 4 * nn, w2 = 2 * n + 2, oW2 = oW1 + n * w2;
+  const int oX = oW1, wx = 4 * n + 2, oX2 = oX + n * wx, wx2 = 2 * n + 1;
+
+  // block-local views of the per-point device arrays
+  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
+  const float* g_rmp = c_rmp + gm;
+  const float* g_rpm = c_rpm + gm;
+  const float* g_tpp = c_tpp + gm;
+  const float* g_tmm = c_tmm + gm;
+  const float* g_jp = c_jp + gv;
+  const float* g_jm = c_jm + gv;
+
+  // ---- load the elemental layer ------------------------------------------
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = d[i];
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn;
+    ar[p * AR + oR + e] = r_f[gm + idx];
+    ar[p * AR + oT + e] = t[gm + idx];
+  }
+  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+    const int p = idx / n, i = idx - p * n;
+    ar[p * AR + oJP + i] = jp[gv + idx];
+    ar[p * AR + oJM + i] = jm_f[gv + idx];
+  }
+  for (int p = threadIdx.x; p < np; p += blockDim.x)
+    ar[p * AR + oEK] = ek[p0 + p];
+  __syncthreads();
+
+  // ---- 1. doubling (flipped space) ----------------------------------------
+  for (int step = 0; step < sch.nd; ++step) {
+    // A = I - R R; M = NS inverse of A
+    mm(ar + oA, n, AR, ar + oR, n, AR, ar + oR, n, AR, n, n, np, false);
+    __syncthreads();
+    eye_minus(ar, AR, n, np, oA);
+    __syncthreads();
+    const int oM = ns_solve(ar, AR, n, np, oA, oM0, oM1, oTMP, sch.it[step]);
+    // W1[:, 0:n+2] = [T | JP | JM ek]
+    for (int idx = threadIdx.x; idx < np * n * (n + 2); idx += blockDim.x) {
+      const int p = idx / (n * (n + 2)), e = idx - p * n * (n + 2);
+      const int i = e / (n + 2), j = e - i * (n + 2);
+      float* a = ar + p * AR;
+      a[oW1 + i * w2 + j] = j < n ? a[oT + i * n + j]
+                          : (j == n ? a[oJP + i] : a[oJM + i] * a[oEK]);
+    }
+    __syncthreads();
+    // W2[:, 0:n+2] = R [T | JP | J1M]
+    mm(ar + oW2, w2, AR, ar + oR, n, AR, ar + oW1, w2, AR, n, n + 2, np,
+       false);
+    __syncthreads();
+    // W1 = [R T | T | J1M + R JP | JP + R J1M]
+    for (int idx = threadIdx.x; idx < np * n * w2; idx += blockDim.x) {
+      const int p = idx / (n * w2), e = idx - p * n * w2;
+      const int i = e / w2, j = e - i * w2;
+      float* a = ar + p * AR;
+      float v;
+      if (j < n) v = a[oW2 + i * w2 + j];
+      else if (j < 2 * n) v = a[oT + i * n + (j - n)];
+      else if (j == 2 * n) v = a[oJM + i] * a[oEK] + a[oW2 + i * w2 + n];
+      else v = a[oJP + i] + a[oW2 + i * w2 + n + 1];
+      a[oW1 + i * w2 + j] = v;
+    }
+    __syncthreads();
+    // W1 = T (M W1)
+    mm(ar + oW2, w2, AR, ar + oM, n, AR, ar + oW1, w2, AR, n, w2, np, false);
+    __syncthreads();
+    mm(ar + oW1, w2, AR, ar + oT, n, AR, ar + oW2, w2, AR, n, w2, np, false);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+      const int p = idx / n, i = idx - p * n;
+      float* a = ar + p * AR;
+      a[oJM + i] = a[oJM + i] + a[oW1 + i * w2 + 2 * n];
+      a[oJP + i] = a[oJP + i] * a[oEK] + a[oW1 + i * w2 + 2 * n + 1];
+    }
+    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+      const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
+      float* a = ar + p * AR;
+      a[oR + e] = a[oR + e] + a[oW1 + i * w2 + j];
+      a[oT + e] = a[oW1 + i * w2 + n + j];
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < np; p += blockDim.x)
+      ar[p * AR + oEK] = ar[p * AR + oEK] * ar[p * AR + oEK];
+    __syncthreads();
+  }
+
+  // ---- 2. un-flip: R <- D R (r2mp), JM <- D JM (j2m) ----------------------
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn, i = e / n;
+    ar[p * AR + oR + e] = dv[i] * ar[p * AR + oR + e];
+  }
+  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+    const int p = idx / n, i = idx - p * n;
+    ar[p * AR + oJM + i] = dv[i] * ar[p * AR + oJM + i];
+  }
+  __syncthreads();
+
+  // ---- 3. interaction under the composite (push-through) ------------------
+  // x1 = [r2mp c_tpp | t2mm | r2mp c_jp + j2m]           -> X[:, 0:2n+1]
+  // x2 = [c_tpp | c_rpm t2mm | c_jp + c_rpm j2m]         -> X2
+  // X[:, 2n+1:4n+2] = r2mp x2
+  mm(ar + oX, wx, AR, ar + oR, n, AR, g_tpp, n, nn, n, n, np, false);
+  mm(ar + oX + 2 * n, wx, AR, ar + oR, n, AR, g_jp, 1, n, n, 1, np, false);
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
+    float* a = ar + p * AR;
+    a[oX + i * wx + n + j] = (dv[i] * dv[j]) * a[oT + e];
+    a[oX2 + i * wx2 + j] = g_tpp[idx];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+    const int p = idx / n, i = idx - p * n;
+    float* a = ar + p * AR;
+    a[oX + i * wx + 2 * n] = a[oX + i * wx + 2 * n] + a[oJM + i];
+  }
+  mm(ar + oX2 + n, wx2, AR, g_rpm, n, nn, ar + oX + n, wx, AR, n, n, np,
+     false);
+  mm(ar + oX2 + 2 * n, wx2, AR, g_rpm, n, nn, ar + oJM, 1, AR, n, 1, np,
+     false);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+    const int p = idx / n, i = idx - p * n;
+    float* a = ar + p * AR;
+    a[oX2 + i * wx2 + 2 * n] = g_jp[idx] + a[oX2 + i * wx2 + 2 * n];
+  }
+  __syncthreads();
+  mm(ar + oX + 2 * n + 1, wx, AR, ar + oR, n, AR, ar + oX2, wx2, AR, n, wx2,
+     np, false);
+  // a1 = I - r2mp c_rpm; M1 = NS inverse (ni iterations)
+  mm(ar + oA, n, AR, ar + oR, n, AR, g_rpm, n, nn, n, n, np, false);
+  __syncthreads();
+  eye_minus(ar, AR, n, np, oA);
+  __syncthreads();
+  const int oM = ns_solve(ar, AR, n, np, oA, oM0, oM1, oTMP, sch.ni);
+  // y = M1 [x1 | r2mp x2], in place in X, n columns at a time through TMP
+  for (int c0 = 0; c0 < wx; c0 += n) {
+    const int kb = min(n, wx - c0);
+    mm(ar + oTMP, n, AR, ar + oM, n, AR, ar + oX + c0, wx, AR, n, kb, np,
+       false);
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < np * n * kb; idx += blockDim.x) {
+      const int p = idx / (n * kb), e = idx - p * n * kb;
+      const int i = e / kb, j = e - i * kb;
+      ar[p * AR + oX + i * wx + c0 + j] = ar[p * AR + oTMP + i * n + j];
+    }
+    __syncthreads();
+  }
+  // o1 = c_tmm y[:, 0:2n+1] (into the free NS region)
+  const int oO = oA;
+  mm(ar + oO, wx2, AR, g_tmm, n, nn, ar + oX, wx, AR, n, wx2, np, false);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
+    const float* o = ar + p * AR + oO + i * wx2;
+    o_rmp[gm + idx] = g_rmp[idx] + o[j];
+    o_tmm[gm + idx] = o[n + j];
+  }
+  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+    const int p = idx / n, i = idx - p * n;
+    o_jm[gv + idx] = g_jm[idx] + ar[p * AR + oO + i * wx2 + 2 * n];
+  }
+  // x2 += c_rpm y[:, 2n+1:4n+2]; o2 = t2 x2
+  mm(ar + oX2, wx2, AR, g_rpm, n, nn, ar + oX + 2 * n + 1, wx, AR, n, wx2,
+     np, true);
+  __syncthreads();
+  mm(ar + oO, wx2, AR, ar + oT, n, AR, ar + oX2, wx2, AR, n, wx2, np, false);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
+    const float* a = ar + p * AR;
+    const float* o = a + oO + i * wx2;
+    o_tpp[gm + idx] = o[j];
+    o_rpm[gm + idx] = (dv[i] * dv[j]) * a[oR + e] + o[n + j];
+  }
+  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+    const int p = idx / n, i = idx - p * n;
+    o_jp[gv + idx] = ar[p * AR + oJP + i] + ar[p * AR + oO + i * wx2 + 2 * n];
+  }
+}
+
+}  // namespace
+
+// Launch one layer step on `stream`. Returns the cudaError_t of the launch
+// (0 on success); the caller raises on anything else.
+extern "C" int vsm_layer_step(
+    const float* c_rmp, const float* c_rpm, const float* c_tpp,
+    const float* c_tmm, const float* c_jp, const float* c_jm,
+    const float* r_f, const float* t, const float* jp, const float* jm_f,
+    const float* ek, const float* d, float* o_rmp, float* o_rpm,
+    float* o_tpp, float* o_tmm, float* o_jp, float* o_jm, int S, int n,
+    const int* sched, int nd, int ni, int pts_per_block, int smem_bytes,
+    void* stream) {
+  if (S <= 0) return 0;
+  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || pts_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t need =
+      (size_t)(n + pts_per_block * arena_floats(n)) * sizeof(float);
+  if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
+  Schedule s;
+  s.nd = nd;
+  s.ni = ni;
+  for (int i = 0; i < kMaxSched; ++i) s.it[i] = i < nd ? sched[i] : 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      layer_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (S + pts_per_block - 1) / pts_per_block;
+  layer_step_kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d, o_rmp,
+      o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, pts_per_block, s);
+  return (int)cudaGetLastError();
+}

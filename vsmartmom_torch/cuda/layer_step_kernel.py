@@ -1,0 +1,184 @@
+"""Fused RT layer step (doubling + adding) — CUDA kernel and plain version.
+
+Replaces the TPU kernel ``vsmartmom/pallas/layer_step_kernel.py:
+_layer_step_kernel`` (with ``doubling_body`` of
+``vsmartmom/pallas/doubling_kernel.py``), reached from
+``_fused_layer_step_prim``. One call does one layer: Newton-Schulz
+scheduled doubling of the flipped elemental layer, the D-unflip, and the
+adding under the composite with ONE NS solve through the push-through
+identity (I - c_rpm r2)^-1 = I + c_rpm (I - r2 c_rpm)^-1 r2.
+
+What bounds it on Hopper: each spectral point is a chain of ~20-80 small
+dependent N x N products (N = 12..63) on the point's own data. Per point the
+kernel reads 4 composite + 2 elemental matrices and writes 4, so device
+memory traffic is small against the O(N^3) work per product; the work is
+fp32 FMA on the CUDA cores (no TF32, no tensor cores), fed from shared
+memory. Design: one block of 256 threads handles P points; every point's
+state (the elemental layer, the NS iterates, the packed right-hand operands)
+lives in its own shared-memory arena for the whole step, so nothing but the
+inputs and the new composite touches device memory. P is chosen so a block
+uses at most ~48 KB (several blocks per SM at small N); at N = 44 a block
+holds one point (92 KB), at N = 63 one point (188 KB, via the opt-in
+dynamic shared-memory limit). The ragged last block is masked in the kernel.
+
+The plain version (``fused_layer_step_plain``) computes the same algebra
+with torch batched matmuls. The wrapper takes it only for CPU tensors; for
+CUDA tensors it launches the kernel or raises. Forward only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vsmartmom_torch.core.rt import LayerRT, bmm
+
+#: shared memory a block may use on Hopper (227 KB)
+MAX_SHARED_BYTES = 232448
+#: target shared memory per block when several points fit
+_TARGET_BLOCK_BYTES = 48 * 1024
+_MAX_POINTS_PER_BLOCK = 16
+#: longest doubling schedule the kernel's launch parameters hold
+MAX_SCHEDULE = 64
+
+#: kernel launches since the count was last reset (set it to 0 to reset)
+launches = 0
+
+
+def arena_floats(n: int) -> int:
+    """Shared-memory floats one spectral point uses (must match
+    ``arena_floats`` in csrc/layer_step.cu): r, t (2 n^2), jp, jm (2n),
+    ek (1), NS scratch (4 n^2) and the packed operands (6 n^2 + 4n)."""
+    return 12 * n * n + 6 * n + 1
+
+
+def launch_config(n: int):
+    """(points per block, dynamic shared-memory bytes) at stream count n."""
+    per_point = 4 * arena_floats(n)
+    pts = max(1, min(_MAX_POINTS_PER_BLOCK, _TARGET_BLOCK_BYTES // per_point))
+    return pts, 4 * (n + pts * arena_floats(n))
+
+
+def ns_m(a, iters: int):
+    """Newton-Schulz approximate inverse M of A = I - B, rho(B) < 1."""
+    n = a.shape[-1]
+    eye2 = 2.0 * torch.eye(n, dtype=a.dtype, device=a.device)
+    m = eye2 - a
+    for _ in range(iters):
+        m = bmm(m, eye2 - bmm(a, m))
+    return m
+
+
+def doubling_body(r, t, jp, jm, ek, ns_schedule):
+    """Doubling recursion over a static NS schedule (flipped space);
+    ek: (S, 1)."""
+    n = r.shape[-1]
+    eye = torch.eye(n, dtype=r.dtype, device=r.device)
+    for it in ns_schedule:
+        a = eye - bmm(r, r)
+        m = 2.0 * eye - a               # = I + r r
+        for _ in range(it):
+            m = bmm(m, 2.0 * eye - bmm(a, m))
+        j1p = jp * ek
+        j1m = jm * ek
+        rp = bmm(r, torch.cat([t, jp[..., None], j1m[..., None]], dim=-1))
+        v1 = j1m + rp[..., n]           # j1m + r jp
+        v2 = jp + rp[..., n + 1]        # jp  + r j1m
+        pack2 = torch.cat([rp[..., :n], t, v1[..., None], v2[..., None]],
+                          dim=-1)
+        tp = bmm(t, bmm(m, pack2))      # t M [r t | t | v1 | v2]
+        jm = jm + tp[..., 2 * n]
+        jp = j1p + tp[..., 2 * n + 1]
+        r = r + tp[..., :n]
+        t = tp[..., n:2 * n]
+        ek = ek * ek
+    return r, t, jp, jm
+
+
+def fused_layer_step_plain(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
+                           ns_schedule, ni: int) -> LayerRT:
+    """Plain torch version of the kernel: the same doubling, unflip and
+    push-through adding, one batched matmul at a time."""
+    r_f2, t2, jp2, jm_f2 = doubling_body(r_f, t, jp, jm_f, ek[:, None],
+                                         ns_schedule)
+    d = d_vec[None, :]
+    r2mp = d[:, :, None] * r_f2             # un-flip rows
+    j2m = d * jm_f2
+    sgn = d[:, :, None] * d[:, None, :]
+    r2pm = sgn * r2mp
+    t2mm = sgn * t2
+    n = r2mp.shape[-1]
+    eye = torch.eye(n, dtype=r2mp.dtype, device=r2mp.device)
+
+    a1 = eye - bmm(r2mp, comp.r_pm)
+    w1 = bmm(r2mp, torch.cat([comp.t_pp, comp.j_p[..., None]], dim=-1))
+    v1 = w1[..., n] + j2m
+    x1 = torch.cat([w1[..., :n], t2mm, v1[..., None]], dim=-1)
+    w2 = bmm(comp.r_pm, torch.cat([t2mm, j2m[..., None]], dim=-1))
+    v2 = comp.j_p + w2[..., n]
+    x2 = torch.cat([comp.t_pp, w2[..., :n], v2[..., None]], dim=-1)
+    # one NS solve; the second interaction solve by push-through
+    y = bmm(ns_m(a1, ni), torch.cat([x1, bmm(r2mp, x2)], dim=-1))
+    o1 = bmm(comp.t_mm, y[..., :2 * n + 1])
+    o2 = bmm(t2, x2 + bmm(comp.r_pm, y[..., 2 * n + 1:]))
+    return LayerRT(r_mp=comp.r_mp + o1[..., :n],
+                   r_pm=r2pm + o2[..., n:2 * n],
+                   t_pp=o2[..., :n],
+                   t_mm=o1[..., n:2 * n],
+                   j_p=jp2 + o2[..., 2 * n],
+                   j_m=comp.j_m + o1[..., 2 * n])
+
+
+def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
+                     ns_schedule, ni: int) -> LayerRT:
+    """One RT layer step: double the elemental (flipped-space) layer and
+    compose it under the composite. comp: LayerRT of (S, N, N) x 4 and
+    (S, N) x 2; r_f, t: (S, N, N); jp, jm_f: (S, N); ek: (S,); d_vec: (N,).
+    ``ns_schedule``: per-doubling-step NS iteration counts; ``ni``: NS
+    iterations of the interaction solve. Returns the new composite.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32, contiguous, no autograd) or raise.
+    """
+    ns_schedule = tuple(int(i) for i in ns_schedule)
+    if r_f.device.type == "cpu":
+        return fused_layer_step_plain(comp, r_f, t, jp, jm_f, ek, d_vec,
+                                      ns_schedule=ns_schedule, ni=int(ni))
+    if r_f.device.type != "cuda":
+        raise ValueError(f"unsupported device {r_f.device}")
+    s, n, _ = r_f.shape
+    mats = [comp.r_mp, comp.r_pm, comp.t_pp, comp.t_mm, r_f, t]
+    vecs = [comp.j_p, comp.j_m, jp, jm_f]
+    ins = [*mats[:4], *vecs[:2], r_f, t, jp, jm_f, ek, d_vec]
+    for x in ins:
+        if x.device != r_f.device or x.dtype != torch.float32:
+            raise ValueError("fused_layer_step takes float32 tensors on one "
+                             f"device, got {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError("fused_layer_step takes contiguous tensors")
+        if x.requires_grad:
+            raise RuntimeError("fused_layer_step is forward-only")
+    if any(m.shape != (s, n, n) for m in mats) \
+            or any(v.shape != (s, n) for v in vecs) \
+            or ek.shape != (s,) or d_vec.shape != (n,):
+        raise ValueError("fused_layer_step: inconsistent shapes")
+    if len(ns_schedule) > MAX_SCHEDULE:
+        raise ValueError(f"doubling schedule longer than {MAX_SCHEDULE}")
+    pts, smem = launch_config(n)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
+                         f"block, more than {MAX_SHARED_BYTES}")
+    outs = [torch.empty_like(comp.r_mp) for _ in range(4)] \
+        + [torch.empty_like(comp.j_p) for _ in range(2)]
+    if s == 0:
+        return LayerRT(*outs)
+    from vsmartmom_torch.cuda import build
+    sched = (ctypes.c_int * max(1, len(ns_schedule)))(*ns_schedule)
+    err = build.lib().vsm_layer_step(
+        *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
+        s, n, sched, len(ns_schedule), int(ni), pts, smem,
+        torch.cuda.current_stream(r_f.device).cuda_stream)
+    build.check(err, "layer_step launch")
+    global launches
+    launches += 1
+    return LayerRT(*outs)

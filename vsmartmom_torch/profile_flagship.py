@@ -1,0 +1,108 @@
+"""Where the time of the flagship forward run goes, on one CUDA device.
+
+Run from the repository root:
+
+    python3 -m vsmartmom_torch.profile_flagship [--trace DIR]
+
+Builds the Float32 flagship (default_parameters -> model_from_parameters)
+once to warm up, then profiles with ``torch.profiler`` (CPU + CUDA
+activities) one model build and one steady ``rt_run``. For each it prints:
+
+- wall: host seconds around the call, synchronized, profiler on;
+- device busy: the union of the device intervals (kernels, copies, sets)
+  that the profiler recorded inside the call;
+- idle share: 1 - busy / wall. The profiler slows the host, so this is an
+  upper bound of the unprofiled idle share;
+- per device kernel: launches, summed time and its share of device busy.
+
+``--trace DIR`` also writes each phase's Chrome trace into DIR.
+"""
+import argparse
+import collections
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+
+def device_intervals(prof):
+    """(name, start_us, end_us) of every device-side event."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def union_us(intervals):
+    busy, end = 0.0, float("-inf")
+    for _, s, e in sorted(intervals, key=lambda x: x[1]):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def report(phase, wall_s, prof, card, top):
+    iv = device_intervals(prof)
+    if not iv:
+        sys.exit(f"{phase}: the profiler recorded no device time")
+    busy_ms = union_us(iv) / 1e3
+    wall_ms = 1e3 * wall_s
+    print(f"{phase}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+          f"idle share {1.0 - busy_ms / wall_ms:.3f}, {len(iv)} device "
+          f"events [card: {card}]")
+    per = collections.defaultdict(lambda: [0, 0.0])
+    for name, s, e in iv:
+        per[name][0] += 1
+        per[name][1] += (e - s) / 1e3
+    for name, (n, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f} % {n:6d}x  "
+              f"{name[:90]}")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trace", help="directory for the Chrome traces")
+    ap.add_argument("--top", type=int, default=12,
+                    help="device kernels listed per phase")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    import vsmartmom_torch as vt
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi unavailable"
+    dev = torch.device("cuda:0")
+    params = vt.default_parameters()
+    params.float_type = "Float32"
+    model = vt.model_from_parameters(params, device=dev)     # warm-up
+    vt.rt_run(model, device=dev)
+    torch.cuda.synchronize()
+
+    phases = {"model build": lambda: vt.model_from_parameters(params,
+                                                              device=dev),
+              "rt_run": lambda: vt.rt_run(model, device=dev)}
+    for phase, fn in phases.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(phase, wall, prof, card, args.top)
+        if args.trace:
+            os.makedirs(args.trace, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                args.trace, phase.replace(" ", "_") + ".json"))
+
+
+if __name__ == "__main__":
+    main()
