@@ -3,9 +3,9 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-1. Builds the two hand-written kernels from vsmartmom_torch/csrc (nvcc,
-   sm_90a) and prints each kernel's registers, shared and local memory
-   (cuobjdump on the built library).
+1. Builds the four hand-written kernels from vsmartmom_torch/csrc (one nvcc
+   per source, all started together, sm_90a) and prints each kernel's
+   registers, shared and local memory (cuobjdump on the built library).
 2. Drives the flagship O2 A-band forward run through the public API at full
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
@@ -16,12 +16,31 @@ Run from the repository root:  python3 chip_smoke.py
    kernel's plain torch version on the same inputs (layer step: max|diff| /
    max < 1e-5 per field; Voigt: max|diff| <= 2e-5 max sigma, and <= 1e-3 max
    sigma against the dense f64 engine), plus the layer step at N = 44
-   (Stokes IQUV), and times kernel and plain version with CUDA events.
+   (Stokes IQUV) on a synthetic slab, and times kernel and plain version
+   with CUDA events.
 4. Checks R and T: finite, physical, and within 1e-3 (max|dR| / max R) of the
    float64 torch engine at the same Newton-Schulz schedules on the card.
+5. (a) The flagship again through rt_run(engine="kernel_dev"): 102 launches
+   of the split-form layer-step kernel and none of the plain one, every
+   launch within 1e-5 of its plain version per field, R/T within 1e-3 of
+   float64, steady time.
+6. (b) The headline IQUV shape (N = 44, 20 000 points, 10 layers, 3 moments,
+   the bench.py harness's atmosphere) through rt_run_band with each of the
+   kernel, kernel_dev and kernel_doubling engines: 30 launches each, every
+   launch within 1e-5 of its plain version, R within 1e-3 of the float64
+   torch engine, kernel and plain version timed with CUDA events.
+7. (c) Natraj (IQUV, RadauQuad l_trunc 20 + 16 views: N = 136) in float32 on
+   cuda:0 with engine="auto": the run takes torch_dev and passes the Natraj
+   gates (I < 0.002, Q/U < 0.008).
+
+Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
+67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
+(inputs read once, outputs written once) over 3.35 TB/s, from this run's
+shapes and schedules. No single PyTorch call computes any of these kernels'
+functions, so library_ms is null.
 
 The last two lines of standard output are one JSON object with the kernels'
-launch counts, errors and times, then the result line
+launch counts, errors, times and bounds, then the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
 """
@@ -30,6 +49,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 
 def fail(msg, code=1):
@@ -56,6 +77,71 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+#: H100 SXM peaks at 700 W (NVIDIA data sheet): float32 outside the
+#: tensor cores, and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+class KernelStats:
+    """One kernel's launches compared with its plain version: the largest
+    errors, the times, and the work (FLOPs, device bytes) they needed."""
+
+    def __init__(self):
+        self.rel = self.abs = 0.0
+        self.calls = 0
+        self.ms, self.plain_ms = [], []
+        self.flops = self.nbytes = 0
+
+    def mean_ms(self):
+        return float(np.mean(self.ms)), float(np.mean(self.plain_ms))
+
+    def bound(self):
+        """(least ms per launch, what bounds it) over the compared launches."""
+        t_ops = self.flops / PEAK_F32_FLOPS
+        t_bytes = self.nbytes / PEAK_BYTES
+        return (1e3 * max(t_ops, t_bytes) / self.calls,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def entry(self, name, source, replaces, launches):
+        ms, plain_ms = self.mean_ms()
+        bound_ms, bound_by = self.bound()
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": self.abs, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+
+
+def compare_hook(torch, stats, real, plain, work, reps=(3, 1)):
+    """A stand-in for a kernel wrapper that launches the kernel, holds every
+    output field against the plain version on the same inputs (max|diff| /
+    max of the field), counts the call's work and times both."""
+    def wrapper(*args, **kw):
+        out = real(*args, **kw)
+        ref = plain(*args, **kw)
+        outs, refs = ((out, ref) if isinstance(out, tuple)
+                      else ((out,), (ref,)))
+        for a, b in zip(outs, refs):
+            err = float((a - b).abs().max())
+            stats.abs = max(stats.abs, err)
+            stats.rel = max(stats.rel,
+                            err / max(float(b.abs().max()), 1e-30))
+        flops, nbytes = work(*args, **kw)
+        stats.calls += 1
+        stats.flops += flops
+        stats.nbytes += nbytes
+        stats.ms.append(cuda_ms(torch, lambda: real(*args, **kw), reps[0]))
+        stats.plain_ms.append(
+            cuda_ms(torch, lambda: plain(*args, **kw), reps[1]))
+        return out
+    return wrapper
+
+
+def rel_err(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -66,21 +152,32 @@ def main():
              f"checkout of the repository")
     sys.path.insert(0, here)
 
-    import numpy as np
-
     import vsmartmom_torch as vt
     from vsmartmom_torch.core.api import build_band_inputs
     from vsmartmom_torch.core.rt import LayerRT, vacuum_layer
-    from vsmartmom_torch.core.rt_run import rt_run_band
+    import vsmartmom_torch.core.rt_run as rtr
+    from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
     from vsmartmom_torch.cuda import build
+    from vsmartmom_torch.cuda import doubling_kernel as dk
+    from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
     from vsmartmom_torch.cuda import layer_step_kernel as lsk
     from vsmartmom_torch.cuda import voigt_kernel as vk
+    from vsmartmom_torch.scattering.phase import (Polarization,
+                                                  get_greek_rayleigh)
+    from vsmartmom_torch.util.quadrature import rt_set_streams
     from vsmartmom_torch.spectroscopy.profiles import \
         compute_absorption_profile
     from vsmartmom_torch.spectroscopy.voigt import (
         compute_absorption_cross_section, make_hitran_model)
 
     dev = torch.device("cuda:0")
+
+    def reset_counts():
+        lsk.launches = ldk.launches = dk.launches = vk.launches = 0
+
+    def counts():
+        return {"kernel": lsk.launches, "kernel_dev": ldk.launches,
+                "kernel_doubling": dk.launches, "voigt": vk.launches}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -106,8 +203,7 @@ def main():
     grid = np.asarray(params.spec_bands[0], np.float64)
     n_spec = len(grid)
 
-    vk.launches = 0
-    lsk.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = vt.model_from_parameters(params, device=dev)
@@ -152,31 +248,20 @@ def main():
           f"{n_spec / t_steady:.1f} points/s {tag}")
 
     # ---- 3a. Voigt kernel vs plain version at every layer's (p, T) ----------
-    v_stats = {"rel": 0.0, "abs": 0.0, "calls": 0, "ms": [], "plain_ms": []}
+    v_stats = KernelStats()
     real_voigt = vk.voigt_tiles
-
-    def compare_voigt(*args):
-        out = real_voigt(*args)
-        ref = vk.voigt_tiles_plain(*args)
-        err = float((out - ref).abs().max())
-        v_stats["abs"] = max(v_stats["abs"], err)
-        v_stats["rel"] = max(v_stats["rel"], err / float(ref.abs().max()))
-        v_stats["calls"] += 1
-        v_stats["ms"].append(cuda_ms(torch, lambda: real_voigt(*args), 10))
-        v_stats["plain_ms"].append(
-            cuda_ms(torch, lambda: vk.voigt_tiles_plain(*args), 2))
-        return out
-
-    vk.voigt_tiles = compare_voigt
+    vk.voigt_tiles = compare_hook(torch, v_stats, real_voigt,
+                                  vk.voigt_tiles_plain, vk.voigt_work,
+                                  reps=(10, 2))
     try:
         compute_absorption_profile(np.zeros((n_spec, n_z)), "O2", ap, grid,
                                    0.21, model.profile, engine="kernel",
                                    device=dev)
     finally:
         vk.voigt_tiles = real_voigt
-    check(v_stats["calls"] == n_z, "Voigt comparison did not run per layer")
-    check(v_stats["rel"] <= 2e-5, f"Voigt kernel vs plain: "
-          f"{v_stats['rel']:.3e} of max sigma > 2e-5")
+    check(v_stats.calls == n_z, "Voigt comparison did not run per layer")
+    check(v_stats.rel <= 2e-5, f"Voigt kernel vs plain: "
+          f"{v_stats.rel:.3e} of max sigma > 2e-5")
     # against the dense f64 engine at the bottom layer's (p, T)
     from vsmartmom_torch.spectroscopy.profiles import (hitran_artifact,
                                                        read_linelist)
@@ -194,48 +279,50 @@ def main():
     t_dense = time.perf_counter() - t0
     dense_rel = float((sig_k - sig_d).abs().max() / sig_d.abs().max())
     check(dense_rel <= 1e-3, f"Voigt kernel vs dense f64: {dense_rel:.3e}")
-    v_ms = float(np.mean(v_stats["ms"]))
-    v_plain = float(np.mean(v_stats["plain_ms"]))
+    v_ms, v_plain = v_stats.mean_ms()
+    v_bound, v_by = v_stats.bound()
     print(f"voigt: {len(ht)} lines, {n_z} layers: max|diff| vs plain "
-          f"{v_stats['abs']:.3e} ({v_stats['rel']:.3e} of max sigma), vs "
+          f"{v_stats.abs:.3e} ({v_stats.rel:.3e} of max sigma), vs "
           f"dense f64 {dense_rel:.3e} of max sigma; kernel {v_ms:.4f} ms, "
-          f"plain {v_plain:.4f} ms, dense f64 {1e3 * t_dense:.2f} ms per "
-          f"layer {tag}")
+          f"plain {v_plain:.4f} ms, dense f64 {1e3 * t_dense:.2f} ms, bound "
+          f"{v_bound:.4f} ms ({v_by}) per layer {tag}")
 
     # ---- 3b. layer-step kernel vs plain version at every layer and moment ---
-    s_stats = {"rel": 0.0, "abs": 0.0, "calls": 0, "ms": [], "plain_ms": []}
+    def step_work(comp, r_f, *args, ns_schedule, ni):
+        s_, n_ = r_f.shape[0], r_f.shape[1]
+        return (s_ * lsk.step_flops(n_, ns_schedule, ni),
+                s_ * lsk.step_bytes(n_))
+
+    def dev_step_work(comp, r_f, *args, ns_schedule, ni):
+        s_, n_ = r_f.shape[0], r_f.shape[1]
+        return (s_ * ldk.step_flops(n_, ns_schedule, ni),
+                s_ * ldk.step_bytes(n_))
+
+    def doubling_work(r, *args, ns_schedule):
+        s_, n_ = r.shape[0], r.shape[1]
+        return (s_ * lsk.doubling_flops(n_, ns_schedule),
+                s_ * dk.doubling_bytes(n_))
+
+    s_stats = KernelStats()
     real_step = lsk.fused_layer_step
-
-    def compare_step(comp, *args, **kw):
-        out = real_step(comp, *args, **kw)
-        ref = lsk.fused_layer_step_plain(comp, *args, **kw)
-        for a, b in zip(out, ref):
-            err = float((a - b).abs().max())
-            s_stats["abs"] = max(s_stats["abs"], err)
-            s_stats["rel"] = max(s_stats["rel"],
-                                 err / max(float(b.abs().max()), 1e-30))
-        s_stats["calls"] += 1
-        s_stats["ms"].append(
-            cuda_ms(torch, lambda: real_step(comp, *args, **kw), 3))
-        s_stats["plain_ms"].append(cuda_ms(
-            torch, lambda: lsk.fused_layer_step_plain(comp, *args, **kw), 1))
-        return out
-
-    lsk.fused_layer_step = compare_step
+    lsk.fused_layer_step = compare_hook(torch, s_stats, real_step,
+                                        lsk.fused_layer_step_plain,
+                                        step_work)
     try:
         vt.rt_run(model, device=dev)
     finally:
         lsk.fused_layer_step = real_step
-    check(s_stats["calls"] == max_m * n_z, "layer-step comparison did not "
+    check(s_stats.calls == max_m * n_z, "layer-step comparison did not "
           "run per layer")
-    check(s_stats["rel"] < 1e-5, f"layer-step kernel vs plain: max|diff| / "
-          f"max = {s_stats['rel']:.3e} >= 1e-5")
-    s_ms = float(np.mean(s_stats["ms"]))
-    s_plain = float(np.mean(s_stats["plain_ms"]))
-    print(f"layer step (N={len(model.quad_points.qp_mu_n)}, S={n_spec}): "
-          f"{s_stats['calls']} calls, max|diff| vs plain {s_stats['abs']:.3e}"
-          f" ({s_stats['rel']:.3e} of max); kernel {s_ms:.3f} ms, plain "
-          f"{s_plain:.3f} ms per layer step (mean) {tag}")
+    check(s_stats.rel < 1e-5, f"layer-step kernel vs plain: max|diff| / "
+          f"max = {s_stats.rel:.3e} >= 1e-5")
+    s_ms, s_plain = s_stats.mean_ms()
+    s_bound, s_by = s_stats.bound()
+    n_flag = len(model.quad_points.qp_mu_n)
+    print(f"layer step (N={n_flag}, S={n_spec}): {s_stats.calls} calls, "
+          f"max|diff| vs plain {s_stats.abs:.3e} ({s_stats.rel:.3e} of "
+          f"max); kernel {s_ms:.3f} ms, plain {s_plain:.3f} ms, bound "
+          f"{s_bound:.4f} ms ({s_by}) per layer step (mean) {tag}")
 
     # the IQUV shape: N = 44, 20 000 points, a passive random slab under a
     # composite built by two plain steps
@@ -273,8 +360,11 @@ def main():
         *args44, ns_schedule=sched, ni=3), 3)
     plain44 = cuda_ms(torch, lambda: lsk.fused_layer_step_plain(
         *args44, ns_schedule=sched, ni=3), 1)
+    bound44 = 1e3 * max(S * lsk.step_flops(n, sched, 3) / PEAK_F32_FLOPS,
+                        S * lsk.step_bytes(n) / PEAK_BYTES)
     print(f"layer step (N=44, S={S}, nd={nd}): max|diff| / max {rel44:.3e};"
-          f" kernel {ms44:.3f} ms, plain {plain44:.3f} ms {tag}")
+          f" kernel {ms44:.3f} ms, plain {plain44:.3f} ms, bound "
+          f"{bound44:.3f} ms {tag}")
     del comp, args44, out, ref
 
     # ---- 4. against the float64 torch engine at the same schedules ----------
@@ -286,32 +376,198 @@ def main():
                            device=dev, solver="schulz", engine="torch")
     torch.cuda.synchronize()
     t64 = time.perf_counter() - t0
-    rel_r = float(np.abs(R - R64).max() / np.abs(R64).max())
-    rel_t = float(np.abs(T - T64).max() / np.abs(T64).max())
+    rel_r, rel_t = rel_err(R, R64), rel_err(T, T64)
     print(f"float32 kernel path vs float64 torch engine: max|dR|/max R = "
           f"{rel_r:.3e}, max|dT|/max T = {rel_t:.3e} (float64 run "
           f"{t64:.2f} s) {tag}")
     check(rel_r < 1e-3 and rel_t < 1e-3, "flagship R/T off the float64 "
           "reference by >= 1e-3")
 
+    # ---- 5. (a) the flagship through the split-form kernel ------------------
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Rd, Td = vt.rt_run(model, device=dev, engine="kernel_dev")
+    torch.cuda.synchronize()
+    t_dev_first = time.perf_counter() - t0
+    n_dev = counts()
+    print(f"flagship kernel_dev: launches {n_dev} {tag}")
+    check(n_dev["kernel_dev"] == max_m * n_z and n_dev["kernel"] == 0,
+          f"flagship kernel_dev launches {n_dev}, expected "
+          f"{max_m * n_z} split-form and 0 plain layer steps")
+    check(np.isfinite(Rd).all() and np.isfinite(Td).all(),
+          "non-finite kernel_dev R/T")
+    t_dev = np.inf
+    for _ in range(2):
+        t0 = time.perf_counter()
+        vt.rt_run(model, device=dev, engine="kernel_dev")
+        torch.cuda.synchronize()
+        t_dev = min(t_dev, time.perf_counter() - t0)
+    d_stats = KernelStats()
+    real_dev = ldk.fused_layer_step_dev
+    ldk.fused_layer_step_dev = compare_hook(
+        torch, d_stats, real_dev, ldk.fused_layer_step_dev_plain,
+        dev_step_work)
+    try:
+        vt.rt_run(model, device=dev, engine="kernel_dev")
+    finally:
+        ldk.fused_layer_step_dev = real_dev
+    check(d_stats.calls == max_m * n_z, "split-form comparison did not run "
+          "per layer")
+    check(d_stats.rel < 1e-5, f"split-form kernel vs plain: max|diff| / max"
+          f" = {d_stats.rel:.3e} >= 1e-5")
+    d_ms, d_plain = d_stats.mean_ms()
+    d_bound, d_by = d_stats.bound()
+    rel_rd, rel_td = rel_err(Rd, R64), rel_err(Td, T64)
+    print(f"split-form layer step (N={n_flag}, S={n_spec}): "
+          f"{d_stats.calls} calls, max|diff| vs plain {d_stats.abs:.3e} "
+          f"({d_stats.rel:.3e} of max); kernel {d_ms:.3f} ms, plain "
+          f"{d_plain:.3f} ms, bound {d_bound:.4f} ms ({d_by}) per layer "
+          f"step (mean) {tag}")
+    print(f"flagship vs float64 torch engine: kernel_dev max|dR|/max R = "
+          f"{rel_rd:.3e}, max|dT|/max T = {rel_td:.3e}; kernel (plain form) "
+          f"{rel_r:.3e}, {rel_t:.3e}; rt_run kernel_dev first "
+          f"{t_dev_first:.3f} s, steady {t_dev:.3f} s = "
+          f"{n_spec / t_dev:.1f} points/s {tag}")
+    check(rel_rd < 1e-3 and rel_td < 1e-3, "flagship kernel_dev R/T off the "
+          "float64 reference by >= 1e-3")
+    del model, band
+
+    # ---- 6. (b) the headline IQUV shape through the three kernel engines ----
+    pol_h = Polarization.from_name("Stokes_IQUV")
+    quad_h = rt_set_streams("GaussQuadFullSphere", 15, 45.0, [0.0, 30.0],
+                            pol_h.n)
+    n_h, nz_h, ns_h, m_h = len(quad_h.qp_mu_n), 10, 20_000, 3
+    rng = np.random.default_rng(0)
+    tau_scat = np.full((nz_h, ns_h), 0.05)
+    tau_h = tau_scat + rng.uniform(0.0, 0.5, size=(nz_h, ns_h))
+    band_h = BandRTInputs(tau=tau_h, omega=tau_scat / tau_h,
+                          zw=np.ones((nz_h, 1, ns_h)),
+                          greeks=[get_greek_rayleigh(0.0)])
+    surf_h = {"type": "LambertianSurfaceScalar", "albedo": 0.15}
+
+    def run_h(engine, dtype=torch.float32):
+        return rt_run_band(pol_h, quad_h, band_h, [0.0, 30.0], [0.0, 0.0],
+                           m_h, surf_h, dtype=dtype, device=dev,
+                           solver="schulz", engine=engine)
+
+    t0 = time.perf_counter()
+    R64h, _ = run_h("torch", torch.float64)
+    torch.cuda.synchronize()
+    print(f"headline (N={n_h}, S={ns_h}, {nz_h} layers, {m_h} moments): "
+          f"float64 torch engine {time.perf_counter() - t0:.2f} s {tag}")
+    check(n_h == 44, f"headline quadrature has N = {n_h}, expected 44")
+    hooks = {"kernel": (lsk, "fused_layer_step", lsk.fused_layer_step_plain,
+                        step_work),
+             "kernel_dev": (ldk, "fused_layer_step_dev",
+                            ldk.fused_layer_step_dev_plain, dev_step_work),
+             "kernel_doubling": (dk, "fused_doubling", dk.fused_doubling_plain,
+                                 doubling_work)}
+    h_stats, h_launches = {}, {}
+    for engine, (mod, fname, plain, work) in hooks.items():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Rh, Th = run_h(engine)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        c = counts()
+        h_launches[engine] = c[engine]
+        check(c[engine] == m_h * nz_h and sum(c.values()) == c[engine],
+              f"headline {engine}: launches {c}, expected {m_h * nz_h} of "
+              f"{engine} only")
+        st = h_stats[engine] = KernelStats()
+        real = getattr(mod, fname)
+        setattr(mod, fname, compare_hook(torch, st, real, plain, work,
+                                         reps=(2, 1)))
+        try:
+            run_h(engine)
+        finally:
+            setattr(mod, fname, real)
+        check(st.calls == m_h * nz_h, f"headline {engine} comparison did "
+              f"not run per layer")
+        check(st.rel < 1e-5, f"headline {engine} kernel vs plain: "
+              f"{st.rel:.3e} >= 1e-5")
+        rel_h = rel_err(Rh, R64h)
+        check(np.isfinite(Rh).all() and rel_h < 1e-3,
+              f"headline {engine}: R off float64 by {rel_h:.3e}")
+        ms, plain_ms = st.mean_ms()
+        bound, by = st.bound()
+        print(f"headline {engine}: {c[engine]} launches, run {t_run:.3f} s, "
+              f"max|dR|/max R vs float64 {rel_h:.3e}; kernel vs plain "
+              f"max|diff| {st.abs:.3e} ({st.rel:.3e} of max); kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+              f"({by}) per launch (mean) {tag}")
+        del Rh, Th
+
+    # ---- 7. (c) float32 Natraj (N = 148) under auto -------------------------
+    nat = np.load(os.path.join(here, "tests", "data", "natraj_trues.npz"))
+    mu = np.array([0.02, 0.06, 0.10, 0.16, 0.20, 0.28, 0.32, 0.40, 0.52,
+                   0.64, 0.72, 0.84, 0.92, 0.96, 0.98, 1.00])
+    vza = np.degrees(np.arccos(mu))
+    quad_n = rt_set_streams("RadauQuad", 20, np.degrees(np.arccos(0.2)), vza,
+                            pol_h.n)
+    band_n = BandRTInputs(tau=np.full((1, 2), 0.5), omega=np.ones((1, 2)),
+                          zw=np.ones((1, 1, 2)),
+                          greeks=[get_greek_rayleigh(0.0)])
+    picked = []
+    real_select = rtr.select_engine
+
+    def recording_select(*a, **kw):
+        picked.append(real_select(*a, **kw))
+        return picked[-1]
+
+    I_m, Q_m, U_m = (np.zeros((16, 7)) for _ in range(3))
+    reset_counts()
+    rtr.select_engine = recording_select
+    try:
+        for j, phi in enumerate(np.arange(0.0, 181.0, 30.0)):
+            Rn, _ = rt_run_band(pol_h, quad_n, band_n, vza, [phi] * 16, 3,
+                                {"type": "LambertianSurfaceScalar",
+                                 "albedo": 0.0}, dtype=torch.float32,
+                                device=dev, engine="auto")
+            I_m[:, j], Q_m[:, j], U_m[:, j] = Rn[:, 0, 0], Rn[:, 1, 0], \
+                Rn[:, 2, 0]
+    finally:
+        rtr.select_engine = real_select
+    n_q = len(quad_n.qp_mu_n)
+    err_i = float(np.max(np.abs(nat["I_trues"] - I_m) / nat["I_trues"]))
+    q_mask, u_mask = Q_m >= 0.01, U_m >= 0.01
+    err_q = float(np.max(np.abs(nat["Q_trues"] - Q_m)[q_mask]
+                         / np.abs(nat["Q_trues"])[q_mask]))
+    with np.errstate(invalid="ignore"):
+        err_u = float(np.nanmax(np.abs(nat["U_trues"] - U_m)[u_mask]
+                                / np.abs(nat["U_trues"])[u_mask]))
+    print(f"Natraj float32 auto (N={n_q}): engines {sorted(set(picked))}, "
+          f"launches {counts()}; max rel err I {err_i:.3e} (< 0.002), "
+          f"Q {err_q:.3e}, U {err_u:.3e} (< 0.008) {tag}")
+    check(n_q > rtr.KERNEL_MAX_N, f"Natraj quadrature has N = {n_q}, "
+          f"expected more than {rtr.KERNEL_MAX_N}")
+    check(picked == ["torch_dev"] * 7, f"Natraj auto took {picked}")
+    check(sum(counts().values()) == 0, "Natraj torch_dev launched kernels")
+    check(err_i < 0.002 and err_q < 0.008 and err_u < 0.008,
+          "float32 Natraj off its gates")
+
     kernels = [
-        {"name": "fused_layer_step", "route": "cuda",
-         "source": "vsmartmom_torch/csrc/layer_step.cu",
-         "replaces": "vsmartmom/pallas/layer_step_kernel.py:67",
-         "launches": n_step, "max_abs_err": s_stats["abs"],
-         "ms": s_ms, "plain_ms": s_plain},
-        {"name": "voigt_tiles", "route": "cuda",
-         "source": "vsmartmom_torch/csrc/voigt.cu",
-         "replaces": "vsmartmom/pallas/voigt_kernel.py:90",
-         "launches": n_voigt, "max_abs_err": v_stats["abs"],
-         "ms": v_ms, "plain_ms": v_plain},
+        s_stats.entry("fused_layer_step",
+                      "vsmartmom_torch/csrc/layer_step.cu",
+                      "vsmartmom/pallas/layer_step_kernel.py:67", n_step),
+        v_stats.entry("voigt_tiles", "vsmartmom_torch/csrc/voigt.cu",
+                      "vsmartmom/pallas/voigt_kernel.py:90", n_voigt),
+        d_stats.entry("fused_layer_step_dev",
+                      "vsmartmom_torch/csrc/layer_step_dev.cu",
+                      "vsmartmom/pallas/layer_step_kernel.py:132",
+                      n_dev["kernel_dev"]),
+        h_stats["kernel_doubling"].entry(
+            "fused_doubling", "vsmartmom_torch/csrc/layer_step.cu",
+            "vsmartmom/pallas/doubling_kernel.py:105",
+            h_launches["kernel_doubling"]),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -32,8 +32,8 @@ def _params(pkg):
 def flagship():
     jm = jax_pkg.model_from_parameters(_params(jax_pkg))
     jR, jT = jax_pkg.rt_run(jm)
-    tm = port.model_from_parameters(_params(port))
-    tR, tT = port.rt_run(tm)
+    tm = port.model_from_parameters(_params(port), device="cpu")
+    tR, tT = port.rt_run(tm, device="cpu")
     return jm, (jR, jT), tm, (tR, tT)
 
 
@@ -73,7 +73,7 @@ def test_port_rt_on_jax_model(flagship):
     """The port's RT on exactly the JAX build (model_from_arrays): any
     difference is the RT's, not the model build's."""
     jm, (jR, _), _, _ = flagship
-    R, _ = port.rt_run(model_from_arrays(jm))
+    R, _ = port.rt_run(model_from_arrays(jm), device="cpu")
     np.testing.assert_allclose(R, jR, rtol=1e-8, atol=0.0)
 
 
@@ -91,16 +91,17 @@ def test_kernel_engines_on_flagship_window(flagship):
     ap = tm.params.absorption_params
     ta = np.zeros_like(tm.tau_abs[0])
     compute_absorption_profile(ta, "O2", ap, WINDOW, 0.21, tm.profile,
-                               engine="kernel")
+                               engine="kernel", device="cpu")
     np.testing.assert_allclose(ta, tm.tau_abs[0], rtol=0,
                                atol=1e-3 * tm.tau_abs[0].max())
     args = (tm.pol, tm.quad_points, build_band_inputs(tm, 0),
             tm.obs_geom.vza, tm.obs_geom.vaz, tm.params.max_m,
             tm.params.surfaces[0])
     # same Newton-Schulz schedules in float64 through the torch engine
-    R64, _ = rt_run_band(*args, solver="schulz", engine="torch")
+    R64, _ = rt_run_band(*args, solver="schulz", engine="torch",
+                         device="cpu")
     R32, _ = rt_run_band(*args, dtype=torch.float32, solver="schulz",
-                         engine="kernel")
+                         engine="kernel", device="cpu")
     assert np.abs(R32 - R64).max() / np.abs(R64).max() < 1e-3
     # the schedules' quantized (finer) doubling stays inside the 6SV1 gate
     assert np.abs(R64 - tR).max() / np.abs(tR).max() < 6e-3

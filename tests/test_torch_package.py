@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
+"""The port stands alone: neither the package nor chip_smoke.py imports JAX
+or the JAX package, every engine runs on the CPU with JAX blocked, and
 building a kernel waits for the first launch on a CUDA tensor."""
 import ast
 import os
@@ -22,6 +23,8 @@ import vsmartmom_torch
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
 from vsmartmom_torch.scattering.phase import Polarization, get_greek_rayleigh
 from vsmartmom_torch.util.quadrature import rt_set_streams
+import vsmartmom_torch.cuda.doubling_kernel
+import vsmartmom_torch.cuda.layer_step_dev_kernel
 import vsmartmom_torch.cuda.layer_step_kernel
 import vsmartmom_torch.cuda.voigt_kernel
 pol = Polarization.from_name("Stokes_IQU")
@@ -29,8 +32,14 @@ quad = rt_set_streams("GaussQuadFullSphere", 8, 30.0, [0.0], pol.n)
 band = BandRTInputs(tau=np.full((1, 3), 0.2), omega=np.ones((1, 3)),
                     zw=np.ones((1, 1, 3)), greeks=[get_greek_rayleigh(0.0)])
 R, T = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
-                   {"type": "LambertianSurfaceScalar", "albedo": 0.1})
+                   {"type": "LambertianSurfaceScalar", "albedo": 0.1},
+                   device="cpu")
 assert R.shape == (1, 3, 3) and np.isfinite(R).all() and R[0, 0, 0] > 0
+for engine in ("torch_dev", "kernel_dev", "kernel_doubling"):
+    Re, _ = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
+                        {"type": "LambertianSurfaceScalar", "albedo": 0.1},
+                        device="cpu", solver="schulz", engine=engine)
+    assert np.abs(Re - R).max() < 1e-10 * np.abs(R).max(), engine
 assert not any(m == "jax" or m.startswith(("jax.", "vsmartmom."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -73,18 +82,31 @@ def test_cuda_wrappers_build_nothing_for_cpu_tensors():
     from vsmartmom_torch.cuda import voigt_kernel as vk
     from vsmartmom_torch.cuda.layer_step_kernel import fused_layer_step
     from vsmartmom_torch.cuda.voigt_kernel import VoigtPlan
+    from vsmartmom_torch.core.rt import vacuum_layer_dev
+    from vsmartmom_torch.cuda import doubling_kernel as dk
+    from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
 
-    n0, v0 = lsk.launches, vk.launches
+    before = (lsk.launches, vk.launches, ldk.launches, dk.launches)
     S, n = 3, 4
     comp = vacuum_layer(S, n, torch.float32, "cpu")
     r = torch.full((S, n, n), 0.01)
     t = torch.eye(n).repeat(S, 1, 1) * 0.9
     v = torch.full((S, n), 0.01)
-    out = fused_layer_step(comp, r, t, v, v, torch.full((S,), 0.99),
-                           torch.ones(n), ns_schedule=(1, 2), ni=1)
+    ek = torch.full((S,), 0.99)
+    out = fused_layer_step(comp, r, t, v, v, ek, torch.ones(n),
+                           ns_schedule=(1, 2), ni=1)
     assert all(torch.isfinite(x).all() for x in out)
-    plan = VoigtPlan(np.linspace(13000.0, 13001.0, 50), [13000.5], 5.0)
+    out = ldk.fused_layer_step_dev(vacuum_layer_dev(S, n, torch.float32,
+                                                    "cpu"),
+                                   r, torch.full((S, n), 0.9), r * 0.5, v,
+                                   v, ek, torch.ones(n), ns_schedule=(1, 2),
+                                   ni=1)
+    assert all(torch.isfinite(x).all() for x in out)
+    out = dk.fused_doubling(r, t, v, v, ek, ns_schedule=(1, 2))
+    assert all(torch.isfinite(x).all() for x in out)
+    plan = VoigtPlan(np.linspace(13000.0, 13001.0, 50), [13000.5], 5.0,
+                     device="cpu")
     sig = plan.run([13000.5], [1e-22], [0.01], [0.5])
     assert sig.shape == (50,) and float(sig.max()) > 0
     assert build._lib is None
-    assert (lsk.launches, vk.launches) == (n0, v0)
+    assert (lsk.launches, vk.launches, ldk.launches, dk.launches) == before

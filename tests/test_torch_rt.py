@@ -21,8 +21,9 @@ from vsmartmom.scattering.phase import Polarization as JaxPol
 from vsmartmom.scattering.phase import get_greek_rayleigh as jax_greek
 from vsmartmom.util.quadrature import rt_set_streams as jax_streams
 
-from vsmartmom_torch.core.rt_run import (BandRTInputs, build_layer_schedules,
-                                         rt_run_band, select_engine)
+from vsmartmom_torch.core.rt_run import (ENGINES, BandRTInputs,
+                                         build_layer_schedules, rt_run_band,
+                                         select_engine)
 from vsmartmom_torch.scattering.phase import (Polarization,
                                               get_greek_rayleigh)
 from vsmartmom_torch.util.quadrature import rt_set_streams
@@ -51,7 +52,7 @@ def _both(pol_name, quad_args, band_args, vza, vaz, max_m, surf, **kw):
                     rt_set_streams(*quad_args), BandRTInputs(
                         tau=tau, omega=omega, zw=zw,
                         greeks=[get_greek_rayleigh(depol)]),
-                    vza, vaz, max_m, surf, **kw)
+                    vza, vaz, max_m, surf, device="cpu", **kw)
     j = jax_rt_run_band(JaxPol.from_name(pol_name),
                         jax_streams(*quad_args), JaxBand(
                             tau=tau, omega=omega, zw=zw,
@@ -82,7 +83,7 @@ def test_port_against_6sv1(case):
             R, _ = rt_run_band(POL, quad, _rayleigh_band(tau), VZA_16,
                                [az] * 16, 3,
                                {"type": "LambertianSurfaceScalar",
-                                "albedo": rho})
+                                "albedo": rho}, device="cpu")
             r_model = R[:, 0, 0] / quad.mu0
             r_true = r_trues[ci - 1, sza_i, az_i]
             worst = max(worst, np.max(np.abs(r_true - r_model) / r_true))
@@ -101,7 +102,7 @@ def test_port_against_natraj():
     I_m, Q_m, U_m = (np.zeros((16, 7)) for _ in range(3))
     for j, phi in enumerate(np.arange(0.0, 181.0, 30.0)):
         R, _ = rt_run_band(POL, quad, _rayleigh_band(0.5), vza, [phi] * 16,
-                           3, LAMB0)
+                           3, LAMB0, device="cpu")
         I_m[:, j], Q_m[:, j], U_m[:, j] = R[:, 0, 0], R[:, 1, 0], R[:, 2, 0]
     assert np.max(np.abs(I_t - I_m) / I_t) < 0.002
     q_mask = Q_m >= 0.01
@@ -196,7 +197,7 @@ def test_kernel_engine_matches_jax_pallas_step():
                              greeks=[get_greek_rayleigh(0.028)]),
                          [0.0, 30.0], [0.0, 90.0], 3, surf,
                          dtype=torch.float32, solver="schulz",
-                         engine="kernel")
+                         engine="kernel", device="cpu")
     Rj, _ = jax_rt_run_band(JaxPol.from_name("Stokes_IQU"),
                             jax_streams(*quad), JaxBand(
                                 tau=tau, omega=tau_scat / tau,
@@ -214,14 +215,15 @@ def test_engine_selection():
     assert select_engine("auto", cuda, torch.float64, 12, True) == "torch"
     assert select_engine("auto", cuda, torch.float32, 12, False) == "torch"
     assert select_engine("auto", cpu, torch.float32, 12, True) == "torch"
-    with pytest.raises(NotImplementedError, match="split form"):
-        select_engine("auto", cuda, torch.float32, 64, True)
-    for eng in ("xla_dev", "pallas_dd", "pallas", "pallas_scan",
-                "pallas_lanes"):
+    assert select_engine("auto", cuda, torch.float32, 64, True) == "torch_dev"
+    for eng in ENGINES:
+        assert select_engine(eng, cpu, torch.float64, 12, True) == eng
+    for eng in ("pallas_scan", "pallas_lanes"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             select_engine(eng, cpu, torch.float64, 12, True)
-    with pytest.raises(ValueError):
-        select_engine("xla", cpu, torch.float64, 12, True)
+    for eng in ("xla", "xla_dev", "pallas_dd", "pallas"):
+        with pytest.raises(ValueError):
+            select_engine(eng, cpu, torch.float64, 12, True)
 
 
 def test_schedule_builder_errors_propagate():
@@ -234,7 +236,8 @@ def test_schedule_builder_errors_propagate():
         build_layer_schedules(band.tau, band.omega, 0.1, "schulz")
     with pytest.raises(ValueError):
         rt_run_band(Polarization.from_name("Stokes_I"), quad, band, [0.0],
-                    [0.0], 1, LAMB0, dtype=torch.float32, solver="schulz")
+                    [0.0], 1, LAMB0, dtype=torch.float32, solver="schulz",
+                    device="cpu")
 
 
 def test_unported_surfaces_raise():
@@ -246,7 +249,7 @@ def test_unported_surfaces_raise():
                   "k": 0.7, "theta": -0.1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             rt_run_band(pol, quad, _rayleigh_band(0.1), [0.0], [0.0], 1,
-                        surf)
+                        surf, device="cpu")
 
 
 def test_rt_run_rejects_unported_runs():

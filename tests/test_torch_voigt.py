@@ -64,7 +64,7 @@ def test_plan_matches_jax_interpret(seed, cut):
     grid, nu, S, gd, yv = _rand_problem(seed=seed)
     ref = np.asarray(JaxVoigtPlan(grid, nu, cut, interpret=True)
                      .run(nu, S, gd, yv))
-    plan = VoigtPlan(grid, nu, cut)
+    plan = VoigtPlan(grid, nu, cut, device="cpu")
     got = plan.run(nu, S, gd, yv)
     assert got.dtype == torch.float32 and got.shape == (len(grid),)
     assert np.abs(got.numpy() - ref).max() <= 2e-5 * np.abs(ref).max()
@@ -81,7 +81,7 @@ def test_dense_engine_matches_jax(p, T, broadening):
                                  broadening, wing_cutoff=40.0), grid, p, T))
     got = tvoigt.compute_absorption_cross_section(
         tvoigt.make_hitran_model(read_hitran(path), broadening,
-                                 wing_cutoff=40.0), grid, p, T)
+                                 wing_cutoff=40.0), grid, p, T, device="cpu")
     assert got.dtype == torch.float64
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-10,
                                atol=1e-10 * ref.max())
@@ -94,9 +94,9 @@ def test_kernel_engine_matches_dense():
     model = tvoigt.make_hitran_model(ht, wing_cutoff=40.0)
     grid = np.arange(6214.0, 6214.8, 0.002)
     ref = tvoigt.compute_absorption_cross_section(model, grid, 1000.0,
-                                                  296.0).numpy()
+                                                  296.0, device="cpu").numpy()
     got = tvoigt.compute_absorption_cross_section(
-        model, grid, 1000.0, 296.0, engine="kernel").numpy()
+        model, grid, 1000.0, 296.0, engine="kernel", device="cpu").numpy()
     assert np.abs(got - ref).max() < 1e-3 * ref.max() + 1e-30
 
 

@@ -10,6 +10,7 @@ import torch
 
 from vsmartmom_torch.core.model import RTModel
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+from vsmartmom_torch.util.device import DEFAULT_DEVICE
 
 
 def build_band_inputs(model: RTModel, i_band: int,
@@ -51,11 +52,13 @@ def build_band_inputs(model: RTModel, i_band: int,
 
 
 def rt_run(model: RTModel, i_band: int = 0, dtype=None, rs_type=None,
-           device="cpu"):
+           device=DEFAULT_DEVICE, engine: str = "auto"):
     """Run the elastic forward RT simulation for band ``i_band`` on
-    ``device``; returns (R_SFI, T_SFI) of shape (n_vza, n_stokes, nSpec).
+    ``device`` ("cuda" unless the caller asks for "cpu"); returns (R_SFI,
+    T_SFI) of shape (n_vza, n_stokes, nSpec).
 
-    ``dtype`` defaults to the parameters' float_type. Band concatenation
+    ``dtype`` defaults to the parameters' float_type. ``engine`` is passed
+    to rt_run_band ("auto" or one of core.rt_run.ENGINES). Band concatenation
     (several bands in one run) and inelastic (Raman) ``rs_type`` are not
     ported yet.
     """
@@ -74,4 +77,4 @@ def rt_run(model: RTModel, i_band: int = 0, dtype=None, rs_type=None,
     return rt_run_band(model.pol, model.quad_points,
                        build_band_inputs(model, i_band), model.obs_geom.vza,
                        model.obs_geom.vaz, model.params.max_m, surface,
-                       dtype=dtype, device=device)
+                       dtype=dtype, device=device, engine=engine)

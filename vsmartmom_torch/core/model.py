@@ -25,6 +25,7 @@ from vsmartmom_torch.core.atmosphere import (AtmosphericProfile,
 from vsmartmom_torch.scattering.nai2 import AerosolOptics
 from vsmartmom_torch.scattering.phase import (GreekCoefs, Polarization,
                                               get_greek_rayleigh)
+from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 from vsmartmom_torch.util.quadrature import QuadPoints, rt_set_streams
 
 
@@ -57,9 +58,12 @@ class RTModel:
     pol: Polarization
 
 
-def model_from_parameters(params: RTParameters, device="cpu") -> RTModel:
+def model_from_parameters(params: RTParameters,
+                          device=DEFAULT_DEVICE) -> RTModel:
     """Build the model: streams, profile, Rayleigh, line-by-line
-    absorption (on ``device``) and the δ-BGE-truncated NAI2 aerosols."""
+    absorption (on ``device``: "cuda" unless the caller asks for "cpu") and
+    the δ-BGE-truncated NAI2 aerosols."""
+    device = resolve_device(device)
     n_bands = len(params.spec_bands)
     n_aer = (0 if params.scattering_params is None
              else len(params.scattering_params.rt_aerosols))

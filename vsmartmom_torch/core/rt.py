@@ -1,6 +1,6 @@
 """Doubling-adding RT core (elemental / doubling / interaction) in torch.
 
-Port of the plain (not split) form of ``vsmartmom/core/rt.py``
+Port of ``vsmartmom/core/rt.py``, plain form and direct/diffuse split form
 (ref: src/CoreRT/CoreKernel/{elemental,doubling,interaction}.jl). Arrays are
 batch-leading ``(nSpec, N, N)`` so every product is one batched matmul over
 the spectral axis; explicit inverses are replaced by batched LU solves or
@@ -47,6 +47,48 @@ def vacuum_layer(n_spec: int, n: int, dtype, device) -> LayerRT:
 
     return LayerRT(zeros(n_spec, n, n), zeros(n_spec, n, n), eye(), eye(),
                    zeros(n_spec, n), zeros(n_spec, n))
+
+
+class LayerRTDev(NamedTuple):
+    """Slab operator in direct/diffuse split ("deviation") form.
+
+    The transmission operators are carried as T = diag(g) + E with g the
+    direct-beam diagonal (exp(-tau/mu), shared by T^++ and T^--: the direct
+    beam is reciprocal) and E the diffuse deviation. Every matrix product of
+    doubling and interaction then acts on diffuse-scale operands only: the
+    ~1.0 direct diagonal never rides a product, which lowers the float32
+    floor of the doubling recursion (no repeated near-identity
+    cancellations).
+    """
+    r_mp: torch.Tensor
+    r_pm: torch.Tensor
+    e_pp: torch.Tensor   # T^++ = diag(g) + e_pp
+    e_mm: torch.Tensor   # T^-- = diag(g) + e_mm
+    g: torch.Tensor      # (nSpec, N) direct transmission diagonal
+    j_p: torch.Tensor
+    j_m: torch.Tensor
+
+
+def vacuum_layer_dev(n_spec: int, n: int, dtype, device) -> LayerRTDev:
+    """Empty-space slab in split form (g = 1, everything else 0); every
+    field is its own contiguous tensor."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return LayerRTDev(zeros(n_spec, n, n), zeros(n_spec, n, n),
+                      zeros(n_spec, n, n), zeros(n_spec, n, n),
+                      torch.ones((n_spec, n), dtype=dtype, device=device),
+                      zeros(n_spec, n), zeros(n_spec, n))
+
+
+def dev_to_full(dev: LayerRTDev) -> LayerRT:
+    """Reassemble the full operators T = diag(g) + E."""
+    n = dev.g.shape[-1]
+    gd = dev.g[:, :, None] * torch.eye(n, dtype=dev.g.dtype,
+                                       device=dev.g.device)[None]
+    return LayerRT(r_mp=dev.r_mp, r_pm=dev.r_pm,
+                   t_pp=gd + dev.e_pp, t_mm=gd + dev.e_mm,
+                   j_p=dev.j_p, j_m=dev.j_m)
 
 
 # --- batched linear algebra helpers -----------------------------------------
@@ -188,7 +230,7 @@ def exp_small(x):
 
 
 def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
-              i0_vec, i_mu0_n, n_stokes, mu0_node):
+              i0_vec, i_mu0_n, n_stokes, mu0_node, split=False):
     """Single-scattering initialization of an elemental layer.
 
     ref: src/CoreRT/CoreKernel/elemental.jl:164-253 (get_elem_rt!/..._SFI!).
@@ -197,6 +239,11 @@ def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
     qp, wct2: (N,); i0_vec: (N,) incident Stokes vector embedded at the solar
     node block; mu0_node: 0-dim tensor, qp[i_mu0_n].
     Returns r_mp, t_pp (nSpec, N, N) and j_p, j_m (nSpec, N).
+
+    ``split=True``: returns (r_mp, g, e_pp, j_p, j_m) with T^++ in
+    direct/diffuse form diag(g) + e_pp (see LayerRTDev). The diffuse
+    diagonal is built directly from the single-scatter term, never by
+    subtracting exp(-dtau/mu) from the assembled diagonal.
     """
     n = qp.shape[0]
     n_sp = dtau.shape[0]
@@ -227,13 +274,21 @@ def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
     exp_diff = (exp_small(-dt / mu_j)
                 * torch.expm1(dt * (mu_i - mu_j) / (mu_i * mu_j)))
     t_off = om * z_pp * (mu_j / denom) * wct2[None, None, :] * exp_diff
-    t_pp = torch.where(same_mu[None, :, :],
-                       torch.where(eye[None, :, :], t_diag, 0.0),
-                       t_off)
-    # Zero-weight (camera-only) columns transmit the attenuated beam only
-    t_pp = torch.where(col_mask[None, None, :], t_pp,
-                       torch.where(eye[None, :, :],
-                                   exp_i * torch.ones_like(t_pp), 0.0))
+    if split:
+        # diffuse deviation only: the selects of t_pp below, minus diag(g)
+        e_pp = torch.where(same_mu[None, :, :],
+                           torch.where(eye[None, :, :], e_diag, 0.0),
+                           t_off)
+        e_pp = torch.where(col_mask[None, None, :], e_pp, 0.0)
+    else:
+        t_pp = torch.where(same_mu[None, :, :],
+                           torch.where(eye[None, :, :], t_diag, 0.0),
+                           t_off)
+        # Zero-weight (camera-only) columns transmit the attenuated beam
+        # only
+        t_pp = torch.where(col_mask[None, None, :], t_pp,
+                           torch.where(eye[None, :, :],
+                                       exp_i * torch.ones_like(t_pp), 0.0))
 
     # --- SFI solar source vectors (Fell eqs. 1.52-1.54) ---
     z_pp_i0 = bmv(z_pp.expand(n_sp, n, n), i0_vec.expand(n_sp, n))
@@ -259,6 +314,9 @@ def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
            * (-torch.expm1(-dt_v * (1.0 / mu_iv + 1.0 / mu0_node))))
 
     atten = torch.exp(-tau_sum / mu0_node)[:, None]
+    if split:
+        g = exp_small(-dtau[:, None] / qp[None, :])
+        return r_mp, g, e_pp, j_p * atten, j_m * atten
     return r_mp, t_pp, j_p * atten, j_m * atten
 
 
@@ -340,21 +398,37 @@ def elemental_flipped(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
 def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
                      i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
                      min_qp_mu, eye, rsolve=rsolve_lu,
-                     ndoubl_static=None, ns_schedule=None) -> LayerRT:
+                     ndoubl_static=None, ns_schedule=None,
+                     doubling_engine="torch") -> LayerRT:
     """Elemental + doubling for one atmospheric layer -> full added layer.
 
     tau/omega: (nSpec,) per-wavelength optical depth & single-scatter albedo.
     ``ndoubl_static``: host doubling count, or None to derive it from the
-    layer's optical depth.
+    layer's optical depth. ``doubling_engine``: "torch" (batched ops) or
+    "kernel" (the doubling-only kernel, cuda/doubling_kernel.py; needs the
+    static NS schedule).
     ref: src/CoreRT/CoreKernel/rt_kernel.jl:238-275 (init_layer + dispatch)
     """
+    if doubling_engine not in ("torch", "kernel"):
+        raise ValueError(f"unknown doubling engine {doubling_engine!r}")
+    if doubling_engine == "kernel" and ns_schedule is None:
+        raise ValueError("the doubling kernel needs the schulz solver's "
+                         "static Newton-Schulz schedule")
     r_f, t_pp, j_p, jm_f, expk, ndoubl = elemental_flipped(
         tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02, i0_vec, i_mu0_n,
         n_stokes, mu0_node, mu0, d_vec, min_qp_mu,
         ndoubl_static=ndoubl_static)
-    r_f, t_pp, j_p, jm_f = doubling(r_f, t_pp, j_p, jm_f, expk, ndoubl,
-                                    eye, rsolve=rsolve,
-                                    ns_schedule=ns_schedule)
+    if doubling_engine == "kernel":
+        if len(ns_schedule) != ndoubl:
+            raise ValueError(f"ns_schedule has {len(ns_schedule)} steps, "
+                             f"ndoubl is {ndoubl}")
+        from vsmartmom_torch.cuda.doubling_kernel import fused_doubling
+        r_f, t_pp, j_p, jm_f = fused_doubling(r_f, t_pp, j_p, jm_f, expk,
+                                              ns_schedule=ns_schedule)
+    else:
+        r_f, t_pp, j_p, jm_f = doubling(r_f, t_pp, j_p, jm_f, expk, ndoubl,
+                                        eye, rsolve=rsolve,
+                                        ns_schedule=ns_schedule)
     r_mp = d_vec[None, :, None] * r_f
     j_m = d_vec[None, :] * jm_f
 
@@ -388,3 +462,170 @@ def interaction(comp: LayerRT, added: LayerRT, eye,
 
     return LayerRT(r_mp=r_mp, r_pm=r_pm, t_pp=t_pp, t_mm=t_mm,
                    j_p=j_p, j_m=j_m)
+
+
+# --- direct/diffuse split ("deviation form") engine -------------------------
+#
+# The same doubling-adding algebra as above, with every transmission operator
+# carried as diag(g) + E (see LayerRTDev). The Newton-Schulz solve runs in
+# Y-form: (I - B)^{-1} = I + Y with Y_0 = B, Y <- W + Y(W - Y), W = B + B Y
+# (the plain iteration with the identity handled exactly). The matrix product
+# is injected (``mm``) so the split-form kernel's plain version reuses these
+# functions verbatim.
+
+def ns_y(rr, iters: int, mm=bmm):
+    """Y-form Newton-Schulz: Y ~= (I - B)^{-1} - I for B = rr, rho(B) < 1.
+    Iteration for iteration the residual B^(2^(k+1)) of the plain form."""
+    y = rr
+    for _ in range(iters):
+        w = rr + mm(rr, y)
+        y = w + mm(y, w - y)
+    return y
+
+
+def y_exact_lu(rr, eye):
+    """Exact Y = (I - B)^{-1} - I = B (I - B)^{-1} (polynomials in B
+    commute) by batched LU: the exact twin of ns_y."""
+    return rsolve_lu(rr, eye - rr)
+
+
+def doubling_dev(r_f, g, e_pp, j_p, j_m_f, expk, ns_schedule=None,
+                 exact_eye=None, ndoubl=None, mm=bmm):
+    """Doubling recursion in direct/diffuse split form (flipped space).
+
+    State: r (flipped reflection), T^++ = diag(g) + e_pp, sources, expk.
+    ``ns_schedule``: per-step NS iteration counts (schulz); ``exact_eye``:
+    batched identity for the exact-LU Y, with ``ndoubl`` steps.
+    Algebra: t' = t M t, r' = r + t M r t, sources as in doubling(), each
+    product expanded over diag(g) + E so only diffuse-scale operands ride
+    products.
+    """
+    r, ge, e = r_f, g, e_pp
+    jp, jm, ek = j_p, j_m_f, expk
+    if ek.ndim == 1:
+        ek = ek[:, None]
+    steps = (ns_schedule if ns_schedule is not None
+             else [None] * int(ndoubl))
+    n = r.shape[-1]
+    for it in steps:
+        rr = mm(r, r)
+        y = (y_exact_lu(rr, exact_eye) if it is None
+             else ns_y(rr, int(it), mm))
+        j1p = jp * ek
+        j1m = jm * ek
+        pack1 = torch.cat([e, jp[..., None], j1m[..., None]], dim=-1)
+        rp = mm(r, pack1)                  # [r E | r jp | r j1m]
+        rt = r * ge[:, None, :] + rp[..., :n]
+        v1 = j1m + rp[..., n]
+        v2 = jp + rp[..., n + 1]
+        packy = torch.cat([rt, e, v1[..., None], v2[..., None]], dim=-1)
+        yp = mm(y, packy)                  # [Y rt | Y E | Y v1 | Y v2]
+        mrt = rt + yp[..., :n]
+        d_mt = e + y * ge[:, None, :] + yp[..., n:2 * n]
+        mv1 = v1 + yp[..., 2 * n]
+        mv2 = v2 + yp[..., 2 * n + 1]
+        packe = torch.cat([mrt, d_mt, mv1[..., None], mv2[..., None]],
+                          dim=-1)
+        ep = mm(e, packe)
+        r = r + ge[:, :, None] * mrt + ep[..., :n]
+        e = ge[:, :, None] * d_mt + e * ge[:, None, :] + ep[..., n:2 * n]
+        jm = jm + ge * mv1 + ep[..., 2 * n]
+        jp = j1p + ge * mv2 + ep[..., 2 * n + 1]
+        ge = ge * ge
+        ek = ek * ek
+    return r, ge, e, jp, jm
+
+
+def elemental_flipped_dev(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
+                          i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
+                          ndoubl_static):
+    """Split-form elemental layer in flipped (D-symmetry) space plus the
+    doubling input expk: the split twin of elemental_flipped, feeding
+    cuda/layer_step_dev_kernel.py:fused_layer_step_dev."""
+    ndoubl = int(ndoubl_static)
+    dtau = tau / 2.0 ** ndoubl
+    expk = exp_small(-dtau / mu0)
+    r_mp, g, e_pp, j_p, j_m = elemental(
+        dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
+        i0_vec, i_mu0_n, n_stokes, mu0_node, split=True)
+    r_f = d_vec[None, :, None] * r_mp
+    jm_f = d_vec[None, :] * j_m
+    return r_f, g, e_pp, j_p, jm_f, expk
+
+
+def make_added_layer_dev(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
+                         i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
+                         min_qp_mu, ndoubl_static, ns_schedule=None,
+                         exact_eye=None, mm=bmm) -> LayerRTDev:
+    """Elemental + doubling in split form -> D-symmetric added layer: the
+    split twin of make_added_layer. g is shared by T^++ and T^-- (the sign
+    diagonal is +1), e_mm = sgn * e_pp."""
+    ndoubl = int(ndoubl_static)
+    r_f, g, e_pp, j_p, jm_f, expk = elemental_flipped_dev(
+        tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02, i0_vec, i_mu0_n,
+        n_stokes, mu0_node, mu0, d_vec, ndoubl)
+    r_f, g, e_pp, j_p, jm_f = doubling_dev(
+        r_f, g, e_pp, j_p, jm_f, expk, ns_schedule=ns_schedule,
+        exact_eye=exact_eye, ndoubl=ndoubl, mm=mm)
+    r_mp = d_vec[None, :, None] * r_f
+    j_m = d_vec[None, :] * jm_f
+    sgn = d_vec[None, :, None] * d_vec[None, None, :]
+    return LayerRTDev(r_mp=r_mp, r_pm=sgn * r_mp, e_pp=e_pp,
+                      e_mm=sgn * e_pp, g=g, j_p=j_p, j_m=j_m)
+
+
+def interaction_dev(comp: LayerRTDev, added: LayerRTDev, ni=None,
+                    exact_eye=None, mm=bmm) -> LayerRTDev:
+    """Adding in split form: the push-through single-solve interaction.
+
+    ``ni``: Newton-Schulz iterations for (I - r2 R)^{-1}, or None with
+    ``exact_eye`` for the exact-LU twin. The composite direct diagonal
+    multiplies: g' = g_comp * g_added for both transmissions.
+    """
+    n = comp.r_mp.shape[-1]
+    gc, g2 = comp.g, added.g
+    r2mp, e2, e2mm = added.r_mp, added.e_pp, added.e_mm
+    b1 = mm(r2mp, comp.r_pm)
+    y1 = (y_exact_lu(b1, exact_eye) if ni is None
+          else ns_y(b1, int(ni), mm))
+
+    # r2mp @ [c_tpp | c_jp] and c_rpm @ [t2mm | j2m] (split operands)
+    p1 = mm(r2mp, torch.cat([comp.e_pp, comp.j_p[..., None]], dim=-1))
+    rc_tpp = r2mp * gc[:, None, :] + p1[..., :n]
+    v1 = p1[..., n] + added.j_m
+    p2 = mm(comp.r_pm, torch.cat([e2mm, added.j_m[..., None]], dim=-1))
+    crpm_t2mm = comp.r_pm * g2[:, None, :] + p2[..., :n]
+    v2 = comp.j_p + p2[..., n]
+
+    # push-through: y = M1 @ [x1 | r2mp @ x2] with
+    # x1 = [rc_tpp | t2mm | v1], x2 = [c_tpp | crpm_t2mm | v2]; the head of
+    # r2mp @ x2 is rc_tpp again, so it rides the solve once (y_b1 = y_a)
+    p3 = mm(r2mp, torch.cat([crpm_t2mm, v2[..., None]], dim=-1))
+    z_small = torch.cat([rc_tpp, e2mm, v1[..., None], p3], dim=-1)
+    yz = mm(y1, z_small)
+    y_a = rc_tpp + yz[..., :n]                      # M1 @ rc_tpp
+    d2 = e2mm + y1 * g2[:, None, :] + yz[..., n:2 * n]   # M1 t2mm = G2 + d2
+    y_v1 = v1 + yz[..., 2 * n]
+    y_b1 = y_a
+    y_b2 = p3[..., :n] + yz[..., 2 * n + 1:3 * n + 1]
+    y_bv = p3[..., n] + yz[..., 3 * n + 1]
+
+    # o1 = c_tmm @ (M1 @ x1):  c_tmm = diag(gc) + cE_m
+    p4 = mm(comp.e_mm, torch.cat([y_a, d2, y_v1[..., None]], dim=-1))
+    r_mp = comp.r_mp + gc[:, :, None] * y_a + p4[..., :n]
+    e_mm = (gc[:, :, None] * d2 + comp.e_mm * g2[:, None, :]
+            + p4[..., n:2 * n])
+    j_m = comp.j_m + gc * y_v1 + p4[..., 2 * n]
+
+    # o2 = t2 @ (x2 + c_rpm @ y2):  t2 = diag(g2) + e2
+    p5 = mm(comp.r_pm, torch.cat([y_b1, y_b2, y_bv[..., None]], dim=-1))
+    i1 = comp.e_pp + p5[..., :n]                # x2 head deviation
+    i2 = crpm_t2mm + p5[..., n:2 * n]
+    iv = v2 + p5[..., 2 * n]
+    p6 = mm(e2, torch.cat([i1, i2, iv[..., None]], dim=-1))
+    e_pp = g2[:, :, None] * i1 + e2 * gc[:, None, :] + p6[..., :n]
+    r_pm = added.r_pm + g2[:, :, None] * i2 + p6[..., n:2 * n]
+    j_p = added.j_p + g2 * iv + p6[..., 2 * n]
+
+    return LayerRTDev(r_mp=r_mp, r_pm=r_pm, e_pp=e_pp, e_mm=e_mm,
+                      g=gc * g2, j_p=j_p, j_m=j_m)

@@ -9,13 +9,22 @@ Pipeline (ref: src/CoreRT/rt_run.jl:41-230):
 
 The spectral axis (nSpec) is the batch axis of every device operation.
 
-Engines for the layer scan:
-  "torch"  — batched torch ops (the JAX package's ``xla`` engine);
-  "kernel" — per layer, the elemental layer in torch and the fused CUDA
-             layer step (doubling + adding, cuda/layer_step_kernel.py; the
-             JAX package's ``pallas_step`` engine). Needs the Newton-Schulz
-             solver's static schedules; CPU tensors take the kernel's plain
-             torch version.
+Engines for the layer scan (the JAX package's name in brackets):
+  "torch"           — batched torch ops, plain form [xla];
+  "kernel"          — per layer, the elemental layer in torch and the fused
+                      CUDA layer step (doubling + adding,
+                      cuda/layer_step_kernel.py) [pallas_step];
+  "torch_dev"       — batched torch ops in direct/diffuse split form
+                      [xla_dev];
+  "kernel_dev"      — per layer, the split-form elemental layer in torch and
+                      the split-form CUDA layer step
+                      (cuda/layer_step_dev_kernel.py) [pallas_dd];
+  "kernel_doubling" — the doubling-only CUDA kernel
+                      (cuda/doubling_kernel.py) as the doubling step of the
+                      torch engine, then the torch interaction [pallas].
+The kernel engines need the Newton-Schulz solver's static schedules and
+raise on a layer without one; CPU tensors take each kernel's plain torch
+version.
 """
 from __future__ import annotations
 
@@ -25,23 +34,28 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vsmartmom_torch.core.rt import (bmv, elemental_flipped, interaction,
-                                     make_added_layer, make_rsolve,
+from vsmartmom_torch.core.rt import (bmv, dev_to_full, elemental_flipped,
+                                     elemental_flipped_dev, interaction,
+                                     interaction_dev, make_added_layer,
+                                     make_added_layer_dev, make_rsolve,
                                      ns_doubling_schedule,
-                                     ns_interaction_iters, vacuum_layer)
+                                     ns_interaction_iters, vacuum_layer,
+                                     vacuum_layer_dev)
 from vsmartmom_torch.core.surface import lambertian_surface_layer
 from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
+from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 from vsmartmom_torch.util.quadrature import QuadPoints, nearest_point
 
 #: largest stream count N the fused layer-step kernel takes (its per-point
 #: shared-memory arena at N = 63 is 188 KB of the 227 KB a block may use)
 KERNEL_MAX_N = 63
 
+#: the port's layer-scan engines (see the module docstring)
+ENGINES = ("torch", "kernel", "torch_dev", "kernel_dev", "kernel_doubling")
+_DEV_ENGINES = ("torch_dev", "kernel_dev")
+
 #: engines of the JAX package that the port does not run yet
 _NOT_PORTED_ENGINES = {
-    "xla_dev": "the direct/diffuse split form (ROADMAP queue 1, item 3)",
-    "pallas_dd": "the split-form layer-step kernel (ROADMAP queue 2, item 2)",
-    "pallas": "the doubling-only kernel (ROADMAP queue 2, item 4)",
     "pallas_scan": "the fused layer-scan kernel (ROADMAP queue 2, item 5)",
     "pallas_lanes": "the lanes layer-step kernel (ROADMAP queue 2, item 6)",
 }
@@ -104,31 +118,59 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
 
     if engine == "kernel":
         from vsmartmom_torch.cuda.layer_step_kernel import fused_layer_step
+    elif engine == "kernel_dev":
+        from vsmartmom_torch.cuda.layer_step_dev_kernel import \
+            fused_layer_step_dev
 
-    comp = vacuum_layer(n_spec, n, dtype, device)
+    dev_form = engine in _DEV_ENGINES
+    comp = (vacuum_layer_dev if dev_form else vacuum_layer)(
+        n_spec, n, dtype, device)
     for (nd, sched, ni), start, count in schedule_buckets(layer_schedules):
-        if engine == "kernel" and sched is None:
-            raise ValueError("the kernel engine needs the schulz solver's "
-                             "static Newton-Schulz schedules")
+        if engine.startswith("kernel") and sched is None:
+            raise ValueError(f"the {engine} engine needs the schulz solver's "
+                             f"static Newton-Schulz schedules")
+        if dev_form and nd is None:
+            raise ValueError("the split-form engines need static per-layer "
+                             "doubling counts")
         irs = (make_rsolve("schulz", ni)
                if solver == "schulz" and ni is not None else rsolve)
+        # torch_dev solves exactly (LU) under the lu solver or where a
+        # layer has no NS schedule, as the JAX xla_dev engine does
+        exact = solver != "schulz" or sched is None
         for iz in range(start, start + count):
             z_pp = torch.einsum("kn,kij->nij", zw[iz], z_pp_c)
             z_mp = torch.einsum("kn,kij->nij", zw[iz], z_mp_c)
+            layer = (tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
+                     wct2, wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
+                     d_vec)
             if engine == "kernel":
                 r_f, t, jp, jm_f, ek, _ = elemental_flipped(
-                    tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
-                    wct2, wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
-                    d_vec, min_qp_mu, ndoubl_static=nd)
+                    *layer, min_qp_mu, ndoubl_static=nd)
                 comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek, d_vec,
                                         ns_schedule=sched, ni=ni)
+            elif engine == "kernel_dev":
+                r_f, g_el, e_el, jp, jm_f, ek = elemental_flipped_dev(
+                    *layer, nd)
+                comp = fused_layer_step_dev(comp, r_f, g_el, e_el, jp, jm_f,
+                                            ek, d_vec, ns_schedule=sched,
+                                            ni=ni)
+            elif engine == "torch_dev":
+                added = make_added_layer_dev(
+                    *layer, min_qp_mu, nd,
+                    ns_schedule=None if exact else sched,
+                    exact_eye=eye if exact else None)
+                comp = interaction_dev(comp, added,
+                                       ni=None if exact else ni,
+                                       exact_eye=eye if exact else None)
             else:
                 added = make_added_layer(
-                    tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
-                    wct2, wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
-                    d_vec, min_qp_mu, eye, rsolve=rsolve, ndoubl_static=nd,
-                    ns_schedule=sched)
+                    *layer, min_qp_mu, eye, rsolve=rsolve, ndoubl_static=nd,
+                    ns_schedule=sched,
+                    doubling_engine=("kernel" if engine == "kernel_doubling"
+                                     else "torch"))
                 comp = interaction(comp, added, eye, rsolve=irs)
+    if dev_form:
+        comp = dev_to_full(comp)
 
     surf = lambertian_surface_layer(
         albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1], mu0,
@@ -230,11 +272,15 @@ def _per_layer_schedules(n_z, solver, ndoubl_static, ns_schedule,
 
 def select_engine(engine: str, device: torch.device, dtype, n: int,
                   static_schulz: bool) -> str:
-    """Resolve ``engine`` ("auto", "torch" or "kernel").
+    """Resolve ``engine`` ("auto" or one of ENGINES).
 
     "auto" takes the fused kernel for float32 CUDA tensors with N <= 63
-    and the schulz solver's static schedules, and torch ops otherwise.
-    float32 on CUDA with N > 63 needs the split form, which is not ported.
+    and the schulz solver's static schedules; beyond N = 63 the torch ops
+    of the direct/diffuse split form, as the JAX package's auto does (its
+    plain float32 missed the Natraj I gate on the TPU; the split form's
+    float32 floor is lower); and plain torch ops otherwise. It never picks kernel_dev or
+    kernel_doubling, as the JAX package's auto never picks their TPU
+    counterparts.
     """
     if engine in _NOT_PORTED_ENGINES:
         raise NotImplementedError(
@@ -243,21 +289,16 @@ def select_engine(engine: str, device: torch.device, dtype, n: int,
     if engine == "auto":
         if device.type == "cuda" and dtype == torch.float32 \
                 and static_schulz:
-            if n > KERNEL_MAX_N:
-                raise NotImplementedError(
-                    f"float32 with N = {n} > {KERNEL_MAX_N} on CUDA runs "
-                    f"the direct/diffuse split form, which is not ported "
-                    f"yet (ROADMAP queue 1, item 3)")
-            return "kernel"
+            return "kernel" if n <= KERNEL_MAX_N else "torch_dev"
         return "torch"
-    if engine not in ("torch", "kernel"):
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     return engine
 
 
 def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                 vza, vaz, max_m: int, surface, dtype=torch.float64,
-                device="cpu", solver: Optional[str] = None,
+                device=DEFAULT_DEVICE, solver: Optional[str] = None,
                 return_hdr: bool = False,
                 engine: str = "auto", sfi: bool = True):
     """Run the full Fourier-moment loop for one band; azimuthally synthesize.
@@ -268,8 +309,11 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     ``return_hdr`` also (hdr, bhr_uw, bhr_dw): the hemispheric-directional
     surface-leaving radiance per VZA plus the bi-hemispheric up/downwelling
     fluxes at the surface (ref: rt_run.jl:187-226 RAMI outputs).
+    ``device``: "cuda" (default) or "cpu"; a CUDA device without CUDA
+    raises.
     ``solver``: "lu" (default on the CPU) or "schulz" (default on CUDA).
-    ``engine``: "auto", "torch" or "kernel" (see select_engine).
+    ``engine``: "auto" or one of ENGINES (see select_engine and the module
+    docstring).
     ``sfi``: True synthesizes radiances from the single-beam source vectors
     J0-/J0+; False from the R-+/T++ operator columns at the mu0 node (ref:
     postprocessing_vza.jl:30-56), which needs the beam as a real node
@@ -279,7 +323,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     (TF32 off): the plain-form algebra fails the accuracy gates with
     reduced-mantissa products.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     if solver is None:
         solver = "lu" if device.type == "cpu" else "schulz"
     n_spec = band.tau.shape[1]
@@ -323,6 +367,13 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     engine = select_engine(
         engine, device, dtype, n,
         ns_schedule is not None or layer_schedules is not None)
+    if engine in _DEV_ENGINES and layer_schedules is None \
+            and ndoubl_static is None:
+        # the split-form engines always need static per-layer doubling
+        # counts: under the lu solver borrow the schulz builder's buckets
+        # (torch_dev then solves each of them exactly)
+        _, _, layer_schedules = build_layer_schedules(
+            band.tau, band.omega, min_qp_mu, "schulz")
     schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
                                       ns_schedule, layer_schedules)
 

@@ -1,168 +1,103 @@
 // Fused RT layer step for Hopper: doubling of the elemental layer plus the
 // adding of the doubled layer under the running composite, one launch per
-// atmospheric layer.
+// atmospheric layer; and the doubling-only kernel, which runs phase 1 alone.
 //
-// Replaces the TPU kernel vsmartmom/pallas/layer_step_kernel.py:
-// _layer_step_kernel (doubling via vsmartmom/pallas/doubling_kernel.py:
-// doubling_body). Same algebra, same Newton-Schulz schedules, same
-// push-through single-solve interaction.
+// layer_step_kernel replaces the TPU kernel
+// vsmartmom/pallas/layer_step_kernel.py:_layer_step_kernel (doubling via
+// vsmartmom/pallas/doubling_kernel.py:doubling_body). Same algebra, same
+// Newton-Schulz schedules, same push-through single-solve interaction.
+// doubling_kernel replaces vsmartmom/pallas/doubling_kernel.py:
+// _doubling_kernel (reached from fused_doubling): the same doubling phase,
+// with the doubled (r, t, jp, jm) written back instead of added.
 //
 // Bound: every spectral point runs a chain of small dependent N x N products
 // (N <= 63) on its own data, O(N^3) fp32 FMAs per product against O(N^2)
-// bytes of device memory per layer, so the kernel is bound by arithmetic and
-// shared-memory bandwidth, not by device memory. Design: one block of 256
+// bytes of device memory per layer, so the kernels are bound by arithmetic
+// and shared-memory bandwidth, not by device memory. Design: one block of 256
 // threads owns P points; each point has a private arena in dynamic shared
 // memory that holds its whole state (elemental layer, NS iterates, packed
 // right-hand operands) for the entire step. The composite operands are read
 // from device memory where a product needs them; the new composite is
 // written once at the end. All threads of the block sweep the
-// (point, row, column) outputs of each product together. fp32 FMA on the
-// CUDA cores: no TF32, no tensor cores (a first, exact version).
+// (point, row, column) outputs of each product together (rt_device.cuh).
+// fp32 FMA on the CUDA cores: no TF32, no tensor cores (a first, exact
+// version).
 //
 // Per-point arena layout (floats; nn = n*n):
-//   R [nn] | T [nn] | JP [n] | JM [n] | EK [1] | scratch [10 nn + 4 n]
+//   R [nn] | T [nn] | JP [n] | JM [n] | EK [1] | scratch
 // scratch: A [nn] | M0 [nn] | M1 [nn] | TMP [nn] | packed operands:
 //   doubling:    W1 [n x (2n+2)] | W2 [n x (2n+2)]
 //   interaction: X  [n x (4n+2)] | X2 [n x (2n+1)]
+// The doubling-only kernel's arena ends after W2 (10 nn + 6 n + 1 floats).
 
 #include <cuda_runtime.h>
 
+#include "rt_device.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxSched = 64;
-
-struct Schedule {
-  int nd;                 // doubling steps
-  int ni;                 // NS iterations of the interaction solve
-  int it[kMaxSched];      // NS iterations of each doubling step
-};
+using vsm::kMaxSched;
+using vsm::kThreads;
+using vsm::Schedule;
+using vsm::eye_minus;
+using vsm::mm;
+using vsm::ns_solve;
 
 __host__ __device__ inline int arena_floats(int n) {
   return 12 * n * n + 6 * n + 1;
 }
 
-// C[p] (n x k, row stride ldc) = A[p] (n x n, lda) @ B[p] (n x k, ldb) for
-// the block's np points; sc/sa/sb step between points. acc adds to C.
-// Pointers are generic: shared arenas or device memory.
-__device__ void mm(float* C, int ldc, int sc, const float* A, int lda, int sa,
-                   const float* B, int ldb, int sb, int n, int k, int np,
-                   bool acc) {
-  const int per = n * k;
-  for (int idx = threadIdx.x; idx < np * per; idx += blockDim.x) {
-    const int p = idx / per;
-    const int r = idx - p * per;
-    const int i = r / k;
-    const int j = r - i * k;
-    const float* a = A + p * sa + i * lda;
-    const float* b = B + p * sb + j;
-    float s = 0.f;
-    for (int l = 0; l < n; ++l) s = fmaf(a[l], b[l * ldb], s);
-    float* c = C + p * sc + i * ldc + j;
-    *c = acc ? *c + s : s;
-  }
+__host__ __device__ inline int doubling_arena_floats(int n) {
+  return 10 * n * n + 6 * n + 1;
 }
 
-// Newton-Schulz approximate inverse of A = I - B (A already in the arena):
-// M0 = 2I - A, then M <- M (2I - A M) `iters` times. Returns the offset of
-// the buffer holding the result (M0 or M1).
-__device__ int ns_solve(float* ar, int AR, int n, int np, int offA, int offM0,
-                        int offM1, int offT, int iters) {
-  const int nn = n * n;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR;
-    a[offM0 + e] = (i == j ? 2.f : 0.f) - a[offA + e];
+// arena offsets of the doubling phase, shared by both kernels
+struct Arena {
+  int oR, oT, oJP, oJM, oEK, oA, oM0, oM1, oTMP, oW1, w2, oW2;
+  __device__ explicit Arena(int n) {
+    const int nn = n * n;
+    oR = 0; oT = nn; oJP = 2 * nn; oJM = 2 * nn + n; oEK = 2 * nn + 2 * n;
+    const int oS = oEK + 1;
+    oA = oS; oM0 = oS + nn; oM1 = oS + 2 * nn; oTMP = oS + 3 * nn;
+    oW1 = oS + 4 * nn; w2 = 2 * n + 2; oW2 = oW1 + n * w2;
   }
-  __syncthreads();
-  int cur = offM0, oth = offM1;
-  for (int q = 0; q < iters; ++q) {
-    mm(ar + offT, n, AR, ar + offA, n, AR, ar + cur, n, AR, n, n, np, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-      const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-      float* tmp = ar + p * AR + offT;
-      tmp[e] = (i == j ? 2.f : 0.f) - tmp[e];
-    }
-    __syncthreads();
-    mm(ar + oth, n, AR, ar + cur, n, AR, ar + offT, n, AR, n, n, np, false);
-    __syncthreads();
-    const int s = cur; cur = oth; oth = s;
-  }
-  return cur;
-}
+};
 
-// A = I - A in place (A holds a product)
-__device__ void eye_minus(float* ar, int AR, int n, int np, int offA) {
+// R, T, JP, JM, EK of the block's np points from device memory
+__device__ void load_elemental(float* ar, int AR, const Arena& o, int n,
+                               int np, int p0, const float* r_f,
+                               const float* t, const float* jp,
+                               const float* jm_f, const float* ek) {
   const int nn = n * n;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR + offA;
-    a[e] = (i == j ? 1.f : 0.f) - a[e];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-layer_step_kernel(const float* __restrict__ c_rmp,
-                  const float* __restrict__ c_rpm,
-                  const float* __restrict__ c_tpp,
-                  const float* __restrict__ c_tmm,
-                  const float* __restrict__ c_jp,
-                  const float* __restrict__ c_jm,
-                  const float* __restrict__ r_f, const float* __restrict__ t,
-                  const float* __restrict__ jp, const float* __restrict__ jm_f,
-                  const float* __restrict__ ek, const float* __restrict__ d,
-                  float* __restrict__ o_rmp, float* __restrict__ o_rpm,
-                  float* __restrict__ o_tpp, float* __restrict__ o_tmm,
-                  float* __restrict__ o_jp, float* __restrict__ o_jm,
-                  int S, int n, int P, Schedule sch) {
-  extern __shared__ float smem[];
-  const int nn = n * n;
-  const int AR = arena_floats(n);
-  float* dv = smem;          // D-matrix diagonal, shared by all points
-  float* ar = smem + n;      // P per-point arenas
-  const int p0 = blockIdx.x * P;
-  const int np = min(P, S - p0);
-
-  const int oR = 0, oT = nn, oJP = 2 * nn, oJM = 2 * nn + n;
-  const int oEK = 2 * nn + 2 * n, oS = oEK + 1;
-  const int oA = oS, oM0 = oS + nn, oM1 = oS + 2 * nn, oTMP = oS + 3 * nn;
-  const int oW1 = oS + 4 * nn, w2 = 2 * n + 2, oW2 = oW1 + n * w2;
-  const int oX = oW1, wx = 4 * n + 2, oX2 = oX + n * wx, wx2 = 2 * n + 1;
-
-  // block-local views of the per-point device arrays
   const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
-  const float* g_rmp = c_rmp + gm;
-  const float* g_rpm = c_rpm + gm;
-  const float* g_tpp = c_tpp + gm;
-  const float* g_tmm = c_tmm + gm;
-  const float* g_jp = c_jp + gv;
-  const float* g_jm = c_jm + gv;
-
-  // ---- load the elemental layer ------------------------------------------
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = d[i];
   for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
     const int p = idx / nn, e = idx - p * nn;
-    ar[p * AR + oR + e] = r_f[gm + idx];
-    ar[p * AR + oT + e] = t[gm + idx];
+    ar[p * AR + o.oR + e] = r_f[gm + idx];
+    ar[p * AR + o.oT + e] = t[gm + idx];
   }
   for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
     const int p = idx / n, i = idx - p * n;
-    ar[p * AR + oJP + i] = jp[gv + idx];
-    ar[p * AR + oJM + i] = jm_f[gv + idx];
+    ar[p * AR + o.oJP + i] = jp[gv + idx];
+    ar[p * AR + o.oJM + i] = jm_f[gv + idx];
   }
   for (int p = threadIdx.x; p < np; p += blockDim.x)
-    ar[p * AR + oEK] = ek[p0 + p];
-  __syncthreads();
+    ar[p * AR + o.oEK] = ek[p0 + p];
+}
 
-  // ---- 1. doubling (flipped space) ----------------------------------------
+// Phase 1: all scheduled doubling steps (flipped space), in the arena.
+__device__ void doubling_phase(float* ar, int AR, const Arena& o, int n,
+                               int np, const Schedule& sch) {
+  const int nn = n * n, w2 = o.w2;
+  const int oR = o.oR, oT = o.oT, oJP = o.oJP, oJM = o.oJM, oEK = o.oEK;
+  const int oA = o.oA, oW1 = o.oW1, oW2 = o.oW2;
   for (int step = 0; step < sch.nd; ++step) {
     // A = I - R R; M = NS inverse of A
     mm(ar + oA, n, AR, ar + oR, n, AR, ar + oR, n, AR, n, n, np, false);
     __syncthreads();
     eye_minus(ar, AR, n, np, oA);
     __syncthreads();
-    const int oM = ns_solve(ar, AR, n, np, oA, oM0, oM1, oTMP, sch.it[step]);
+    const int oM = ns_solve(ar, AR, n, np, oA, o.oM0, o.oM1, o.oTMP,
+                            sch.it[step]);
     // W1[:, 0:n+2] = [T | JP | JM ek]
     for (int idx = threadIdx.x; idx < np * n * (n + 2); idx += blockDim.x) {
       const int p = idx / (n * (n + 2)), e = idx - p * n * (n + 2);
@@ -211,6 +146,51 @@ layer_step_kernel(const float* __restrict__ c_rmp,
       ar[p * AR + oEK] = ar[p * AR + oEK] * ar[p * AR + oEK];
     __syncthreads();
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+layer_step_kernel(const float* __restrict__ c_rmp,
+                  const float* __restrict__ c_rpm,
+                  const float* __restrict__ c_tpp,
+                  const float* __restrict__ c_tmm,
+                  const float* __restrict__ c_jp,
+                  const float* __restrict__ c_jm,
+                  const float* __restrict__ r_f, const float* __restrict__ t,
+                  const float* __restrict__ jp, const float* __restrict__ jm_f,
+                  const float* __restrict__ ek, const float* __restrict__ d,
+                  float* __restrict__ o_rmp, float* __restrict__ o_rpm,
+                  float* __restrict__ o_tpp, float* __restrict__ o_tmm,
+                  float* __restrict__ o_jp, float* __restrict__ o_jm,
+                  int S, int n, int P, Schedule sch) {
+  extern __shared__ float smem[];
+  const int nn = n * n;
+  const int AR = arena_floats(n);
+  float* dv = smem;          // D-matrix diagonal, shared by all points
+  float* ar = smem + n;      // P per-point arenas
+  const int p0 = blockIdx.x * P;
+  const int np = min(P, S - p0);
+
+  const Arena o(n);
+  const int oR = o.oR, oT = o.oT, oJP = o.oJP, oJM = o.oJM;
+  const int oA = o.oA, oM0 = o.oM0, oM1 = o.oM1, oTMP = o.oTMP;
+  const int oX = o.oW1, wx = 4 * n + 2, oX2 = oX + n * wx, wx2 = 2 * n + 1;
+
+  // block-local views of the per-point device arrays
+  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
+  const float* g_rmp = c_rmp + gm;
+  const float* g_rpm = c_rpm + gm;
+  const float* g_tpp = c_tpp + gm;
+  const float* g_tmm = c_tmm + gm;
+  const float* g_jp = c_jp + gv;
+  const float* g_jm = c_jm + gv;
+
+  // ---- load the elemental layer ------------------------------------------
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = d[i];
+  load_elemental(ar, AR, o, n, np, p0, r_f, t, jp, jm_f, ek);
+  __syncthreads();
+
+  // ---- 1. doubling (flipped space) ----------------------------------------
+  doubling_phase(ar, AR, o, n, np, sch);
 
   // ---- 2. un-flip: R <- D R (r2mp), JM <- D JM (j2m) ----------------------
   for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
@@ -306,6 +286,36 @@ layer_step_kernel(const float* __restrict__ c_rmp,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+doubling_kernel(const float* __restrict__ r_f, const float* __restrict__ t,
+                const float* __restrict__ jp, const float* __restrict__ jm_f,
+                const float* __restrict__ ek, float* __restrict__ o_r,
+                float* __restrict__ o_t, float* __restrict__ o_jp,
+                float* __restrict__ o_jm, int S, int n, int P,
+                Schedule sch) {
+  extern __shared__ float smem[];
+  const int nn = n * n;
+  const int AR = doubling_arena_floats(n);
+  float* ar = smem;
+  const int p0 = blockIdx.x * P;
+  const int np = min(P, S - p0);
+  const Arena o(n);
+  load_elemental(ar, AR, o, n, np, p0, r_f, t, jp, jm_f, ek);
+  __syncthreads();
+  doubling_phase(ar, AR, o, n, np, sch);
+  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
+  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
+    const int p = idx / nn, e = idx - p * nn;
+    o_r[gm + idx] = ar[p * AR + o.oR + e];
+    o_t[gm + idx] = ar[p * AR + o.oT + e];
+  }
+  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
+    const int p = idx / n, i = idx - p * n;
+    o_jp[gv + idx] = ar[p * AR + o.oJP + i];
+    o_jm[gv + idx] = ar[p * AR + o.oJM + i];
+  }
+}
+
 }  // namespace
 
 // Launch one layer step on `stream`. Returns the cudaError_t of the launch
@@ -324,10 +334,7 @@ extern "C" int vsm_layer_step(
   const size_t need =
       (size_t)(n + pts_per_block * arena_floats(n)) * sizeof(float);
   if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
-  Schedule s;
-  s.nd = nd;
-  s.ni = ni;
-  for (int i = 0; i < kMaxSched; ++i) s.it[i] = i < nd ? sched[i] : 0;
+  const Schedule s = vsm::make_schedule(sched, nd, ni);
   cudaError_t e = cudaFuncSetAttribute(
       layer_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -336,5 +343,29 @@ extern "C" int vsm_layer_step(
   layer_step_kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
       c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d, o_rmp,
       o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, pts_per_block, s);
+  return (int)cudaGetLastError();
+}
+
+// Launch the doubling recursion alone on `stream`: (r, t, jp, jm) of S points
+// grown over the nd scheduled steps. Returns the launch's cudaError_t.
+extern "C" int vsm_doubling(const float* r_f, const float* t, const float* jp,
+                            const float* jm_f, const float* ek, float* o_r,
+                            float* o_t, float* o_jp, float* o_jm, int S,
+                            int n, const int* sched, int nd,
+                            int pts_per_block, int smem_bytes, void* stream) {
+  if (S <= 0) return 0;
+  if (n < 1 || nd < 0 || nd > kMaxSched || pts_per_block < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t need =
+      (size_t)pts_per_block * doubling_arena_floats(n) * sizeof(float);
+  if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
+  const Schedule s = vsm::make_schedule(sched, nd, 0);
+  cudaError_t e = cudaFuncSetAttribute(
+      doubling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (S + pts_per_block - 1) / pts_per_block;
+  doubling_kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, pts_per_block, s);
   return (int)cudaGetLastError();
 }

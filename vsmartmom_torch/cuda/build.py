@@ -1,11 +1,16 @@
-"""Build and load the port's CUDA kernels (``vsmartmom_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``vsmartmom_torch/csrc/``).
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
 compiles them in seconds into one shared library for Hopper (``sm_90a``),
-which is loaded with ctypes. The library lands in ``build/`` at the
-repository root, named by a hash of the sources, and is built at the first
-kernel launch of a process (never at import). There is no fallback: a
-missing ``nvcc`` or a failed build raises.
+which is loaded with ctypes. Each source is compiled by its own ``nvcc``,
+all started together, then linked once. The library lands in ``build/`` at
+the repository root, named by a hash of every file under ``csrc/`` (headers
+included) and the flags, and is built at the first kernel launch of a
+process (never at import). There is no fallback: a missing ``nvcc`` or a
+failed build raises.
+
+The launch helpers shared by the kernel wrappers (operand checks, points
+per block) live here too.
 """
 from __future__ import annotations
 
@@ -16,14 +21,25 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 from vsmartmom_torch._paths import REPO_ROOT
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build")
-SOURCES = ("layer_step.cu", "voigt.cu")
+SOURCES = ("layer_step.cu", "layer_step_dev.cu", "voigt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
+
+#: shared memory a block may use on Hopper (227 KB)
+MAX_SHARED_BYTES = 232448
+#: target shared memory per block when several points fit
+_TARGET_BLOCK_BYTES = 48 * 1024
+_MAX_POINTS_PER_BLOCK = 16
+#: longest doubling schedule the kernels' launch parameters hold (kMaxSched
+#: in csrc/rt_device.cuh)
+MAX_SCHEDULE = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +48,13 @@ _SIGNATURES = {
     # (host int*), nd, ni, points per block, shared bytes, stream
     "vsm_layer_step": [_P] * 18 + [_I, _I, ctypes.POINTER(_I), _I, _I, _I,
                                    _I, _P],
+    # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, schedule,
+    # nd, ni, points per block, shared bytes, stream
+    "vsm_layer_step_dev": [_P] * 21 + [_I, _I, ctypes.POINTER(_I), _I, _I,
+                                       _I, _I, _P],
+    # r, t, jp, jm, ek inputs, 4 outputs; S, n, schedule, nd, points per
+    # block, shared bytes, stream
+    "vsm_doubling": [_P] * 9 + [_I, _I, ctypes.POINTER(_I), _I, _I, _I, _P],
     # grid_t, centers, starts, n_chunks, nu, amp, igd, y, n_lines, cutoff,
     # out, n_tiles, stream
     "vsm_voigt": [_P] * 8 + [_I, ctypes.c_float, _P, _I, _P],
@@ -47,29 +70,45 @@ def _nvcc() -> str:
     return path
 
 
+def source_digest() -> str:
+    """Hash of every file under csrc/ (sources and headers) and the
+    flags: any edit there names a new library."""
+    digest = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC)):
+        digest.update(name.encode())
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    """Start every command at once; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [(p, p.communicate()[0]) for p in procs]
+    for (p, out), cmd in zip(outs, cmds):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> str:
     """Compile the kernels if this source set has no library yet. Returns
     the library path."""
-    srcs = [os.path.join(CSRC, s) for s in SOURCES]
-    digest = hashlib.sha256()
-    for s in srcs:
-        with open(s, "rb") as f:
-            digest.update(f.read())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR,
-                       f"libvsm_kernels_{digest.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"libvsm_kernels_{source_digest()}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+                  for s, o in zip(SOURCES, objs)])
+        lib_tmp = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp, *objs]])
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -99,3 +138,32 @@ def check(err: int, what: str):
     """Raise on a non-zero cudaError_t returned by a launch entry."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def launch_config(arena_floats: int, shared_floats: int = 0):
+    """(points per block, dynamic shared-memory bytes) for a kernel whose
+    points each use ``arena_floats`` floats of shared memory, beside
+    ``shared_floats`` the block shares. P is chosen so a block uses at most
+    ~48 KB when several points fit, and at least one point."""
+    per_point = 4 * arena_floats
+    pts = max(1, min(_MAX_POINTS_PER_BLOCK, _TARGET_BLOCK_BYTES // per_point))
+    return pts, 4 * (shared_floats + pts * arena_floats)
+
+
+def check_operands(name: str, xs, device):
+    """Every operand float32, contiguous, on ``device``, without autograd."""
+    for x in xs:
+        if x.device != device or x.dtype != torch.float32:
+            raise ValueError(f"{name} takes float32 tensors on one device, "
+                             f"got {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+        if x.requires_grad:
+            raise RuntimeError(f"{name} is forward-only")
+
+
+def schedule_array(ns_schedule):
+    """The NS schedule as a host int array for a launch entry."""
+    if len(ns_schedule) > MAX_SCHEDULE:
+        raise ValueError(f"doubling schedule longer than {MAX_SCHEDULE}")
+    return (ctypes.c_int * max(1, len(ns_schedule)))(*ns_schedule)

@@ -1,0 +1,90 @@
+"""Doubling recursion alone — CUDA kernel and plain version.
+
+Replaces the TPU kernel ``vsmartmom/pallas/doubling_kernel.py:
+_doubling_kernel``, reached from ``fused_doubling``: all scheduled
+Newton-Schulz doubling steps of a flipped elemental layer (r, t, jp, jm)
+with the state resident, returning the doubled (r, t, jp, jm).
+
+What bounds it on Hopper: per spectral point a chain of dependent N x N
+products (fp32 FMA) against (4 N^2 + 4 N + 1) floats of device memory:
+arithmetic. Design: ``doubling_kernel`` in csrc/layer_step.cu runs phase 1
+of the fused layer step (the same device function) on a smaller
+shared-memory arena of 10 N^2 + 6 N + 1 floats per point (state, NS
+iterates, packed operands) and writes the state back. Ragged S is masked
+in the kernel.
+
+The plain version runs cuda/layer_step_kernel.py:doubling_body. The wrapper
+takes it only for CPU tensors; for CUDA tensors it launches the kernel or
+raises. Forward only.
+"""
+from __future__ import annotations
+
+import torch
+
+from vsmartmom_torch.cuda import build
+from vsmartmom_torch.cuda.layer_step_kernel import doubling_body
+
+#: kernel launches since the count was last reset (set it to 0 to reset)
+launches = 0
+
+
+def arena_floats(n: int) -> int:
+    """Shared-memory floats one spectral point uses (must match
+    ``doubling_arena_floats`` in csrc/layer_step.cu)."""
+    return 10 * n * n + 6 * n + 1
+
+
+def launch_config(n: int):
+    """(points per block, dynamic shared-memory bytes) at stream count n."""
+    return build.launch_config(arena_floats(n))
+
+
+def doubling_bytes(n: int) -> int:
+    """Device-memory bytes of one point: (r, t, jp, jm, ek) read once, the
+    doubled (r, t, jp, jm) written once."""
+    return 4 * ((2 * n * n + 2 * n + 1) + (2 * n * n + 2 * n))
+
+
+def fused_doubling_plain(r, t, jp, jm, ek, *, ns_schedule):
+    """Plain torch version of the kernel (doubling_body), with the
+    wrapper's arguments."""
+    return doubling_body(r, t, jp, jm, ek[:, None], tuple(ns_schedule))
+
+
+def fused_doubling(r, t, jp, jm, ek, *, ns_schedule):
+    """All doubling steps of ``ns_schedule`` (NS iterations per step) on
+    r, t: (S, N, N); jp, jm: (S, N); ek: (S,). Returns the doubled
+    (r, t, jp, jm).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32, contiguous, no autograd) or raise.
+    """
+    ns_schedule = tuple(int(i) for i in ns_schedule)
+    if r.device.type == "cpu":
+        return fused_doubling_plain(r, t, jp, jm, ek,
+                                    ns_schedule=ns_schedule)
+    if r.device.type != "cuda":
+        raise ValueError(f"unsupported device {r.device}")
+    s, n, _ = r.shape
+    ins = [r, t, jp, jm, ek]
+    build.check_operands("fused_doubling", ins, r.device)
+    if t.shape != (s, n, n) or jp.shape != (s, n) or jm.shape != (s, n) \
+            or ek.shape != (s,):
+        raise ValueError("fused_doubling: inconsistent shapes")
+    sched = build.schedule_array(ns_schedule)
+    pts, smem = launch_config(n)
+    if smem > build.MAX_SHARED_BYTES:
+        raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
+                         f"block, more than {build.MAX_SHARED_BYTES}")
+    outs = [torch.empty_like(r), torch.empty_like(t), torch.empty_like(jp),
+            torch.empty_like(jm)]
+    if s == 0:
+        return tuple(outs)
+    err = build.lib().vsm_doubling(
+        *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
+        s, n, sched, len(ns_schedule), pts, smem,
+        torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(err, "doubling launch")
+    global launches
+    launches += 1
+    return tuple(outs)

@@ -27,19 +27,10 @@ CUDA tensors it launches the kernel or raises. Forward only.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from vsmartmom_torch.core.rt import LayerRT, bmm
-
-#: shared memory a block may use on Hopper (227 KB)
-MAX_SHARED_BYTES = 232448
-#: target shared memory per block when several points fit
-_TARGET_BLOCK_BYTES = 48 * 1024
-_MAX_POINTS_PER_BLOCK = 16
-#: longest doubling schedule the kernel's launch parameters hold
-MAX_SCHEDULE = 64
+from vsmartmom_torch.cuda import build
 
 #: kernel launches since the count was last reset (set it to 0 to reset)
 launches = 0
@@ -53,10 +44,31 @@ def arena_floats(n: int) -> int:
 
 
 def launch_config(n: int):
-    """(points per block, dynamic shared-memory bytes) at stream count n."""
-    per_point = 4 * arena_floats(n)
-    pts = max(1, min(_MAX_POINTS_PER_BLOCK, _TARGET_BLOCK_BYTES // per_point))
-    return pts, 4 * (n + pts * arena_floats(n))
+    """(points per block, dynamic shared-memory bytes) at stream count n
+    (the block shares the D diagonal, n floats)."""
+    return build.launch_config(arena_floats(n), n)
+
+
+def step_flops(n: int, ns_schedule, ni: int) -> int:
+    """Matrix-product FLOPs of one point's layer step (2 n^2 k per
+    (n x n) @ (n x k) product; the O(n^2) elementwise work is left out)."""
+    return doubling_flops(n, ns_schedule) + 2 * n * n * (
+        n + 1 + n + 1 + (2 * n + 1) + n + 2 * n * ni + (4 * n + 2)
+        + 3 * (2 * n + 1))
+
+
+def doubling_flops(n: int, ns_schedule) -> int:
+    """Matrix-product FLOPs of one point's doubling over the schedule:
+    r r, 2 products per NS iteration, r [t|jp|j1m], M W, t (M W)."""
+    return sum(2 * n * n * (n + 2 * n * it + (n + 2) + 2 * (2 * n + 2))
+               for it in ns_schedule)
+
+
+def step_bytes(n: int) -> int:
+    """Device-memory bytes of one point's layer step: the composite and
+    the elemental layer read once, the new composite written once."""
+    return 4 * ((4 * n * n + 2 * n) + (2 * n * n + 2 * n + 1)
+                + (4 * n * n + 2 * n))
 
 
 def ns_m(a, iters: int):
@@ -150,30 +162,20 @@ def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
     mats = [comp.r_mp, comp.r_pm, comp.t_pp, comp.t_mm, r_f, t]
     vecs = [comp.j_p, comp.j_m, jp, jm_f]
     ins = [*mats[:4], *vecs[:2], r_f, t, jp, jm_f, ek, d_vec]
-    for x in ins:
-        if x.device != r_f.device or x.dtype != torch.float32:
-            raise ValueError("fused_layer_step takes float32 tensors on one "
-                             f"device, got {x.dtype} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError("fused_layer_step takes contiguous tensors")
-        if x.requires_grad:
-            raise RuntimeError("fused_layer_step is forward-only")
+    build.check_operands("fused_layer_step", ins, r_f.device)
     if any(m.shape != (s, n, n) for m in mats) \
             or any(v.shape != (s, n) for v in vecs) \
             or ek.shape != (s,) or d_vec.shape != (n,):
         raise ValueError("fused_layer_step: inconsistent shapes")
-    if len(ns_schedule) > MAX_SCHEDULE:
-        raise ValueError(f"doubling schedule longer than {MAX_SCHEDULE}")
+    sched = build.schedule_array(ns_schedule)
     pts, smem = launch_config(n)
-    if smem > MAX_SHARED_BYTES:
+    if smem > build.MAX_SHARED_BYTES:
         raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
-                         f"block, more than {MAX_SHARED_BYTES}")
+                         f"block, more than {build.MAX_SHARED_BYTES}")
     outs = [torch.empty_like(comp.r_mp) for _ in range(4)] \
         + [torch.empty_like(comp.j_p) for _ in range(2)]
     if s == 0:
         return LayerRT(*outs)
-    from vsmartmom_torch.cuda import build
-    sched = (ctypes.c_int * max(1, len(ns_schedule)))(*ns_schedule)
     err = build.lib().vsm_layer_step(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
         s, n, sched, len(ns_schedule), int(ni), pts, smem,

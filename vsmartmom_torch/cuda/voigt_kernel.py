@@ -22,6 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
+
 TILE = 1024                        # grid points per tile (one per thread)
 CHUNK = 64                         # lines per row of the tile line ranges
 
@@ -103,6 +105,40 @@ def voigt_tiles_plain(grid_t, centers, starts, n_chunks, nu, amp, igd, y,
     return out
 
 
+#: f32 operations of one in-window (line, grid point) pair: the shift, the
+#: scaled offset, the branch test and the weighted sum, plus Re w's branch
+#: (counted from the expressions of csrc/voigt.cu)
+FLOPS_PAIR = 5
+FLOPS_HUMLICEK = 29
+FLOPS_WEIDEMAN = 243
+
+
+def voigt_work(grid_t, centers, starts, n_chunks, nu, amp, igd, y,
+               cutoff: float):
+    """(operations, device-memory bytes) that one call needs on these
+    inputs: only the in-window pairs with amp > 0 are evaluated, each by
+    the branch of Re w its (x, y) selects; every input is read once and
+    the (n_tiles, 1024) output written once."""
+    n_tiles = grid_t.shape[0]
+    ops = 0
+    st, nc = starts.tolist(), n_chunks.tolist()
+    for t in range(n_tiles):
+        lo, hi = _line_range(st, nc, t, nu.shape[0])
+        if hi <= lo:
+            continue
+        dx = grid_t[t][None, :] - (nu[lo:hi] - centers[t])[:, None]
+        keep = (torch.abs(dx) <= cutoff) & (amp[lo:hi, None] > 0.0)
+        far = (torch.abs(igd[lo:hi, None] * dx) + y[lo:hi, None]) >= 8.0
+        n_h = int((keep & far).sum())
+        n_w = int(keep.sum()) - n_h
+        ops += (n_h * (FLOPS_PAIR + FLOPS_HUMLICEK)
+                + n_w * (FLOPS_PAIR + FLOPS_WEIDEMAN))
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (grid_t, centers, starts, n_chunks, nu, amp, igd,
+                           y)) + grid_t.numel() * 4
+    return ops, nbytes
+
+
 def voigt_tiles(grid_t, centers, starts, n_chunks, nu, amp, igd, y,
                 cutoff: float):
     """Tiled Voigt sum. grid_t: (n_tiles, 1024) tile-centred grid (f32);
@@ -155,8 +191,8 @@ class VoigtPlan:
     """
 
     def __init__(self, grid, nu_lines, wing_cutoff, shift_margin=0.5,
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         grid64 = np.asarray(grid, np.float64)
         self.nu0 = 0.5 * (grid64[0] + grid64[-1])
         self.n_grid = len(grid64)

@@ -23,6 +23,7 @@ from vsmartmom_torch.spectroscopy.hitran import (HitranEmptyError,
                                                  read_linelist_npz)
 from vsmartmom_torch.spectroscopy.voigt import (
     compute_absorption_cross_section, make_hitran_model, make_voigt_plan)
+from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
 #: HITRAN molecule numbers for the name-keyed line-list lookup
 MOL_IDS = {"H2O": 1, "CO2": 2, "O3": 3, "N2O": 4, "CO": 5, "CH4": 6,
@@ -77,7 +78,8 @@ def read_linelist(path: str, molecule: str, nu_min: float = 0.0,
 def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
                                absorption_params, grid, vmr, profile,
                                lut_path: Optional[str] = None,
-                               engine: str = "auto", device="cpu"):
+                               engine: str = "auto",
+                               device=DEFAULT_DEVICE):
     """Accumulate tau_abs[nu, iz] += sigma(nu; p_iz, T_iz) * vcd_dry * vmr.
 
     ref: atmo_prof.jl:427-449. Mutates tau_abs (nSpec, nZ) in place.
@@ -86,7 +88,7 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
     tiled Voigt kernel, one tiling plan shared by the layer loop), or
     'auto' (kernel on CUDA, dense on the CPU).
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     n_z = profile.n_layers
     if tau_abs.shape[1] != n_z:
         raise ValueError("tau_abs must be (nSpec, n_layers)")

@@ -28,6 +28,7 @@ import torch
 from vsmartmom_torch.spectroscopy import tips
 from vsmartmom_torch.spectroscopy.cef import CEF_REGISTRY
 from vsmartmom_torch.spectroscopy.hitran import HitranTable
+from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
 # Physical constants (ref: Absorption/constants/constants.jl)
 C2 = 1.4387769                 # second radiation constant [cm K]
@@ -180,7 +181,7 @@ def line_parameters(model: HitranModel, pressure, temperature):
     return nu_s, s, gamma_d, y
 
 
-def make_voigt_plan(model: HitranModel, grid, device="cpu"):
+def make_voigt_plan(model: HitranModel, grid, device=DEFAULT_DEVICE):
     """Tiling plan for repeated (p, T) evaluations of this model on a fixed
     grid (see cuda.voigt_kernel.VoigtPlan)."""
     from vsmartmom_torch.cuda.voigt_kernel import VoigtPlan
@@ -190,7 +191,8 @@ def make_voigt_plan(model: HitranModel, grid, device="cpu"):
 
 def compute_absorption_cross_section(model: HitranModel, grid, pressure,
                                      temperature, dtype=torch.float64,
-                                     device="cpu", engine="dense", plan=None):
+                                     device=DEFAULT_DEVICE, engine="dense",
+                                     plan=None):
     """Cross-section [cm^2/molec] on the given ascending wavenumber grid
     (cm^-1), as a tensor on ``device``.
 
@@ -199,6 +201,7 @@ def compute_absorption_cross_section(model: HitranModel, grid, pressure,
     make_voigt_plan to reuse the host tiling across (p, T) calls).
     ref: compute_absorption_cross_section.jl:19-130
     """
+    device = resolve_device(device)
     if engine == "kernel":
         if plan is None:
             plan = make_voigt_plan(model, grid, device=device)
