@@ -3,9 +3,10 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-1. Builds the four hand-written kernels from vsmartmom_torch/csrc (one nvcc
-   per source, all started together, sm_90a) and prints each kernel's
-   registers, shared and local memory (cuobjdump on the built library).
+1. Builds the six hand-written kernels from the five sources in
+   vsmartmom_torch/csrc (one nvcc per source, all started together, sm_90a)
+   and prints each kernel's registers, shared and local memory (cuobjdump
+   on the built library).
 2. Drives the flagship O2 A-band forward run through the public API at full
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
@@ -32,6 +33,22 @@ Run from the repository root:  python3 chip_smoke.py
 7. (c) Natraj (IQUV, RadauQuad l_trunc 20 + 16 views: N = 136) in float32 on
    cuda:0 with engine="auto": the run takes torch_dev and passes the Natraj
    gates (I < 0.002, Q/U < 0.008).
+8. (d) The flagship through rt_run(engine="kernel_scan"): one launch of the
+   fused layer-scan kernel per schedule bucket and moment (the count derived
+   from the profile's schedule buckets) and none of any other layer kernel,
+   every launch within 1e-5 of its plain version per field, R/T within 1e-3
+   of float64, first and steady time.
+9. (e) The flagship through rt_run(engine="kernel_lanes"): one launch of the
+   lanes-layout layer step per layer and moment (102) and none of the
+   others, every launch within 1e-5 of its plain version, R/T within 1e-3
+   of float64, steady time.
+10. (f) The headline shape of phase 6 through kernel_scan (one launch per
+   moment: the uniform profile is one bucket) and kernel_lanes (30), with
+   the checks and CUDA-event times of phase 6.
+11. (g) python3 -m vsmartmom_torch.check_bucketed on the card: the kernel,
+   kernel_scan and kernel_lanes engines on a 34-layer heterogeneous Stokes-I
+   profile, each engaged and within 6e-3 of the torch engine; ok must be
+   true.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
@@ -158,7 +175,10 @@ def main():
     import vsmartmom_torch.core.rt_run as rtr
     from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
     from vsmartmom_torch.cuda import build
+    from vsmartmom_torch.check_bucketed import run_check
     from vsmartmom_torch.cuda import doubling_kernel as dk
+    from vsmartmom_torch.cuda import lanes_kernel as lnk
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
     from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
     from vsmartmom_torch.cuda import layer_step_kernel as lsk
     from vsmartmom_torch.cuda import voigt_kernel as vk
@@ -174,10 +194,19 @@ def main():
 
     def reset_counts():
         lsk.launches = ldk.launches = dk.launches = vk.launches = 0
+        scn.launches = lnk.launches = 0
 
     def counts():
         return {"kernel": lsk.launches, "kernel_dev": ldk.launches,
-                "kernel_doubling": dk.launches, "voigt": vk.launches}
+                "kernel_doubling": dk.launches, "voigt": vk.launches,
+                "kernel_scan": scn.launches, "kernel_lanes": lnk.launches}
+
+    def n_buckets(band_, quad_):
+        """Schedule buckets of a profile under the schulz solver (a uniform
+        profile is one bucket)."""
+        _, _, ls = rtr.build_layer_schedules(
+            band_.tau, band_.omega, float(np.min(quad_.qp_mu)), "schulz")
+        return len(rtr.schedule_buckets(ls)) if ls is not None else 1
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -302,6 +331,17 @@ def main():
         s_, n_ = r.shape[0], r.shape[1]
         return (s_ * lsk.doubling_flops(n_, ns_schedule),
                 s_ * dk.doubling_bytes(n_))
+
+    def scan_work(comp, tau_, omega_, zw_, *args, ns_schedule, inter_iters,
+                  **kw):
+        (nz_, s_), n_, k_ = tau_.shape, comp.r_mp.shape[-1], zw_.shape[1]
+        return (s_ * nz_ * scn.scan_flops(n_, ns_schedule, inter_iters, k_),
+                s_ * scn.scan_bytes(n_, nz_, k_))
+
+    def lanes_work(comp_l, r_f, *args, ns_schedule, ni):
+        n_, s_ = r_f.shape[0], r_f.shape[2]
+        return (s_ * lnk.step_flops(n_, ns_schedule, ni),
+                s_ * lnk.step_bytes(n_))
 
     s_stats = KernelStats()
     real_step = lsk.fused_layer_step
@@ -431,9 +471,63 @@ def main():
           f"{n_spec / t_dev:.1f} points/s {tag}")
     check(rel_rd < 1e-3 and rel_td < 1e-3, "flagship kernel_dev R/T off the "
           "float64 reference by >= 1e-3")
+
+    # ---- 8. (d), 9. (e) the flagship through kernel_scan and kernel_lanes --
+    nb_flag = n_buckets(band, model.quad_points)
+    flag = {"kernel_scan": (scn, "fused_layer_scan",
+                            scn.fused_layer_scan_plain, scan_work,
+                            max_m * nb_flag),
+            "kernel_lanes": (lnk, "fused_layer_step_lanes",
+                             lnk.lanes_layer_step_plain, lanes_work,
+                             max_m * n_z)}
+    f_stats, f_launches = {}, {}
+    for engine, (mod, fname, plain, work, expected) in flag.items():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Rf, Tf = vt.rt_run(model, device=dev, engine=engine)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        c = counts()
+        f_launches[engine] = c[engine]
+        check(c[engine] == expected and sum(c.values()) == expected,
+              f"flagship {engine}: launches {c}, expected {expected} of "
+              f"{engine} only ({nb_flag} schedule buckets)")
+        check(np.isfinite(Rf).all() and np.isfinite(Tf).all(),
+              f"non-finite flagship {engine} R/T")
+        t_eng = np.inf
+        for _ in range(2):
+            t0 = time.perf_counter()
+            vt.rt_run(model, device=dev, engine=engine)
+            torch.cuda.synchronize()
+            t_eng = min(t_eng, time.perf_counter() - t0)
+        st = f_stats[engine] = KernelStats()
+        real = getattr(mod, fname)
+        setattr(mod, fname, compare_hook(torch, st, real, plain, work))
+        try:
+            vt.rt_run(model, device=dev, engine=engine)
+        finally:
+            setattr(mod, fname, real)
+        check(st.calls == expected, f"flagship {engine} comparison did not "
+              f"run per launch")
+        check(st.rel < 1e-5, f"flagship {engine} kernel vs plain: max|diff| "
+              f"/ max = {st.rel:.3e} >= 1e-5")
+        ms, plain_ms = st.mean_ms()
+        bound, by = st.bound()
+        rel_rf, rel_tf = rel_err(Rf, R64), rel_err(Tf, T64)
+        print(f"flagship {engine} (N={n_flag}, S={n_spec}, {nb_flag} "
+              f"schedule buckets): {c[engine]} launches, max|diff| vs plain "
+              f"{st.abs:.3e} ({st.rel:.3e} of max); kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}) per "
+              f"launch (mean); vs float64 max|dR|/max R = {rel_rf:.3e}, "
+              f"max|dT|/max T = {rel_tf:.3e}; rt_run first {t_first:.3f} s, "
+              f"steady {t_eng:.3f} s = {n_spec / t_eng:.1f} points/s {tag}")
+        check(rel_rf < 1e-3 and rel_tf < 1e-3, f"flagship {engine} R/T off "
+              f"the float64 reference by >= 1e-3")
+        del Rf, Tf
     del model, band
 
-    # ---- 6. (b) the headline IQUV shape through the three kernel engines ----
+    # ---- 6. (b), 10. (f) the headline IQUV shape through the kernel engines
     pol_h = Polarization.from_name("Stokes_IQUV")
     quad_h = rt_set_streams("GaussQuadFullSphere", 15, 45.0, [0.0, 30.0],
                             pol_h.n)
@@ -457,12 +551,20 @@ def main():
     print(f"headline (N={n_h}, S={ns_h}, {nz_h} layers, {m_h} moments): "
           f"float64 torch engine {time.perf_counter() - t0:.2f} s {tag}")
     check(n_h == 44, f"headline quadrature has N = {n_h}, expected 44")
+    check(scn.max_n() >= n_h, f"layer-scan kernel takes N <= {scn.max_n()}")
+    # 10. (f): kernel_scan launches once per schedule bucket and moment
     hooks = {"kernel": (lsk, "fused_layer_step", lsk.fused_layer_step_plain,
                         step_work),
              "kernel_dev": (ldk, "fused_layer_step_dev",
                             ldk.fused_layer_step_dev_plain, dev_step_work),
              "kernel_doubling": (dk, "fused_doubling", dk.fused_doubling_plain,
-                                 doubling_work)}
+                                 doubling_work),
+             "kernel_scan": (scn, "fused_layer_scan",
+                             scn.fused_layer_scan_plain, scan_work),
+             "kernel_lanes": (lnk, "fused_layer_step_lanes",
+                              lnk.lanes_layer_step_plain, lanes_work)}
+    expected_h = {e: m_h * nz_h for e in hooks}
+    expected_h["kernel_scan"] = m_h * n_buckets(band_h, quad_h)
     h_stats, h_launches = {}, {}
     for engine, (mod, fname, plain, work) in hooks.items():
         reset_counts()
@@ -473,9 +575,10 @@ def main():
         t_run = time.perf_counter() - t0
         c = counts()
         h_launches[engine] = c[engine]
-        check(c[engine] == m_h * nz_h and sum(c.values()) == c[engine],
-              f"headline {engine}: launches {c}, expected {m_h * nz_h} of "
-              f"{engine} only")
+        check(c[engine] == expected_h[engine]
+              and sum(c.values()) == c[engine],
+              f"headline {engine}: launches {c}, expected "
+              f"{expected_h[engine]} of {engine} only")
         st = h_stats[engine] = KernelStats()
         real = getattr(mod, fname)
         setattr(mod, fname, compare_hook(torch, st, real, plain, work,
@@ -484,8 +587,8 @@ def main():
             run_h(engine)
         finally:
             setattr(mod, fname, real)
-        check(st.calls == m_h * nz_h, f"headline {engine} comparison did "
-              f"not run per layer")
+        check(st.calls == expected_h[engine], f"headline {engine} "
+              f"comparison did not run per launch")
         check(st.rel < 1e-5, f"headline {engine} kernel vs plain: "
               f"{st.rel:.3e} >= 1e-5")
         rel_h = rel_err(Rh, R64h)
@@ -548,6 +651,14 @@ def main():
     check(err_i < 0.002 and err_q < 0.008 and err_u < 0.008,
           "float32 Natraj off its gates")
 
+    # ---- 11. (g) the bucketed-engine check on the card ----------------------
+    reset_counts()
+    t0 = time.perf_counter()
+    bucketed = run_check(device=dev)
+    print(f"check_bucketed ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(bucketed)} {tag}")
+    check(bucketed["ok"], "the bucketed-engine check failed")
+
     kernels = [
         s_stats.entry("fused_layer_step",
                       "vsmartmom_torch/csrc/layer_step.cu",
@@ -562,6 +673,14 @@ def main():
             "fused_doubling", "vsmartmom_torch/csrc/layer_step.cu",
             "vsmartmom/pallas/doubling_kernel.py:105",
             h_launches["kernel_doubling"]),
+        f_stats["kernel_scan"].entry(
+            "fused_layer_scan", "vsmartmom_torch/csrc/layer_scan.cu",
+            "vsmartmom/pallas/layer_scan_kernel.py:59",
+            f_launches["kernel_scan"]),
+        f_stats["kernel_lanes"].entry(
+            "fused_layer_step_lanes", "vsmartmom_torch/csrc/lanes.cu",
+            "vsmartmom/pallas/lanes_kernel.py:135",
+            f_launches["kernel_lanes"]),
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -260,8 +260,9 @@ def test_fused_layer_step_dev_plain_matches_jax(case, dtype):
 
 def test_select_engine_auto_takes_the_split_form():
     """auto: float32 CUDA beyond the kernel's N takes torch_dev (the
-    Natraj N), float64 the plain torch engine; the two unported JAX
-    engines still raise. No card needed: only the device's type is read."""
+    Natraj N), float64 the plain torch engine; the scan and lanes engines
+    run by their port names, and the JAX names raise. No card needed: only
+    the device's type is read."""
     cuda = torch.device("cuda")
     assert select_engine("auto", cuda, torch.float32, 148, True) \
         == "torch_dev"
@@ -269,8 +270,10 @@ def test_select_engine_auto_takes_the_split_form():
         == "torch_dev"
     assert select_engine("auto", cuda, torch.float64, 148, True) == "torch"
     assert select_engine("auto", cuda, torch.float32, 148, False) == "torch"
+    for eng in ("kernel_scan", "kernel_lanes"):
+        assert select_engine(eng, cuda, torch.float32, 44, True) == eng
     for eng in ("pallas_scan", "pallas_lanes"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             select_engine(eng, cuda, torch.float32, 148, True)
 
 

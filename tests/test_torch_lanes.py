@@ -1,0 +1,183 @@
+"""Port's lanes-layout layer step (plain version on the CPU) and the
+kernel_lanes engine against the JAX package.
+
+JAX runs as its own tests run it: the lanes body ``lanes_layer_step_math``
+as plain jnp (tests/test_pallas_doubling.py:217), and the
+``pallas_lanes_interpret`` engine end to end on its tiny case (:278).
+Tolerances, each with its reason, sit beside the asserts.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from vsmartmom.core.rt_run import BandRTInputs as JaxBand
+from vsmartmom.core.rt_run import rt_run_band as jax_rt_run_band
+from vsmartmom.pallas.lanes_kernel import lanes_layer_step_math
+from vsmartmom.scattering.phase import Polarization as JaxPol
+from vsmartmom.scattering.phase import get_greek_rayleigh as jax_greek
+from vsmartmom.util.quadrature import rt_set_streams as jax_streams
+
+from vsmartmom_torch.core.rt import (LayerRT, doubling, interaction,
+                                     make_rsolve, ns_doubling_schedule,
+                                     vacuum_layer)
+from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+from vsmartmom_torch.cuda import lanes_kernel as lk
+from vsmartmom_torch.scattering.phase import (Polarization,
+                                              get_greek_rayleigh)
+from vsmartmom_torch.util.quadrature import rt_set_streams
+
+torch.set_num_threads(2)
+
+
+def _fixture(d_vec, S=24, nd=6, seed=3):
+    """tests/test_pallas_doubling.py:217-254 in numpy (float64): a passive
+    elemental slab (flipped space) and the composite of one earlier doubled
+    layer under a vacuum, built with the port's float64 torch core."""
+    n = len(d_vec)
+    rng = np.random.default_rng(seed)
+    tau_scat, mqm = 0.4, 0.15
+    sched = ns_doubling_schedule(tau_scat, mqm, nd)
+    dtau = tau_scat / 2 ** nd
+    r0 = rng.uniform(0, 1, (S, n, n)) * dtau / (n * mqm)
+    t0 = (np.broadcast_to(np.eye(n) * np.exp(-dtau / mqm), (S, n, n)).copy()
+          + rng.uniform(0, 1, (S, n, n)) * dtau / (2 * n * mqm))
+    jp0 = rng.uniform(0, dtau, (S, n))
+    jm0 = rng.uniform(0, dtau, (S, n))
+    ek = np.full((S,), np.exp(-dtau / 0.7))
+    t = lambda x: torch.as_tensor(x, dtype=torch.float64)
+    eye = torch.eye(n, dtype=torch.float64).expand(S, n, n)
+    rs = make_rsolve("schulz", 4)
+    rd, td, jpd, jmd = doubling(t(r0), t(t0), t(jp0), t(jm0), t(ek), nd,
+                                eye, rsolve=rs, ns_schedule=sched)
+    d = t(d_vec)
+    r_mp = d[None, :, None] * rd
+    sgn = d[None, :, None] * d[None, None, :]
+    comp = interaction(vacuum_layer(S, n, torch.float64, "cpu"),
+                       LayerRT(r_mp, sgn * r_mp, td, sgn * td, jpd,
+                               d[None, :] * jmd), eye, rsolve=rs)
+    comp_l = [x.numpy() for x in lk.to_lanes(comp)]
+    elem_l = [r0.transpose(1, 2, 0), t0.transpose(1, 2, 0), jp0.T, jm0.T]
+    return sched, comp_l, elem_l, ek
+
+
+# float32: the bound the JAX test holds its body to against its XLA engine,
+# 2e-5 of each field's max (measured here: 5.8e-6, products summed in another
+# order by another library); float64 pins the algebra.
+BOUNDS = {"float32": 2e-5, "float64": 1e-12}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("stokes", ["I", "IQU"])
+def test_lanes_plain_matches_jax_lanes_math(stokes, dtype):
+    """lanes_layer_step_plain against JAX lanes_layer_step_math on the
+    fixture of tests/test_pallas_doubling.py:217 (N = 15, D = +1) and on an
+    IQU slab whose D vector has -1 entries (N = 15)."""
+    d_vec = (np.ones(15) if stokes == "I"
+             else np.tile([1.0, 1.0, -1.0], 5))
+    sched, comp_l, elem_l, ek = _fixture(d_vec)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = lanes_layer_step_math(
+        *(jnp.asarray(x, jdt) for x in comp_l + elem_l),
+        jnp.asarray(ek, jdt).reshape(1, -1),
+        jnp.asarray(d_vec, jdt).reshape(-1, 1), ns_schedule=sched, ni=4)
+    got = lk.fused_layer_step_lanes(
+        LayerRT(*(torch.as_tensor(x, dtype=tdt) for x in comp_l)),
+        *(torch.as_tensor(x, dtype=tdt) for x in elem_l),
+        torch.as_tensor(ek, dtype=tdt), torch.as_tensor(d_vec, dtype=tdt),
+        ns_schedule=sched, ni=4)
+    for name, a, b in zip(LayerRT._fields, ref, got):
+        a = np.asarray(a)
+        assert b.shape == a.shape and b.dtype == tdt
+        rel = np.abs(b.numpy() - a).max() / np.abs(a).max()
+        assert rel < BOUNDS[dtype], (name, rel)
+
+
+def test_lanes_layout_round_trip():
+    rng = np.random.default_rng(0)
+    comp = LayerRT(*(torch.as_tensor(rng.normal(size=(5, 4, 4)))
+                     for _ in range(4)),
+                   *(torch.as_tensor(rng.normal(size=(5, 4)))
+                     for _ in range(2)))
+    lanes = lk.to_lanes(comp)
+    assert lanes.r_mp.shape == (4, 4, 5) and lanes.j_p.shape == (4, 5)
+    assert all(x.is_contiguous() for x in lanes)
+    assert lanes.t_pp[1, 2, 3] == comp.t_pp[3, 1, 2]
+    assert lanes.j_m[2, 4] == comp.j_m[4, 2]
+    back = lk.from_lanes(lanes)
+    for a, b in zip(comp, back):
+        assert b.is_contiguous() and torch.equal(a, b)
+
+
+def _tiny_band():
+    """The model of tests/test_pallas_doubling.py:278-302."""
+    rng = np.random.default_rng(1)
+    n_spec, n_z = 8, 2
+    tau_r = np.array([[0.02], [0.2]]) * np.ones((1, n_spec))
+    tau = tau_r + rng.uniform(0, 0.1, (n_z, n_spec))
+    return tau, tau_r / tau, np.ones((n_z, 1, n_spec))
+
+
+def test_kernel_lanes_engine_matches_jax_pallas_lanes():
+    """End to end, float32: kernel_lanes (plain version) against JAX
+    pallas_lanes_interpret at rtol 3e-5, atol 1e-9, the JAX test's own
+    bound for its engine against XLA."""
+    tau, om, zw = _tiny_band()
+    surf = {"type": "LambertianSurfaceScalar", "albedo": 0.2}
+    quad = ("GaussQuadFullSphere", 8, 45.0, [10.0], 1)
+    R, T = rt_run_band(Polarization.from_name("Stokes_I"),
+                       rt_set_streams(*quad),
+                       BandRTInputs(tau=tau, omega=om, zw=zw,
+                                    greeks=[get_greek_rayleigh(0.03)]),
+                       [10.0], [30.0], 1, surf, dtype=torch.float32,
+                       device="cpu", solver="schulz", engine="kernel_lanes")
+    Rj, Tj = jax_rt_run_band(JaxPol.from_name("Stokes_I"),
+                             jax_streams(*quad),
+                             JaxBand(tau=tau, omega=om, zw=zw,
+                                     greeks=[jax_greek(0.03)]),
+                             [10.0], [30.0], 1, surf, dtype=jnp.float32,
+                             solver="schulz",
+                             doubling_engine="pallas_lanes_interpret")
+    np.testing.assert_allclose(R, Rj, rtol=3e-5, atol=1e-9)
+    np.testing.assert_allclose(T, Tj, rtol=3e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("pol_name", ["Stokes_I", "Stokes_IQU"])
+def test_kernel_lanes_equals_kernel_in_float64(pol_name):
+    """float64, on the spread 6-layer profile of
+    tests/test_pallas_doubling.py:178 (per-layer schedules): kernel_lanes
+    against the kernel engine at the same schedules, within 1e-10 of max.
+    The two interactions differ only in how the second solve is reached
+    (two NS solves against the push-through identity), which agrees far
+    below that bound at these schedules' residuals."""
+    rng = np.random.default_rng(0)
+    n_z, n_spec = 6, 8
+    tau_scat = (np.array([1e-4, 1e-3, 0.01, 0.05, 0.3, 1.0])[:, None]
+                * np.ones((1, n_spec)))
+    tau = tau_scat + rng.uniform(0, 0.3, (n_z, n_spec))
+    pol = Polarization.from_name(pol_name)
+    args = (pol, rt_set_streams("GaussQuadFullSphere", 10, 45.0,
+                                [0.0, 30.0], pol.n),
+            BandRTInputs(tau=tau, omega=tau_scat / tau,
+                         zw=np.ones((n_z, 1, n_spec)),
+                         greeks=[get_greek_rayleigh(0.028)]),
+            [0.0, 30.0], [0.0, 90.0], 2,
+            {"type": "LambertianSurfaceScalar", "albedo": 0.2})
+    R, T = rt_run_band(*args, device="cpu", solver="schulz",
+                       engine="kernel_lanes")
+    R0, T0 = rt_run_band(*args, device="cpu", solver="schulz",
+                         engine="kernel")
+    assert np.abs(R - R0).max() <= 1e-10 * np.abs(R0).max()
+    assert np.abs(T - T0).max() <= 1e-10 * np.abs(T0).max()
+
+
+def test_lanes_wrapper_refuses_other_devices():
+    comp = lk.to_lanes(vacuum_layer(2, 3, torch.float32, "meta"))
+    m = torch.empty((3, 3, 2), device="meta")
+    v = torch.empty((3, 2), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk.fused_layer_step_lanes(comp, m, m, v, v,
+                                  torch.empty(2, device="meta"),
+                                  torch.empty(3, device="meta"),
+                                  ns_schedule=(1,), ni=1)

@@ -23,7 +23,10 @@ import vsmartmom_torch
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
 from vsmartmom_torch.scattering.phase import Polarization, get_greek_rayleigh
 from vsmartmom_torch.util.quadrature import rt_set_streams
+import vsmartmom_torch.check_bucketed
 import vsmartmom_torch.cuda.doubling_kernel
+import vsmartmom_torch.cuda.lanes_kernel
+import vsmartmom_torch.cuda.layer_scan_kernel
 import vsmartmom_torch.cuda.layer_step_dev_kernel
 import vsmartmom_torch.cuda.layer_step_kernel
 import vsmartmom_torch.cuda.voigt_kernel
@@ -35,7 +38,8 @@ R, T = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
                    {"type": "LambertianSurfaceScalar", "albedo": 0.1},
                    device="cpu")
 assert R.shape == (1, 3, 3) and np.isfinite(R).all() and R[0, 0, 0] > 0
-for engine in ("torch_dev", "kernel_dev", "kernel_doubling"):
+for engine in ("torch_dev", "kernel_dev", "kernel_doubling", "kernel_scan",
+               "kernel_lanes"):
     Re, _ = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
                         {"type": "LambertianSurfaceScalar", "albedo": 0.1},
                         device="cpu", solver="schulz", engine=engine)
@@ -85,8 +89,11 @@ def test_cuda_wrappers_build_nothing_for_cpu_tensors():
     from vsmartmom_torch.core.rt import vacuum_layer_dev
     from vsmartmom_torch.cuda import doubling_kernel as dk
     from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
+    from vsmartmom_torch.cuda import lanes_kernel as lnk
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
 
-    before = (lsk.launches, vk.launches, ldk.launches, dk.launches)
+    before = (lsk.launches, vk.launches, ldk.launches, dk.launches,
+              scn.launches, lnk.launches)
     S, n = 3, 4
     comp = vacuum_layer(S, n, torch.float32, "cpu")
     r = torch.full((S, n, n), 0.01)
@@ -104,9 +111,22 @@ def test_cuda_wrappers_build_nothing_for_cpu_tensors():
     assert all(torch.isfinite(x).all() for x in out)
     out = dk.fused_doubling(r, t, v, v, ek, ns_schedule=(1, 2))
     assert all(torch.isfinite(x).all() for x in out)
+    out = lnk.fused_layer_step_lanes(lnk.to_lanes(comp), lnk.to_lanes_m(r),
+                                     lnk.to_lanes_m(t), v.t(), v.t(), ek,
+                                     torch.ones(n), ns_schedule=(1, 2), ni=1)
+    assert all(torch.isfinite(x).all() for x in out)
+    layer = torch.full((1, S), 0.1)
+    out = scn.fused_layer_scan(
+        comp, layer, torch.full((1, S), 0.5), torch.ones((1, 1, S)), layer,
+        torch.full((1, n, n), 0.1), torch.full((1, n, n), 0.1),
+        torch.linspace(0.2, 0.9, n), torch.full((n,), 0.25), torch.ones(n),
+        torch.ones(n), 0.5, 0.9, 0.5, ns_schedule=(1, 2), i_mu0_n=0,
+        n_stokes=1, inter_iters=1)
+    assert all(torch.isfinite(x).all() for x in out)
     plan = VoigtPlan(np.linspace(13000.0, 13001.0, 50), [13000.5], 5.0,
                      device="cpu")
     sig = plan.run([13000.5], [1e-22], [0.01], [0.5])
     assert sig.shape == (50,) and float(sig.max()) > 0
     assert build._lib is None
-    assert (lsk.launches, vk.launches, ldk.launches, dk.launches) == before
+    assert (lsk.launches, vk.launches, ldk.launches, dk.launches,
+            scn.launches, lnk.launches) == before

@@ -218,10 +218,9 @@ def test_engine_selection():
     assert select_engine("auto", cuda, torch.float32, 64, True) == "torch_dev"
     for eng in ENGINES:
         assert select_engine(eng, cpu, torch.float64, 12, True) == eng
-    for eng in ("pallas_scan", "pallas_lanes"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            select_engine(eng, cpu, torch.float64, 12, True)
-    for eng in ("xla", "xla_dev", "pallas_dd", "pallas"):
+    assert {"kernel_scan", "kernel_lanes"} <= set(ENGINES)
+    for eng in ("xla", "xla_dev", "pallas_dd", "pallas", "pallas_scan",
+                "pallas_lanes"):
         with pytest.raises(ValueError):
             select_engine(eng, cpu, torch.float64, 12, True)
 

@@ -21,10 +21,19 @@ Engines for the layer scan (the JAX package's name in brackets):
                       (cuda/layer_step_dev_kernel.py) [pallas_dd];
   "kernel_doubling" — the doubling-only CUDA kernel
                       (cuda/doubling_kernel.py) as the doubling step of the
-                      torch engine, then the torch interaction [pallas].
+                      torch engine, then the torch interaction [pallas];
+  "kernel_scan"     — one launch of the fused layer-scan CUDA kernel per
+                      schedule bucket: Z mixing, elemental, doubling and the
+                      two-solve interaction of all its layers, the composite
+                      held on chip (cuda/layer_scan_kernel.py) [pallas_scan];
+  "kernel_lanes"    — per layer, the elemental layer in torch and the
+                      lanes-layout CUDA layer step, the composite kept in
+                      lanes layout (N, N, S) for the whole scan
+                      (cuda/lanes_kernel.py) [pallas_lanes].
 The kernel engines need the Newton-Schulz solver's static schedules and
 raise on a layer without one; CPU tensors take each kernel's plain torch
-version.
+version. auto never picks kernel_dev, kernel_doubling, kernel_scan or
+kernel_lanes.
 """
 from __future__ import annotations
 
@@ -51,14 +60,9 @@ from vsmartmom_torch.util.quadrature import QuadPoints, nearest_point
 KERNEL_MAX_N = 63
 
 #: the port's layer-scan engines (see the module docstring)
-ENGINES = ("torch", "kernel", "torch_dev", "kernel_dev", "kernel_doubling")
+ENGINES = ("torch", "kernel", "torch_dev", "kernel_dev", "kernel_doubling",
+           "kernel_scan", "kernel_lanes")
 _DEV_ENGINES = ("torch_dev", "kernel_dev")
-
-#: engines of the JAX package that the port does not run yet
-_NOT_PORTED_ENGINES = {
-    "pallas_scan": "the fused layer-scan kernel (ROADMAP queue 2, item 5)",
-    "pallas_lanes": "the lanes layer-step kernel (ROADMAP queue 2, item 6)",
-}
 
 
 @dataclasses.dataclass
@@ -121,10 +125,21 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     elif engine == "kernel_dev":
         from vsmartmom_torch.cuda.layer_step_dev_kernel import \
             fused_layer_step_dev
+    elif engine == "kernel_scan":
+        from vsmartmom_torch.cuda.layer_scan_kernel import fused_layer_scan
+        # host scalars for the kernel's launch (one read per moment)
+        mu0_h, mu0_node_h = float(mu0), float(mu0_node)
+    elif engine == "kernel_lanes":
+        from vsmartmom_torch.cuda.lanes_kernel import (
+            fused_layer_step_lanes, from_lanes, to_lanes, to_lanes_m,
+            to_lanes_v)
 
     dev_form = engine in _DEV_ENGINES
     comp = (vacuum_layer_dev if dev_form else vacuum_layer)(
         n_spec, n, dtype, device)
+    if engine == "kernel_lanes":
+        # the composite stays in lanes layout (N, N, S) across the scan
+        comp = to_lanes(comp)
     for (nd, sched, ni), start, count in schedule_buckets(layer_schedules):
         if engine.startswith("kernel") and sched is None:
             raise ValueError(f"the {engine} engine needs the schulz solver's "
@@ -132,6 +147,19 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
         if dev_form and nd is None:
             raise ValueError("the split-form engines need static per-layer "
                              "doubling counts")
+        if engine == "kernel_scan":
+            # the kernel doubles len(sched) times: a bucket whose ndoubl
+            # differs would run another discretization than its entry says
+            if len(sched) != nd:
+                raise ValueError(f"bucket at layer {start}: NS schedule of "
+                                 f"{len(sched)} steps, ndoubl {nd}")
+            sl = slice(start, start + count)
+            comp = fused_layer_scan(
+                comp, tau[sl], omega[sl], zw[sl], tau_sum_all[sl], z_pp_c,
+                z_mp_c, qp, wct2, i0_vec, d_vec, mu0_h, mu0_node_h,
+                0.5 if is_m0 else 0.25, ns_schedule=sched, i_mu0_n=i_mu0_n,
+                n_stokes=n_stokes, inter_iters=ni)
+            continue
         irs = (make_rsolve("schulz", ni)
                if solver == "schulz" and ni is not None else rsolve)
         # torch_dev solves exactly (LU) under the lu solver or where a
@@ -148,6 +176,12 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                     *layer, min_qp_mu, ndoubl_static=nd)
                 comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek, d_vec,
                                         ns_schedule=sched, ni=ni)
+            elif engine == "kernel_lanes":
+                r_f, t, jp, jm_f, ek, _ = elemental_flipped(
+                    *layer, min_qp_mu, ndoubl_static=nd)
+                comp = fused_layer_step_lanes(
+                    comp, to_lanes_m(r_f), to_lanes_m(t), to_lanes_v(jp),
+                    to_lanes_v(jm_f), ek, d_vec, ns_schedule=sched, ni=ni)
             elif engine == "kernel_dev":
                 r_f, g_el, e_el, jp, jm_f, ek = elemental_flipped_dev(
                     *layer, nd)
@@ -171,6 +205,8 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                 comp = interaction(comp, added, eye, rsolve=irs)
     if dev_form:
         comp = dev_to_full(comp)
+    elif engine == "kernel_lanes":
+        comp = from_lanes(comp)
 
     surf = lambertian_surface_layer(
         albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1], mu0,
@@ -278,14 +314,10 @@ def select_engine(engine: str, device: torch.device, dtype, n: int,
     and the schulz solver's static schedules; beyond N = 63 the torch ops
     of the direct/diffuse split form, as the JAX package's auto does (its
     plain float32 missed the Natraj I gate on the TPU; the split form's
-    float32 floor is lower); and plain torch ops otherwise. It never picks kernel_dev or
-    kernel_doubling, as the JAX package's auto never picks their TPU
-    counterparts.
+    float32 floor is lower); and plain torch ops otherwise. It never picks
+    kernel_dev, kernel_doubling, kernel_scan or kernel_lanes, as the JAX
+    package's auto never picks their TPU counterparts.
     """
-    if engine in _NOT_PORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported yet: "
-            f"{_NOT_PORTED_ENGINES[engine]}")
     if engine == "auto":
         if device.type == "cuda" and dtype == torch.float32 \
                 and static_schulz:

@@ -23,12 +23,11 @@
 // fp32 FMA on the CUDA cores: no TF32, no tensor cores (a first, exact
 // version).
 //
-// Per-point arena layout (floats; nn = n*n):
-//   R [nn] | T [nn] | JP [n] | JM [n] | EK [1] | scratch
-// scratch: A [nn] | M0 [nn] | M1 [nn] | TMP [nn] | packed operands:
-//   doubling:    W1 [n x (2n+2)] | W2 [n x (2n+2)]
-//   interaction: X  [n x (4n+2)] | X2 [n x (2n+1)]
-// The doubling-only kernel's arena ends after W2 (10 nn + 6 n + 1 floats).
+// Per-point arena layout (floats; nn = n*n): the doubling phase's arena
+// (vsm::Arena in rt_device.cuh: R, T, JP, JM, EK, A, M0, M1, TMP and the
+// packed operands W1, W2 of n x (2n+2)); the interaction reuses the region
+// from W1 on as X [n x (4n+2)] | X2 [n x (2n+1)]. The doubling-only kernel's
+// arena ends after W2 (10 nn + 6 n + 1 floats).
 
 #include <cuda_runtime.h>
 
@@ -36,32 +35,19 @@
 
 namespace {
 
+using vsm::Arena;
+using vsm::doubling_arena_floats;
+using vsm::doubling_phase;
+using vsm::eye_minus;
 using vsm::kMaxSched;
 using vsm::kThreads;
-using vsm::Schedule;
-using vsm::eye_minus;
 using vsm::mm;
 using vsm::ns_solve;
+using vsm::Schedule;
 
 __host__ __device__ inline int arena_floats(int n) {
   return 12 * n * n + 6 * n + 1;
 }
-
-__host__ __device__ inline int doubling_arena_floats(int n) {
-  return 10 * n * n + 6 * n + 1;
-}
-
-// arena offsets of the doubling phase, shared by both kernels
-struct Arena {
-  int oR, oT, oJP, oJM, oEK, oA, oM0, oM1, oTMP, oW1, w2, oW2;
-  __device__ explicit Arena(int n) {
-    const int nn = n * n;
-    oR = 0; oT = nn; oJP = 2 * nn; oJM = 2 * nn + n; oEK = 2 * nn + 2 * n;
-    const int oS = oEK + 1;
-    oA = oS; oM0 = oS + nn; oM1 = oS + 2 * nn; oTMP = oS + 3 * nn;
-    oW1 = oS + 4 * nn; w2 = 2 * n + 2; oW2 = oW1 + n * w2;
-  }
-};
 
 // R, T, JP, JM, EK of the block's np points from device memory
 __device__ void load_elemental(float* ar, int AR, const Arena& o, int n,
@@ -82,70 +68,6 @@ __device__ void load_elemental(float* ar, int AR, const Arena& o, int n,
   }
   for (int p = threadIdx.x; p < np; p += blockDim.x)
     ar[p * AR + o.oEK] = ek[p0 + p];
-}
-
-// Phase 1: all scheduled doubling steps (flipped space), in the arena.
-__device__ void doubling_phase(float* ar, int AR, const Arena& o, int n,
-                               int np, const Schedule& sch) {
-  const int nn = n * n, w2 = o.w2;
-  const int oR = o.oR, oT = o.oT, oJP = o.oJP, oJM = o.oJM, oEK = o.oEK;
-  const int oA = o.oA, oW1 = o.oW1, oW2 = o.oW2;
-  for (int step = 0; step < sch.nd; ++step) {
-    // A = I - R R; M = NS inverse of A
-    mm(ar + oA, n, AR, ar + oR, n, AR, ar + oR, n, AR, n, n, np, false);
-    __syncthreads();
-    eye_minus(ar, AR, n, np, oA);
-    __syncthreads();
-    const int oM = ns_solve(ar, AR, n, np, oA, o.oM0, o.oM1, o.oTMP,
-                            sch.it[step]);
-    // W1[:, 0:n+2] = [T | JP | JM ek]
-    for (int idx = threadIdx.x; idx < np * n * (n + 2); idx += blockDim.x) {
-      const int p = idx / (n * (n + 2)), e = idx - p * n * (n + 2);
-      const int i = e / (n + 2), j = e - i * (n + 2);
-      float* a = ar + p * AR;
-      a[oW1 + i * w2 + j] = j < n ? a[oT + i * n + j]
-                          : (j == n ? a[oJP + i] : a[oJM + i] * a[oEK]);
-    }
-    __syncthreads();
-    // W2[:, 0:n+2] = R [T | JP | J1M]
-    mm(ar + oW2, w2, AR, ar + oR, n, AR, ar + oW1, w2, AR, n, n + 2, np,
-       false);
-    __syncthreads();
-    // W1 = [R T | T | J1M + R JP | JP + R J1M]
-    for (int idx = threadIdx.x; idx < np * n * w2; idx += blockDim.x) {
-      const int p = idx / (n * w2), e = idx - p * n * w2;
-      const int i = e / w2, j = e - i * w2;
-      float* a = ar + p * AR;
-      float v;
-      if (j < n) v = a[oW2 + i * w2 + j];
-      else if (j < 2 * n) v = a[oT + i * n + (j - n)];
-      else if (j == 2 * n) v = a[oJM + i] * a[oEK] + a[oW2 + i * w2 + n];
-      else v = a[oJP + i] + a[oW2 + i * w2 + n + 1];
-      a[oW1 + i * w2 + j] = v;
-    }
-    __syncthreads();
-    // W1 = T (M W1)
-    mm(ar + oW2, w2, AR, ar + oM, n, AR, ar + oW1, w2, AR, n, w2, np, false);
-    __syncthreads();
-    mm(ar + oW1, w2, AR, ar + oT, n, AR, ar + oW2, w2, AR, n, w2, np, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-      const int p = idx / n, i = idx - p * n;
-      float* a = ar + p * AR;
-      a[oJM + i] = a[oJM + i] + a[oW1 + i * w2 + 2 * n];
-      a[oJP + i] = a[oJP + i] * a[oEK] + a[oW1 + i * w2 + 2 * n + 1];
-    }
-    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-      const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-      float* a = ar + p * AR;
-      a[oR + e] = a[oR + e] + a[oW1 + i * w2 + j];
-      a[oT + e] = a[oW1 + i * w2 + n + j];
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < np; p += blockDim.x)
-      ar[p * AR + oEK] = ar[p * AR + oEK] * ar[p * AR + oEK];
-    __syncthreads();
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -28,7 +28,8 @@ from vsmartmom_torch._paths import REPO_ROOT
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(REPO_ROOT, "build")
-SOURCES = ("layer_step.cu", "layer_step_dev.cu", "voigt.cu")
+SOURCES = ("layer_step.cu", "layer_step_dev.cu", "layer_scan.cu",
+           "lanes.cu", "voigt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -55,6 +56,16 @@ _SIGNATURES = {
     # r, t, jp, jm, ek inputs, 4 outputs; S, n, schedule, nd, points per
     # block, shared bytes, stream
     "vsm_doubling": [_P] * 9 + [_I, _I, ctypes.POINTER(_I), _I, _I, _I, _P],
+    # tau, omega, tau_sum, zw, zpp_c, zmp_c, qp, wct2, i0, d, 6 composite
+    # inputs, 6 outputs; S, n, nz, K, schedule, nd, ni, i_mu0_n, n_stokes,
+    # mu0, mu0_node, wct02, points per block, shared bytes, stream
+    "vsm_layer_scan": [_P] * 22 + [_I, _I, _I, _I, ctypes.POINTER(_I), _I,
+                                   _I, _I, _I, ctypes.c_float,
+                                   ctypes.c_float, ctypes.c_float, _I, _I,
+                                   _P],
+    # 6 composite + 4 elemental + ek + d inputs, 6 outputs, workspace; S, n,
+    # schedule, nd, ni, stream
+    "vsm_lanes": [_P] * 19 + [_I, _I, ctypes.POINTER(_I), _I, _I, _P],
     # grid_t, centers, starts, n_chunks, nu, amp, igd, y, n_lines, cutoff,
     # out, n_tiles, stream
     "vsm_voigt": [_P] * 8 + [_I, ctypes.c_float, _P, _I, _P],

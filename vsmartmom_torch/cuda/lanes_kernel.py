@@ -1,0 +1,199 @@
+"""Lanes-layout RT layer step (doubling + adding) — CUDA kernel and plain
+version.
+
+Replaces the TPU kernel ``vsmartmom/pallas/lanes_kernel.py:_lanes_kernel``
+(body ``lanes_layer_step_math``), reached from ``fused_layer_step_lanes``.
+The composite and the elemental layer are in lanes layout, matrices
+(N, N, S) and vectors (N, S), the spectral points on the contiguous axis;
+the composite stays in this layout across the whole layer scan (convert
+once with ``to_lanes_m`` / ``from_lanes_m``). Algebra: the scheduled
+Newton-Schulz doubling and the two-solve interaction with ``tt`` never
+materialized, as the TPU body associates them.
+
+What bounds it on Hopper: per point a chain of small dependent N x N fp32
+products. The TPU kernel put the points on the 128-lane axis so that a
+product became N broadcast FMAs (there Mosaic scalarized them). Here a warp
+covers 32 consecutive points, so every load is one coalesced line, and a
+block of 32 points x min(N, 16) row threads runs the point's products row by
+row with no per-point shared-memory arena: the state and scratch live in a
+device-memory workspace in the same layout, (6 N^2 + 6 N) S floats,
+allocated here with ``torch.empty``. It takes any N. Every product re-reads
+its operands from the cache hierarchy (csrc/lanes.cu).
+
+The plain version (``lanes_layer_step_plain``) is the port of
+``lanes_layer_step_math``, taking the wrapper's arguments. The wrapper
+takes it only for CPU tensors; for CUDA tensors it launches the kernel or
+raises. Forward only.
+"""
+from __future__ import annotations
+
+import torch
+
+from vsmartmom_torch.core.rt import LayerRT
+from vsmartmom_torch.cuda import build, layer_step_kernel
+
+#: kernel launches since the count was last reset (set it to 0 to reset)
+launches = 0
+
+
+def to_lanes_m(x):
+    """(S, N, N) -> (N, N, S), contiguous"""
+    return x.permute(1, 2, 0).contiguous()
+
+
+def from_lanes_m(x):
+    """(N, N, S) -> (S, N, N), contiguous"""
+    return x.permute(2, 0, 1).contiguous()
+
+
+def to_lanes_v(v):
+    """(S, N) -> (N, S), contiguous"""
+    return v.t().contiguous()
+
+
+def from_lanes_v(v):
+    """(N, S) -> (S, N), contiguous"""
+    return v.t().contiguous()
+
+
+def to_lanes(comp: LayerRT) -> LayerRT:
+    """A composite in lanes layout."""
+    return LayerRT(*(to_lanes_m(m) for m in comp[:4]),
+                   *(to_lanes_v(v) for v in comp[4:]))
+
+
+def from_lanes(comp_l: LayerRT) -> LayerRT:
+    """A lanes-layout composite back in (S, N, N) / (S, N) layout."""
+    return LayerRT(*(from_lanes_m(m) for m in comp_l[:4]),
+                   *(from_lanes_v(v) for v in comp_l[4:]))
+
+
+def workspace_floats(n: int) -> int:
+    """Device-memory workspace floats per point (must match csrc/lanes.cu):
+    r, t, NS scratch A, M, M2, TMP (6 n^2) and six vectors."""
+    return 6 * n * n + 6 * n
+
+
+#: device-memory bytes of one point's step: the layer step's operands in
+#: another layout (composite and elemental in, composite out)
+step_bytes = layer_step_kernel.step_bytes
+
+
+def step_flops(n: int, ns_schedule, ni: int) -> int:
+    """Matrix-product FLOPs of one point's lanes layer step (2 n^2 k per
+    (n x n) @ (n x k) product): per doubling step r r, the NS iterations,
+    r t, M (r t), t (.), M t, t (.) and six matrix-vector products; the
+    interaction's two solves and their products."""
+    dbl = sum(2 * n ** 3 * (6 + 2 * it) + 12 * n * n for it in ns_schedule)
+    return dbl + 2 * n ** 3 * (12 + 4 * ni) + 12 * n * n
+
+
+def _mm(a, b):
+    """(N, N, S) @ (N, N, S) pointwise over the points."""
+    return torch.einsum("iks,kjs->ijs", a, b)
+
+
+def _mv(a, v):
+    """(N, N, S) @ (N, S) -> (N, S)"""
+    return torch.einsum("iks,ks->is", a, v)
+
+
+def _ns_m(a, eye, iters: int):
+    """Newton-Schulz inverse of A = I - B (rho(B) < 1)."""
+    eye2 = 2.0 * eye
+    m = eye2 - a
+    for _ in range(iters):
+        m = _mm(m, eye2 - _mm(a, m))
+    return m
+
+
+def lanes_layer_step_plain(comp_l: LayerRT, r, t, jp, jm, ek, d_vec, *,
+                           ns_schedule, ni: int) -> LayerRT:
+    """Plain torch version of the kernel (the TPU body
+    lanes_layer_step_math, same association), on the wrapper's arguments:
+    comp_l in lanes layout, r, t: (N, N, S); jp, jm: (N, S); ek: (S,);
+    d_vec: (N,)."""
+    n = r.shape[0]
+    eye = torch.eye(n, dtype=r.dtype, device=r.device)[:, :, None]
+    ek = ek[None, :]
+    d = d_vec[:, None]
+    c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm = comp_l
+
+    # --- 1. doubling (flipped space) ---
+    for it in ns_schedule:
+        a = eye - _mm(r, r)
+        m = _ns_m(a, eye, int(it))
+        j1p = jp * ek
+        j1m = jm * ek
+        v1 = j1m + _mv(r, jp)
+        v2 = jp + _mv(r, j1m)
+        # tt @ X = t @ (M @ X), tt never materialized
+        rt_ = _mm(r, t)
+        r = r + _mm(t, _mm(m, rt_))
+        jm = jm + _mv(t, _mv(m, v1))
+        jp = j1p + _mv(t, _mv(m, v2))
+        t = _mm(t, _mm(m, t))
+        ek = ek * ek
+
+    r2mp = d[:, :, None] * r             # un-flip rows
+    j2m = d * jm
+    sgn = d[:, None, :] * d[None, :, :]
+    r2pm = sgn * r2mp
+    t2mm = sgn * t
+
+    # --- 2. interaction ---
+    a1 = eye - _mm(r2mp, c_rpm)
+    m1 = _ns_m(a1, eye, int(ni))
+    o_jm = c_jm + _mv(c_tmm, _mv(m1, _mv(r2mp, c_jp) + j2m))
+    o_rmp = c_rmp + _mm(c_tmm, _mm(m1, _mm(r2mp, c_tpp)))
+    o_tmm = _mm(c_tmm, _mm(m1, t2mm))
+
+    a2 = eye - _mm(c_rpm, r2mp)
+    m2 = _ns_m(a2, eye, int(ni))
+    o_jp = jp + _mv(t, _mv(m2, c_jp + _mv(c_rpm, j2m)))
+    o_tpp = _mm(t, _mm(m2, c_tpp))
+    o_rpm = r2pm + _mm(t, _mm(m2, _mm(c_rpm, t2mm)))
+    return LayerRT(o_rmp, o_rpm, o_tpp, o_tmm, o_jp, o_jm)
+
+
+def fused_layer_step_lanes(comp_l: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
+                           ns_schedule, ni: int) -> LayerRT:
+    """One RT layer step in lanes layout. comp_l: LayerRT of (N, N, S) x 4
+    and (N, S) x 2; r_f, t: (N, N, S); jp, jm_f: (N, S); ek: (S,);
+    d_vec: (N,). ``ns_schedule``: per-doubling-step NS iteration counts;
+    ``ni``: NS iterations of the interaction solves. Returns the new
+    composite in lanes layout.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32, contiguous, no autograd) or raise.
+    """
+    ns_schedule = tuple(int(i) for i in ns_schedule)
+    if r_f.device.type == "cpu":
+        return lanes_layer_step_plain(comp_l, r_f, t, jp, jm_f, ek, d_vec,
+                                      ns_schedule=ns_schedule, ni=int(ni))
+    if r_f.device.type != "cuda":
+        raise ValueError(f"unsupported device {r_f.device}")
+    n, _, s = r_f.shape
+    mats = [*comp_l[:4], r_f, t]
+    vecs = [*comp_l[4:], jp, jm_f]
+    ins = [*comp_l, r_f, t, jp, jm_f, ek, d_vec]
+    build.check_operands("fused_layer_step_lanes", ins, r_f.device)
+    if any(m.shape != (n, n, s) for m in mats) \
+            or any(v.shape != (n, s) for v in vecs) \
+            or ek.shape != (s,) or d_vec.shape != (n,):
+        raise ValueError("fused_layer_step_lanes: inconsistent shapes")
+    sched = build.schedule_array(ns_schedule)
+    outs = [torch.empty_like(r_f) for _ in range(4)] \
+        + [torch.empty_like(jp) for _ in range(2)]
+    if s == 0:
+        return LayerRT(*outs)
+    ws = torch.empty(workspace_floats(n) * s, dtype=torch.float32,
+                     device=r_f.device)
+    err = build.lib().vsm_lanes(
+        *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
+        ws.data_ptr(), s, n, sched, len(ns_schedule), int(ni),
+        torch.cuda.current_stream(r_f.device).cuda_stream)
+    build.check(err, "lanes launch")
+    global launches
+    launches += 1
+    return LayerRT(*outs)
