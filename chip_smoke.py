@@ -6,7 +6,12 @@ Run from the repository root:  python3 chip_smoke.py
 1. Builds the six hand-written kernels from the five sources in
    vsmartmom_torch/csrc (one nvcc per source, all started together, sm_90a)
    and prints each kernel's registers, shared and local memory (cuobjdump
-   on the built library).
+   on the built library); fails on local memory (spills) in the team
+   kernels (layer step, doubling, layer scan).
+1b. Runs those three team kernels against their plain versions at every
+   width class of csrc/rt_device.cuh and its edges (N = 1, 13, 15, 16, 17,
+   24, 32, 33, 44, 48, 49, 63, and 64 for the scan) at a ragged S = 1 007
+   on a synthetic slab: every field within 1e-5 of its max.
 2. Drives the flagship O2 A-band forward run through the public API at full
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
@@ -159,6 +164,90 @@ def rel_err(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+#: the team kernels (mangled names hold these): no local memory allowed
+TEAM_KERNELS = ("layer_step_kernel", "doubling_kernel", "layer_scan_kernel")
+#: widths of the phase below: every tile class of csrc/rt_device.cuh and its
+#: edges (the layer step and doubling take N <= 63, the scan N <= 64)
+WIDTHS = (1, 13, 15, 16, 17, 24, 32, 33, 44, 48, 49, 63, 64)
+WIDTH_S = 1007
+
+
+def width_class_phase(torch, dev, lsk, dk, scn, LayerRT):
+    """The layer step, doubling and layer scan kernels against their plain
+    versions at every width of WIDTHS, at a ragged S (not a multiple of any
+    block's points), on a passive random slab (nd = 6) under a composite
+    built by plain steps. Each field within 1e-5 of its max; returns the
+    largest such error per kernel and N."""
+    from vsmartmom_torch.core.rt import ns_doubling_schedule, vacuum_layer
+    rng = np.random.default_rng(1)
+    S, nd, ni, out = WIDTH_S, 6, 3, {}
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    def worst(got, ref):
+        return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   for a, b in zip(got, ref))
+
+    for n in WIDTHS:
+        qp = np.linspace(0.1, 1.0, n) if n > 1 else np.array([0.5])
+        sched = tuple(ns_doubling_schedule(0.5, float(qp.min()), nd))
+        dtau, mqm = 0.5 / 2 ** nd, float(qp.min())
+        d = f32(np.resize([1.0, 1.0, -1.0, -1.0], n))
+        errs = {}
+
+        def slab(scale):
+            r = rng.uniform(0, 1, (S, n, n)) * dtau * scale / (n * mqm)
+            t = (np.eye(n) * np.exp(-dtau / mqm)
+                 + rng.uniform(0, 1, (S, n, n)) * dtau / (2 * n * mqm))
+            return (f32(r), f32(t), f32(rng.uniform(0, dtau, (S, n))),
+                    f32(rng.uniform(0, dtau, (S, n))))
+
+        ek = f32(np.full(S, np.exp(-dtau / 0.7)))
+        comp = vacuum_layer(S, n, torch.float32, dev)
+        for scale in (1.0, 0.6):
+            comp = LayerRT(*(x.contiguous() for x in
+                             lsk.fused_layer_step_plain(
+                                 comp, *slab(scale), ek, d,
+                                 ns_schedule=sched, ni=4)))
+        el = slab(0.8)
+        if n <= 63:
+            args = (comp, *el, ek, d)
+            errs["layer_step"] = worst(
+                lsk.fused_layer_step(*args, ns_schedule=sched, ni=ni),
+                lsk.fused_layer_step_plain(*args, ns_schedule=sched, ni=ni))
+            errs["doubling"] = worst(
+                dk.fused_doubling(*el, ek, ns_schedule=sched),
+                dk.fused_doubling_plain(*el, ek, ns_schedule=sched))
+        # the scan: two layers of a synthetic band, two Z components whose
+        # rows sum to one against the weights
+        nz, k = 2, 2
+        wct2 = np.full(n, 1.0 / n)
+        zc = rng.uniform(0.2, 1.0, (2, k, n, n))
+        zc /= (zc * wct2).sum(-1, keepdims=True)
+        tau = rng.uniform(0.2, 0.5, (nz, S))
+        omega = rng.uniform(0.3, 0.9, (nz, S))
+        zw = rng.uniform(0.2, 1.0, (nz, k, S))
+        zw /= zw.sum(1, keepdims=True)
+        i0 = np.zeros(n)
+        i0[n // 2] = 1.0
+        args = (comp, f32(tau), f32(omega), f32(zw),
+                f32(np.cumsum(tau, 0) - tau), f32(zc[0]), f32(zc[1]),
+                f32(qp), f32(wct2), f32(i0), d, 0.6, float(qp[n // 2]),
+                0.5 / np.pi)
+        kw = dict(ns_schedule=sched, i_mu0_n=n // 2, n_stokes=1,
+                  inter_iters=ni)
+        errs["layer_scan"] = worst(scn.fused_layer_scan(*args, **kw),
+                                   scn.fused_layer_scan_plain(*args, **kw))
+        torch.cuda.synchronize()
+        for name, e in errs.items():
+            check(e < 1e-5, f"{name} N={n} S={S}: max|diff| / max {e:.3e} "
+                  f">= 1e-5")
+            out.setdefault(name, {})[n] = float(f"{e:.3e}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -222,9 +311,24 @@ def main():
     t0 = time.perf_counter()
     build.lib()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s {tag}")
+    spills = []
+    fn = None
     for line in build.resource_usage(build.build()).splitlines():
-        if line.strip().startswith(("Function", "REG:")):
-            print(line.strip())
+        line = line.strip()
+        if line.startswith("Function"):
+            fn = line
+        elif line.startswith("REG:"):
+            print(f"{fn} {line}")
+            local = int(line.split("LOCAL:")[1].split()[0])
+            if local and any(k in fn for k in TEAM_KERNELS):
+                spills.append(f"{fn} {line}")
+    check(not spills, f"local memory (spills) in a team kernel: {spills}")
+
+    # ---- 1b. the team kernels at every width class and its edges -----------
+    widths = width_class_phase(torch, dev, lsk, dk, scn, LayerRT)
+    print(f"width classes (S = {WIDTH_S}): every launch within 1e-5 of max "
+          f"per field of its plain version; max|diff| / max by N: "
+          f"{json.dumps(widths)} {tag}")
 
     # ---- 2. the flagship forward run, launches counted ----------------------
     params = vt.default_parameters()
@@ -603,7 +707,7 @@ def main():
               f"({by}) per launch (mean) {tag}")
         del Rh, Th
 
-    # ---- 7. (c) float32 Natraj (N = 148) under auto -------------------------
+    # ---- 7. (c) float32 Natraj (N = 136) under auto -------------------------
     nat = np.load(os.path.join(here, "tests", "data", "natraj_trues.npz"))
     mu = np.array([0.02, 0.06, 0.10, 0.16, 0.20, 0.28, 0.32, 0.40, 0.52,
                    0.64, 0.72, 0.84, 0.92, 0.96, 0.98, 1.00])

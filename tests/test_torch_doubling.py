@@ -164,8 +164,9 @@ def test_kernel_doubling_engine_runs_every_scheduled_bucket():
 
 def test_doubling_kernel_arena_fits_hopper():
     for n in (1, 15, 44, 63):
-        pts, smem = dk.launch_config(n)
+        pts, smem, ld, team = dk.launch_config(n)
         assert pts >= 1 and smem <= build.MAX_SHARED_BYTES, (n, pts, smem)
+        assert smem == 4 * pts * dk.arena_floats(n, ld) and team % 32 == 0
 
 
 def test_added_layer_kernel_doubling_needs_a_schedule():

@@ -32,6 +32,8 @@ from vsmartmom_torch.scattering.phase import (Polarization, compute_Z_moments,
                                               get_greek_rayleigh)
 from vsmartmom_torch.util.quadrature import rt_set_streams
 
+from test_torch_layer_step import check_team_launch
+
 torch.set_num_threads(2)
 
 SURF = {"type": "LambertianSurfaceScalar", "albedo": 0.2}
@@ -209,14 +211,17 @@ def test_kernel_scan_refuses_a_bucket_whose_schedule_misses_its_ndoubl():
                           engine="kernel_scan")
 
 
-def test_scan_arena_fits_hopper_up_to_its_largest_n():
+@pytest.mark.parametrize("n", range(1, 65))
+def test_scan_arena_fits_hopper_up_to_its_largest_n(n):
     """The per-point arena takes the headline N = 44 and every N up to
-    max_n(); the wrapper refuses beyond."""
-    assert sk.max_n() >= 44
-    for n in (1, 15, 44, sk.max_n()):
-        pts, smem = sk.launch_config(n)
-        assert pts >= 1 and smem <= build.MAX_SHARED_BYTES, (n, pts, smem)
-    assert sk.launch_config(sk.max_n() + 1)[1] > build.MAX_SHARED_BYTES
+    max_n() = 64, with whole warps per team and tiles that cover the n x n
+    and n x (2n+1) products; the wrapper refuses beyond."""
+    assert sk.max_n() == 64
+    cfg = sk.launch_config(n)
+    check_team_launch(n, cfg, (n, 2 * n + 1, 2 * n + 2))
+    assert cfg.smem_bytes == 4 * cfg.points * sk.arena_floats(n, cfg.ld)
+    assert 4 * sk.arena_floats(sk.max_n() + 1, sk.max_n() + 1) \
+        > build.MAX_SHARED_BYTES
 
 
 def test_scan_wrapper_refuses_other_devices():

@@ -5,6 +5,9 @@ side runs its Pallas kernel in interpret mode. Both in float64, so the two
 differ only by the summation order of the batched matmuls: the bound is
 max|diff| / max|ref| < 1e-12.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -14,8 +17,11 @@ import jax.numpy as jnp
 from vsmartmom.core import rt as jrt
 from vsmartmom.pallas.layer_step_kernel import fused_layer_step as jax_step
 
+import vsmartmom_torch.core.rt_run as rtr
 from vsmartmom_torch.core import rt as trt
-from vsmartmom_torch.cuda.layer_step_kernel import (fused_layer_step,
+from vsmartmom_torch.cuda import build
+from vsmartmom_torch.cuda.layer_step_kernel import (arena_floats,
+                                                    fused_layer_step,
                                                     launch_config)
 
 torch.set_num_threads(2)
@@ -137,8 +143,60 @@ def test_schedule_helpers_match_jax():
         assert trt.ns_iters_for_bound(b) == jrt.ns_iters_for_bound(b)
 
 
-def test_launch_config_fits_hopper_shared_memory():
-    """Every N the kernel takes (<= 63) fits one block's 227 KB."""
-    for n in (1, 12, 15, 44, 63):
-        pts, smem = launch_config(n)
-        assert pts >= 1 and smem <= 232448, (n, pts, smem)
+def _tile_cover(n, k, cls):
+    """Every (i, j) of an n x k product that the team kernels' tiles store
+    (rows rg + r RG, columns c0 + cg TN + c of thread (rg, cg), as
+    csrc/rt_device.cuh:mm maps them), with repeats."""
+    np_, tt, tm, tn = cls
+    rg_n, cg_n = np_ // tm, tt // (np_ // tm)
+    out = []
+    for t in range(tt):
+        rg, cg = divmod(t, cg_n)
+        for c0 in range(0, k, cg_n * tn):
+            out += [(rg + r * rg_n, c0 + cg * tn + c)
+                    for r in range(tm) for c in range(tn)
+                    if rg + r * rg_n < n and c0 + cg * tn + c < k]
+    return out
+
+
+def check_team_launch(n, cfg, widths):
+    """A team launch at width n fits one block's 227 KB, has a team of
+    whole warps within the block's thread bound and named barriers, and its
+    tiles store every output of each product width exactly once."""
+    cls = build.tile_class(n)
+    assert cls[0] >= n and cfg.team_threads == cls[1]
+    assert cfg.team_threads % 32 == 0
+    assert cfg.points >= 1 and cfg.smem_bytes <= build.MAX_SHARED_BYTES
+    assert cfg.points * cfg.team_threads <= build.MAX_BLOCK_THREADS
+    assert cfg.team_threads == 32 or cfg.points <= 15   # bar.sync ids 1..15
+    # float4 rows: ld a multiple of 4, and 4 mod 8 (distinct banks) unless
+    # that arena would not fit
+    assert n <= cfg.ld < n + 8 and cfg.ld % 4 == 0
+    assert cfg.ld % 8 == 4 or cfg.ld == build.round4(n)
+    for k in widths:
+        cover = _tile_cover(n, k, cls)
+        assert len(cover) == n * k and set(cover) == {
+            (i, j) for i in range(n) for j in range(k)}, (n, k)
+
+
+@pytest.mark.parametrize("n", range(1, 64))
+def test_launch_config_fits_hopper_shared_memory(n):
+    """Every N the kernel takes (<= 63) fits one block's 227 KB, with whole
+    warps per team and tiles that cover the n x n, n x (2n+1) and
+    n x (4n+2) products; the engine's bound is unchanged."""
+    assert rtr.KERNEL_MAX_N == 63
+    cfg = launch_config(n)
+    check_team_launch(n, cfg, (n, 2 * n + 1, 2 * n + 2, 4 * n + 2))
+    assert cfg.smem_bytes == 4 * (build.round4(n)
+                                  + cfg.points * arena_floats(n, cfg.ld))
+
+
+def test_tile_classes_match_the_cuda_header():
+    """build.TILE_CLASSES and MAX_BLOCK_THREADS are the Cfg<...> classes and
+    kMaxBlock of csrc/rt_device.cuh."""
+    with open(os.path.join(build.CSRC, "rt_device.cuh")) as f:
+        src = f.read()
+    found = tuple(tuple(int(x) for x in m) for m in re.findall(
+        r"using C\d+ = Cfg<(\d+), (\d+), (\d+), (\d+)>;", src))
+    assert found == build.TILE_CLASSES
+    assert f"constexpr int kMaxBlock = {build.MAX_BLOCK_THREADS};" in src

@@ -14,25 +14,30 @@
 //
 // On the TPU the layer axis was the innermost sequential grid dimension and
 // the composite stayed in VMEM scratch between grid steps. On Hopper blocks
-// run in no order, so the layer loop lives inside the block: each block owns
-// P spectral points and loops over the bucket's layers itself, and each
-// point's composite stays in the block's shared memory for the whole bucket.
-// Device memory sees the input composite once, the per-layer scalars (tau,
-// omega, tau_sum, zw) and the output composite once.
+// run in no order, so the layer loop lives inside the kernel: a team of
+// whole warps owns one spectral point and loops over the bucket's layers
+// itself, and the point's composite stays in shared memory for the whole
+// bucket. Device memory sees the input composite once, the per-layer
+// scalars (tau, omega, tau_sum, zw) and the output composite once.
 //
 // Bound: as the layer step, a chain of small dependent N x N fp32 products
-// per point (O(N^3) FMAs against O(N^2) bytes), so arithmetic and
-// shared-memory bandwidth, not device memory. All threads of the block sweep
-// the (point, row, column) outputs of each product (rt_device.cuh).
+// per point (O(N^3) FMAs against O(N^2) bytes), so arithmetic and the
+// shared-memory loads that feed it, not device memory. Design: the team
+// helpers of rt_device.cuh (one warp per point at N <= 16, 2 / 6 / 8 warps
+// for the width classes 32 / 48 / 64; register-tiled products with the
+// elementwise passes fused into their stores; each team synchronises only
+// itself). Every output is the fmaf chain of the block-wide version over l in
+// order, with the same association of every product and both solves.
 //
-// Per-point arena (floats; nn = n*n): the doubling phase's arena
-// (vsm::Arena, 10 nn + 6 n + 1) followed by the composite
-//   CRMP [nn] | CRPM [nn] | CTPP [nn] | CTMM [nn] | CJP [n] | CJM [n]
-// = 14 nn + 8 n + 1 floats: one point at N = 44 is 110 KB, and N <= 64 fits
-// one point in a block's 227 KB. The Z mixtures, the elemental layer and the
-// interaction's operands reuse the doubling scratch (A, M0, M1, TMP, W1, W2).
-// Z_c, qp, wct2, i0 and d are read from device memory (they are shared by
-// every point and stay in cache). The ragged last block is masked.
+// Per-point arena (floats; sq = n ld, ld the padded row stride, every slot
+// on 16 bytes): the doubling phase's Arena (R, T, A, M0, M1, TMP, JP, JM,
+// W1, W2) followed by the composite
+//   CRMP [sq] | CRPM [sq] | CTPP [sq] | CTMM [sq] | CJP [n4] | CJM [n4]
+// (n4 = round4(n)): one point at N = 44 is 111 KB, and N <= 64 fits one
+// point in a block's 227 KB (N = 63, 64 with ld = 64). The Z mixtures
+// and the interaction's operands reuse the doubling scratch. Z_c, qp, wct2,
+// i0 and d are read from device memory (they are shared by every point and
+// stay in cache).
 //
 // The elemental layer rounds as the torch version does: a sum of a product
 // is rounded twice (__fmul_rn, __fadd_rn), never contracted into one FMA.
@@ -48,56 +53,58 @@ namespace {
 using vsm::Arena;
 using vsm::doubling_arena_floats;
 using vsm::doubling_phase;
+using vsm::each;
+using vsm::each_flat;
+using vsm::each_row;
+using vsm::kMaxBlock;
 using vsm::kMaxSched;
-using vsm::kThreads;
 using vsm::mm;
-using vsm::ns_solve;
+using vsm::mv;
+using vsm::ns;
+using vsm::ns_seed;
 using vsm::Schedule;
+using vsm::Team;
 
-__host__ __device__ inline int scan_arena_floats(int n) {
-  return doubling_arena_floats(n) + 4 * n * n + 2 * n;
+__host__ __device__ inline int scan_arena_floats(int n, int ld) {
+  return doubling_arena_floats(n, ld) + 4 * n * ld + 2 * vsm::round4(n);
 }
 
 struct ScanArgs {
-  int n, nz, K, S, i_mu0_n, n_stokes;
+  int n, ld, nz, K, S, i_mu0_n, n_stokes;
   float mu0, mu0_node, wct02, inv_scale;
 };
 
-// Z mixtures of layer z into A (z_pp) and M0 (z_mp), then the elemental
-// layer in flipped space into R, T, JP, JM, EK. Returns synchronised.
-__device__ void elemental_phase(float* ar, int AR, const Arena& o, int np,
-                                int p0, int z, const ScanArgs& a,
-                                const float* __restrict__ tau,
-                                const float* __restrict__ omega,
-                                const float* __restrict__ tau_sum,
-                                const float* __restrict__ zw,
-                                const float* __restrict__ zpp_c,
-                                const float* __restrict__ zmp_c,
-                                const float* __restrict__ qp,
-                                const float* __restrict__ wct2,
-                                const float* __restrict__ i0,
-                                const float* __restrict__ d) {
-  const int n = a.n, nn = n * n, S = a.S, K = a.K;
+// Z mixtures of layer z into A (z_pp) and M0 (z_mp), the elemental layer in
+// flipped space into R, T (the current slot), JP, JM. Returns the layer's
+// e^(-dtau/mu0), synchronised.
+template <class C>
+__device__ __forceinline__ float
+elemental_phase(const Team<C>& tm, float* ar, const Arena& o, int p, int z,
+                const ScanArgs& a, const float* __restrict__ tau,
+                const float* __restrict__ omega,
+                const float* __restrict__ tau_sum,
+                const float* __restrict__ zw, const float* __restrict__ zpp_c,
+                const float* __restrict__ zmp_c, const float* __restrict__ qp,
+                const float* __restrict__ wct2, const float* __restrict__ i0,
+                const float* __restrict__ d) {
+  const int n = a.n, ld = a.ld, nn = n * n, S = a.S, K = a.K;
   const size_t lz = (size_t)z * S;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn;
+  const float dt = tau[lz + p] * a.inv_scale;
+  const float om = omega[lz + p];
+  float* ZPP = ar + o.oA;
+  float* ZMP = ar + o.oM0;
+  float* R = ar + o.oR;
+  float* T = ar + o.oT;
+  each(tm, n, n, [&](int i, int j) {
     float zpp = 0.f, zmp = 0.f;
     for (int k = 0; k < K; ++k) {
-      const float w = zw[((size_t)z * K + k) * S + p0 + p];
-      zpp = __fadd_rn(zpp, __fmul_rn(w, zpp_c[k * nn + e]));
-      zmp = __fadd_rn(zmp, __fmul_rn(w, zmp_c[k * nn + e]));
+      const float w = zw[((size_t)z * K + k) * S + p];
+      zpp = __fadd_rn(zpp, __fmul_rn(w, zpp_c[k * nn + i * n + j]));
+      zmp = __fadd_rn(zmp, __fmul_rn(w, zmp_c[k * nn + i * n + j]));
     }
-    ar[p * AR + o.oA + e] = zpp;
-    ar[p * AR + o.oM0 + e] = zmp;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* ap = ar + p * AR;
-    const float dt = tau[lz + p0 + p] * a.inv_scale;
-    const float om = omega[lz + p0 + p];
+    ZPP[i * ld + j] = zpp;
+    ZMP[i * ld + j] = zmp;
     const float mu_i = qp[i], mu_j = qp[j], w_j = wct2[j];
-    const float zpp = ap[o.oA + e], zmp = ap[o.oM0 + e];
     const float exp_i = 1.f + expm1f(-dt / mu_i);
     float r = om * zmp * (mu_j / (mu_i + mu_j)) * w_j
               * (-expm1f(-dt * (1.f / mu_i + 1.f / mu_j)));
@@ -115,19 +122,16 @@ __device__ void elemental_phase(float* ar, int AR, const Arena& o, int np,
                              * expm1f(dt * (mu_i - mu_j) / (mu_i * mu_j));
       t = om * zpp * (mu_j / (mu_i - mu_j)) * w_j * exp_diff;
     }
-    ap[o.oR + e] = d[i] * r;
-    ap[o.oT + e] = t;
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* ap = ar + p * AR;
-    const float dt = tau[lz + p0 + p] * a.inv_scale;
-    const float om = omega[lz + p0 + p];
+    R[i * ld + j] = d[i] * r;
+    T[i * ld + j] = t;
+  });
+  tm.sync();
+  each_row(tm, n, [&](int i) {
     const float mu_i = qp[i], mu0n = a.mu0_node;
     float zpp_i0 = 0.f, zmp_i0 = 0.f;
     for (int j = 0; j < n; ++j) {
-      zpp_i0 = fmaf(ap[o.oA + i * n + j], i0[j], zpp_i0);
-      zmp_i0 = fmaf(ap[o.oM0 + i * n + j], i0[j], zmp_i0);
+      zpp_i0 = fmaf(ZPP[i * ld + j], i0[j], zpp_i0);
+      zmp_i0 = fmaf(ZMP[i * ld + j], i0[j], zmp_i0);
     }
     const bool same0 = (i >= a.i_mu0_n && i < a.i_mu0_n + a.n_stokes)
                        || mu_i == mu0n;
@@ -142,141 +146,115 @@ __device__ void elemental_phase(float* ar, int AR, const Arena& o, int np,
     jp = a.wct02 * om * zpp_i0 * jp;
     float jm = a.wct02 * om * zmp_i0 * (mu0n / (mu_i + mu0n))
                * (-expm1f(-dt * (1.f / mu_i + 1.f / mu0n)));
-    const float atten = expf(-tau_sum[lz + p0 + p] / mu0n);
-    ap[o.oJP + i] = jp * atten;
-    ap[o.oJM + i] = d[i] * (jm * atten);
-  }
-  for (int p = threadIdx.x; p < np; p += blockDim.x) {
-    const float dt = tau[lz + p0 + p] * a.inv_scale;
-    ar[p * AR + o.oEK] = 1.f + expm1f(-dt / a.mu0);
-  }
-  __syncthreads();
+    const float atten = expf(-tau_sum[lz + p] / mu0n);
+    ar[o.oJP + i] = jp * atten;
+    ar[o.oJM + i] = d[i] * (jm * atten);
+  });
+  tm.sync();
+  return 1.f + expm1f(-dt / a.mu0);
 }
 
 // The doubled layer (R = D-flipped r, T, JP, JM) added under the composite
-// C with two Newton-Schulz solves (core/rt.py:interaction):
+// C at oC with two Newton-Schulz solves (core/rt.py:interaction):
 //   t01 = c_tmm M(I - r2mp c_rpm), t21 = t M(I - c_rpm r2mp),
 //   r_mp' = c_rmp + t01 r2mp c_tpp, t_mm' = t01 t2mm,
 //   j_m'  = c_jm + t01 (r2mp c_jp + j2m),
 //   r_pm' = r2pm + t21 c_rpm t2mm, t_pp' = t21 c_tpp,
 //   j_p'  = jp + t21 (c_jp + c_rpm j2m).
 // Returns synchronised.
-__device__ void interaction_phase(float* ar, int AR, const Arena& o, int n,
-                                  int np, int oC, int ni,
-                                  const float* __restrict__ d) {
-  const int nn = n * n, w2 = o.w2, wy = 2 * n + 1;
-  const int oR = o.oR, oT = o.oT, oJP = o.oJP, oJM = o.oJM;
-  const int oA = o.oA, oW1 = o.oW1, oW2 = o.oW2;
-  const int oCRMP = oC, oCRPM = oC + nn, oCTPP = oC + 2 * nn,
-            oCTMM = oC + 3 * nn, oCJP = oC + 4 * nn, oCJM = oC + 4 * nn + n;
+template <class C>
+__device__ __forceinline__ void
+interaction_phase(const Team<C>& tm, float* ar, const Arena& o, int oC,
+                  int ni, const float* __restrict__ d) {
+  const int n = o.n, ld = o.ld, w2 = o.w2, sq = n * ld, wy = 2 * n + 1;
+  float* R = ar + o.oR;
+  const float* T = ar + o.oT;
+  const float* JP = ar + o.oJP;
+  float* JM = ar + o.oJM;
+  float* A = ar + o.oA;
+  float* M0 = ar + o.oM0;
+  float* W1 = ar + o.oW1;
+  float* W2 = ar + o.oW2;
+  float* CRMP = ar + oC;
+  float* CRPM = CRMP + sq;
+  float* CTPP = CRMP + 2 * sq;
+  float* CTMM = CRMP + 3 * sq;
+  float* CJP = CRMP + 4 * sq;
+  float* CJM = CJP + vsm::round4(n);
 
-  // un-flip: R <- D R (r2mp), JM <- D JM (j2m)
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n;
-    ar[p * AR + oR + e] = d[i] * ar[p * AR + oR + e];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    ar[p * AR + oJM + i] = d[i] * ar[p * AR + oJM + i];
-  }
-  __syncthreads();
+  // un-flip: R <- D R (r2mp), JM <- D JM (j2m); W2[:, n:2n] = t2mm, and an
+  // aligned copy in W1[:, 0:n] (the B of c_rpm t2mm)
+  each(tm, n, n, [=](int i, int j) {
+    R[i * ld + j] = d[i] * R[i * ld + j];
+    const float t2 = (d[i] * d[j]) * T[i * ld + j];
+    W2[i * w2 + n + j] = t2;
+    W1[i * w2 + j] = t2;
+  });
+  each_row(tm, n, [=](int i) { JM[i] = d[i] * JM[i]; });
+  tm.sync();
 
-  // ---- upward half: W1 = r2mp [c_rpm | c_tpp | c_jp] ----------------------
-  mm(ar + oW1, w2, AR, ar + oR, n, AR, ar + oCRPM, n, AR, n, n, np, false);
-  mm(ar + oW1 + n, w2, AR, ar + oR, n, AR, ar + oCTPP, n, AR, n, n, np,
-     false);
-  mm(ar + oW1 + 2 * n, w2, AR, ar + oR, n, AR, ar + oCJP, 1, AR, n, 1, np,
-     false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* ap = ar + p * AR;
-    ap[oA + e] = (i == j ? 1.f : 0.f) - ap[oW1 + i * w2 + j];
-  }
-  __syncthreads();
-  int oM = ns_solve(ar, AR, n, np, oA, o.oM0, o.oM1, o.oTMP, ni);
-  // t01 = c_tmm M -> A;  W2 = [r2mp c_tpp | t2mm | r2mp c_jp + j2m]
-  mm(ar + oA, n, AR, ar + oCTMM, n, AR, ar + oM, n, AR, n, n, np, false);
-  for (int idx = threadIdx.x; idx < np * n * wy; idx += blockDim.x) {
-    const int p = idx / (n * wy), e = idx - p * n * wy;
-    const int i = e / wy, j = e - i * wy;
-    float* ap = ar + p * AR;
-    float v;
-    if (j < n) v = ap[oW1 + i * w2 + n + j];
-    else if (j < 2 * n) v = (d[i] * d[j - n]) * ap[oT + i * n + (j - n)];
-    else v = ap[oW1 + i * w2 + 2 * n] + ap[oJM + i];
-    ap[oW2 + i * w2 + j] = v;
-  }
-  __syncthreads();
-  // W1 = t01 W2
-  mm(ar + oW1, w2, AR, ar + oA, n, AR, ar + oW2, w2, AR, n, wy, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* ap = ar + p * AR;
-    ap[oCRMP + e] = ap[oCRMP + e] + ap[oW1 + i * w2 + j];
-    ap[oCTMM + e] = ap[oW1 + i * w2 + n + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* ap = ar + p * AR;
-    ap[oCJM + i] = ap[oCJM + i] + ap[oW1 + i * w2 + 2 * n];
-  }
-  // W2 = [r2mp | t2mm | j2m]
-  for (int idx = threadIdx.x; idx < np * n * wy; idx += blockDim.x) {
-    const int p = idx / (n * wy), e = idx - p * n * wy;
-    const int i = e / wy, j = e - i * wy;
-    float* ap = ar + p * AR;
-    float v;
-    if (j < n) v = ap[oR + i * n + j];
-    else if (j < 2 * n) v = (d[i] * d[j - n]) * ap[oT + i * n + (j - n)];
-    else v = ap[oJM + i];
-    ap[oW2 + i * w2 + j] = v;
-  }
-  __syncthreads();
+  // ---- upward half ---------------------------------------------------------
+  // A = I - r2mp c_rpm (and the NS seed);
+  // W2[:, 0:n] = r2mp c_tpp, W2[:, 2n] = r2mp c_jp + j2m
+  mm(tm, n, n, R, ld, CRPM, ld, [=](int i, int j, float s) {
+    ns_seed(A, M0, i * ld + j, i == j, s);
+  });
+  mm(tm, n, n, R, ld, CTPP, ld,
+     [=](int i, int j, float s) { W2[i * w2 + j] = s; });
+  mv(tm, n, R, ld, [=](int l) { return CJP[l]; },
+     [=](int i, float s) { W2[i * w2 + 2 * n] = __fadd_rn(s, JM[i]); });
+  tm.sync();
+  const float* M = ar + ns(tm, ar, n, ld, o.oA, o.oM0, o.oM1, o.oTMP, ni);
+  // t01 = c_tmm M -> A
+  mm(tm, n, n, CTMM, ld, M, ld,
+     [=](int i, int j, float s) { A[i * ld + j] = s; });
+  tm.sync();
+  // t01 W2 -> r_mp += ., t_mm = ., j_m += .
+  mm(tm, n, wy, A, ld, W2, w2, [=](int i, int j, float s) {
+    if (j < n) {
+      CRMP[i * ld + j] = __fadd_rn(CRMP[i * ld + j], s);
+    } else if (j < 2 * n) {
+      CTMM[i * ld + j - n] = s;
+    } else {
+      CJM[i] = __fadd_rn(CJM[i], s);
+    }
+  });
+  tm.sync();
 
-  // ---- downward half: W1 = c_rpm [r2mp | t2mm | j2m] ----------------------
-  mm(ar + oW1, w2, AR, ar + oCRPM, n, AR, ar + oW2, w2, AR, n, wy, np,
-     false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* ap = ar + p * AR;
-    ap[oA + e] = (i == j ? 1.f : 0.f) - ap[oW1 + i * w2 + j];
-  }
-  __syncthreads();
-  oM = ns_solve(ar, AR, n, np, oA, o.oM0, o.oM1, o.oTMP, ni);
-  // t21 = t M -> A;  W2 = [c_tpp | c_rpm t2mm | c_jp + c_rpm j2m]
-  mm(ar + oA, n, AR, ar + oT, n, AR, ar + oM, n, AR, n, n, np, false);
-  for (int idx = threadIdx.x; idx < np * n * wy; idx += blockDim.x) {
-    const int p = idx / (n * wy), e = idx - p * n * wy;
-    const int i = e / wy, j = e - i * wy;
-    float* ap = ar + p * AR;
-    float v;
-    if (j < n) v = ap[oCTPP + i * n + j];
-    else if (j < 2 * n) v = ap[oW1 + i * w2 + j];
-    else v = ap[oCJP + i] + ap[oW1 + i * w2 + 2 * n];
-    ap[oW2 + i * w2 + j] = v;
-  }
-  __syncthreads();
-  // W1 = t21 W2
-  mm(ar + oW1, w2, AR, ar + oA, n, AR, ar + oW2, w2, AR, n, wy, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* ap = ar + p * AR;
-    ap[oCTPP + e] = ap[oW1 + i * w2 + j];
-    ap[oCRPM + e] = (d[i] * d[j]) * ap[oR + e] + ap[oW1 + i * w2 + n + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* ap = ar + p * AR;
-    ap[oCJP + i] = ap[oJP + i] + ap[oW1 + i * w2 + 2 * n];
-  }
-  __syncthreads();
+  // ---- downward half -------------------------------------------------------
+  // A = I - c_rpm r2mp (and the NS seed);
+  // W1 = [c_tpp (below) | c_rpm t2mm | c_jp + c_rpm j2m]
+  mm(tm, n, n, CRPM, ld, R, ld, [=](int i, int j, float s) {
+    ns_seed(A, M0, i * ld + j, i == j, s);
+  });
+  mm(tm, n, n, CRPM, ld, W1, w2,
+     [=](int i, int j, float s) { W1[i * w2 + n + j] = s; });
+  mv(tm, n, CRPM, ld, [=](int l) { return JM[l]; },
+     [=](int i, float s) { W1[i * w2 + 2 * n] = __fadd_rn(CJP[i], s); });
+  tm.sync();
+  M = ar + ns(tm, ar, n, ld, o.oA, o.oM0, o.oM1, o.oTMP, ni);
+  // t21 = t M -> A; W1[:, 0:n] = c_tpp
+  mm(tm, n, n, T, ld, M, ld,
+     [=](int i, int j, float s) { A[i * ld + j] = s; });
+  each(tm, n, n,
+       [=](int i, int j) { W1[i * w2 + j] = CTPP[i * ld + j]; });
+  tm.sync();
+  // t21 W1 -> t_pp = ., r_pm = r2pm + ., j_p = jp + .
+  mm(tm, n, wy, A, ld, W1, w2, [=](int i, int j, float s) {
+    if (j < n) {
+      CTPP[i * ld + j] = s;
+    } else if (j < 2 * n) {
+      CRPM[i * ld + j - n] =
+          __fadd_rn((d[i] * d[j - n]) * R[i * ld + j - n], s);
+    } else {
+      CJP[i] = __fadd_rn(JP[i], s);
+    }
+  });
+  tm.sync();
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock)
 layer_scan_kernel(const float* __restrict__ tau,
                   const float* __restrict__ omega,
                   const float* __restrict__ tau_sum,
@@ -297,53 +275,52 @@ layer_scan_kernel(const float* __restrict__ tau,
                   float* __restrict__ o_jp, float* __restrict__ o_jm,
                   ScanArgs a, int P, Schedule sch) {
   extern __shared__ float smem[];
-  const int n = a.n, nn = n * n;
-  const int AR = scan_arena_floats(n);
-  float* ar = smem;
-  const int p0 = blockIdx.x * P;
-  const int np = min(P, a.S - p0);
-  const Arena o(n);
-  const int oC = doubling_arena_floats(n);
-  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
+  const int team = threadIdx.x / C::TT;
+  const int p = blockIdx.x * P + team;
+  if (p >= a.S) return;
+  const Team<C> tm(threadIdx.x - team * C::TT, 1 + team);
+  const int n = a.n, ld = a.ld, sq = n * ld;
+  float* ar = smem + team * scan_arena_floats(n, ld);
+  Arena o(n, ld);
+  const int oC = doubling_arena_floats(n, ld);
+  float* c = ar + oC;
+  const size_t gm = (size_t)p * n * n, gv = (size_t)p * n;
 
   // seed the composite from the input composite
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn;
-    float* c = ar + p * AR + oC;
-    c[e] = ci_rmp[gm + idx];
-    c[nn + e] = ci_rpm[gm + idx];
-    c[2 * nn + e] = ci_tpp[gm + idx];
-    c[3 * nn + e] = ci_tmm[gm + idx];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* c = ar + p * AR + oC + 4 * nn;
-    c[i] = ci_jp[gv + idx];
-    c[n + i] = ci_jm[gv + idx];
-  }
-  __syncthreads();
+  each_flat(tm, n, n, [=](int i, int j) {
+    const int e = i * ld + j;
+    const size_t g = gm + i * n + j;
+    c[e] = ci_rmp[g];
+    c[sq + e] = ci_rpm[g];
+    c[2 * sq + e] = ci_tpp[g];
+    c[3 * sq + e] = ci_tmm[g];
+  });
+  const int n4 = vsm::round4(n);
+  each_row(tm, n, [=](int i) {
+    c[4 * sq + i] = ci_jp[gv + i];
+    c[4 * sq + n4 + i] = ci_jm[gv + i];
+  });
+  tm.sync();
 
   for (int z = 0; z < a.nz; ++z) {
-    elemental_phase(ar, AR, o, np, p0, z, a, tau, omega, tau_sum, zw, zpp_c,
-                    zmp_c, qp, wct2, i0, d);
-    doubling_phase(ar, AR, o, n, np, sch);
-    interaction_phase(ar, AR, o, n, np, oC, sch.ni, d);
+    const float ek = elemental_phase(tm, ar, o, p, z, a, tau, omega, tau_sum,
+                                     zw, zpp_c, zmp_c, qp, wct2, i0, d);
+    doubling_phase(tm, ar, o, ek, sch);
+    interaction_phase(tm, ar, o, oC, sch.ni, d);
   }
 
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn;
-    const float* c = ar + p * AR + oC;
-    o_rmp[gm + idx] = c[e];
-    o_rpm[gm + idx] = c[nn + e];
-    o_tpp[gm + idx] = c[2 * nn + e];
-    o_tmm[gm + idx] = c[3 * nn + e];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    const float* c = ar + p * AR + oC + 4 * nn;
-    o_jp[gv + idx] = c[i];
-    o_jm[gv + idx] = c[n + i];
-  }
+  each_flat(tm, n, n, [=](int i, int j) {
+    const int e = i * ld + j;
+    const size_t g = gm + i * n + j;
+    o_rmp[g] = c[e];
+    o_rpm[g] = c[sq + e];
+    o_tpp[g] = c[2 * sq + e];
+    o_tmm[g] = c[3 * sq + e];
+  });
+  each_row(tm, n, [=](int i) {
+    o_jp[gv + i] = c[4 * sq + i];
+    o_jm[gv + i] = c[4 * sq + n4 + i];
+  });
 }
 
 }  // namespace
@@ -351,7 +328,9 @@ layer_scan_kernel(const float* __restrict__ tau,
 // Launch one bucket of nz layers on `stream`: per-layer scalars tau, omega,
 // tau_sum (nz, S) and zw (nz, K, S); Z components (K, n, n) x 2; qp, wct2,
 // i0, d (n); the composite above the bucket (S, n, n) x 4 + (S, n) x 2 in,
-// the composite through it out. Returns the launch's cudaError_t.
+// the composite through it out; ld the arena's padded row stride (>= n, a
+// multiple of 4),
+// pts_per_block the teams of a block. Returns the launch's cudaError_t.
 extern "C" int vsm_layer_scan(
     const float* tau, const float* omega, const float* tau_sum,
     const float* zw, const float* zpp_c, const float* zmp_c, const float* qp,
@@ -359,31 +338,33 @@ extern "C" int vsm_layer_scan(
     const float* ci_rpm, const float* ci_tpp, const float* ci_tmm,
     const float* ci_jp, const float* ci_jm, float* o_rmp, float* o_rpm,
     float* o_tpp, float* o_tmm, float* o_jp, float* o_jm, int S, int n,
-    int nz, int K, const int* sched, int nd, int ni, int i_mu0_n,
+    int ld, int nz, int K, const int* sched, int nd, int ni, int i_mu0_n,
     int n_stokes, float mu0, float mu0_node, float wct02, int pts_per_block,
     int smem_bytes, void* stream) {
   if (S <= 0) return 0;
-  if (n < 1 || nz < 1 || K < 1 || nd < 0 || nd > kMaxSched || ni < 0
-      || pts_per_block < 1)
+  if (n < 1 || nz < 1 || K < 1 || nd < 0 || nd > kMaxSched || ni < 0)
     return (int)cudaErrorInvalidValue;
   const size_t need =
-      (size_t)pts_per_block * scan_arena_floats(n) * sizeof(float);
-  if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
+      (size_t)pts_per_block * scan_arena_floats(n, ld) * sizeof(float);
+  const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
+  if (tt < 0) return (int)cudaErrorInvalidValue;
   const Schedule s = vsm::make_schedule(sched, nd, ni);
   ScanArgs a;
-  a.n = n; a.nz = nz; a.K = K; a.S = S; a.i_mu0_n = i_mu0_n;
+  a.n = n; a.ld = ld; a.nz = nz; a.K = K; a.S = S; a.i_mu0_n = i_mu0_n;
   a.n_stokes = n_stokes; a.mu0 = mu0; a.mu0_node = mu0_node;
   a.wct02 = wct02;
   a.inv_scale = 1.f;
   for (int i = 0; i < nd; ++i) a.inv_scale *= 0.5f;   // 2^-nd, exact
-  cudaError_t e = cudaFuncSetAttribute(
-      layer_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (e != cudaSuccess) return (int)e;
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  layer_scan_kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      tau, omega, tau_sum, zw, zpp_c, zmp_c, qp, wct2, i0, d, ci_rmp, ci_rpm,
-      ci_tpp, ci_tmm, ci_jp, ci_jm, o_rmp, o_rpm, o_tpp, o_tmm, o_jp, o_jm,
-      a, pts_per_block, s);
-  return (int)cudaGetLastError();
+  return vsm::with_class(n, [&](auto c) {
+    auto* kern = layer_scan_kernel<decltype(c)>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<blocks, pts_per_block * tt, smem_bytes, (cudaStream_t)stream>>>(
+        tau, omega, tau_sum, zw, zpp_c, zmp_c, qp, wct2, i0, d, ci_rmp,
+        ci_rpm, ci_tpp, ci_tmm, ci_jp, ci_jm, o_rmp, o_rpm, o_tpp, o_tmm,
+        o_jp, o_jm, a, pts_per_block, s);
+    return (int)cudaGetLastError();
+  });
 }

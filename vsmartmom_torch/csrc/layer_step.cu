@@ -11,23 +11,30 @@
 // with the doubled (r, t, jp, jm) written back instead of added.
 //
 // Bound: every spectral point runs a chain of small dependent N x N products
-// (N <= 63) on its own data, O(N^3) fp32 FMAs per product against O(N^2)
-// bytes of device memory per layer, so the kernels are bound by arithmetic
-// and shared-memory bandwidth, not by device memory. Design: one block of 256
-// threads owns P points; each point has a private arena in dynamic shared
-// memory that holds its whole state (elemental layer, NS iterates, packed
-// right-hand operands) for the entire step. The composite operands are read
-// from device memory where a product needs them; the new composite is
-// written once at the end. All threads of the block sweep the
-// (point, row, column) outputs of each product together (rt_device.cuh).
-// fp32 FMA on the CUDA cores: no TF32, no tensor cores (a first, exact
-// version).
+// (N <= 63) on its own data, O(N^3) fp32 FMAs against O(N^2) bytes of device
+// memory per layer, so the kernels are bound by arithmetic and by the
+// shared-memory loads that feed it, not by device memory. Design: a team of
+// whole warps per spectral point (one warp at N <= 16, 2 / 6 / 8 warps for
+// the width classes 32 / 48 / 64, rt_device.cuh), a block holding as many
+// teams as half an SM's shared memory takes. Each team owns its point's
+// arena in dynamic shared memory for the whole step (elemental layer, NS
+// iterates, packed operands, the composite's c_rpm and c_tmm) and
+// synchronises only itself. Products are register-tiled (TM x TN outputs a
+// thread) with the elementwise passes fused into their stores: the NS seed
+// and 2I - A M, the W1 packing and the state update of the doubling, the
+// outputs of the interaction, stored to device memory straight from the
+// products. c_rpm and c_tmm arrive by cp.async while the doubling runs.
+// fp32 FMA on the CUDA cores: no TF32, no tensor cores. Every output is the
+// fmaf chain of the block-wide version over l in order, with the same
+// association of every product.
 //
-// Per-point arena layout (floats; nn = n*n): the doubling phase's arena
-// (vsm::Arena in rt_device.cuh: R, T, JP, JM, EK, A, M0, M1, TMP and the
-// packed operands W1, W2 of n x (2n+2)); the interaction reuses the region
-// from W1 on as X [n x (4n+2)] | X2 [n x (2n+1)]. The doubling-only kernel's
-// arena ends after W2 (10 nn + 6 n + 1 floats).
+// Per-point arena (floats; sq = n ld, ld the padded row stride, every slot
+// on 16 bytes): the doubling's Arena (R, T, A, M0, M1, TMP, JP, JM, W1, W2;
+// rt_device.cuh), whose region from W1 on the interaction reuses as
+//   X [n x 2 wx2] | X2 [n x wx2],  wx2 = round4(2n + 1),
+// then CRPM [sq] | CTMM [sq]. The block shares the D diagonal (round4(n)
+// floats) ahead of its arenas. The doubling-only kernel's arena ends after
+// W2.
 
 #include <cuda_runtime.h>
 
@@ -38,39 +45,56 @@ namespace {
 using vsm::Arena;
 using vsm::doubling_arena_floats;
 using vsm::doubling_phase;
-using vsm::eye_minus;
+using vsm::each;
+using vsm::each_flat;
+using vsm::each_row;
+using vsm::kMaxBlock;
 using vsm::kMaxSched;
-using vsm::kThreads;
 using vsm::mm;
-using vsm::ns_solve;
+using vsm::mv;
+using vsm::ns;
+using vsm::ns_seed;
+using vsm::round4;
 using vsm::Schedule;
+using vsm::Team;
 
-__host__ __device__ inline int arena_floats(int n) {
-  return 12 * n * n + 6 * n + 1;
+// Row strides of the interaction's X2 [n x wx2] and X [n x 2 wx2]: X holds
+// x1 (2n+1 columns) from column 0 and r2mp x2 from column wx2.
+__host__ __device__ inline int x2_stride(int n) { return round4(2 * n + 1); }
+
+// offset of CRPM in the step's arena (CTMM follows): after the doubling's
+// W1, W2 or the interaction's X, X2, whichever is larger
+__host__ __device__ inline int step_composite_offset(int n, int ld) {
+  const Arena o(n, ld);
+  return o.oW1 + max(2 * n * o.w2, 3 * n * x2_stride(n));
 }
 
-// R, T, JP, JM, EK of the block's np points from device memory
-__device__ void load_elemental(float* ar, int AR, const Arena& o, int n,
-                               int np, int p0, const float* r_f,
-                               const float* t, const float* jp,
-                               const float* jm_f, const float* ek) {
-  const int nn = n * n;
-  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn;
-    ar[p * AR + o.oR + e] = r_f[gm + idx];
-    ar[p * AR + o.oT + e] = t[gm + idx];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    ar[p * AR + o.oJP + i] = jp[gv + idx];
-    ar[p * AR + o.oJM + i] = jm_f[gv + idx];
-  }
-  for (int p = threadIdx.x; p < np; p += blockDim.x)
-    ar[p * AR + o.oEK] = ek[p0 + p];
+__host__ __device__ inline int step_arena_floats(int n, int ld) {
+  return step_composite_offset(n, ld) + 2 * n * ld;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// R, T, JP, JM of point p from device memory into the arena
+template <class C>
+__device__ __forceinline__ void
+load_elemental(const Team<C>& tm, float* ar, const Arena& o, int p,
+               const float* r_f, const float* t, const float* jp,
+               const float* jm_f) {
+  const int n = o.n, ld = o.ld;
+  const size_t gm = (size_t)p * n * n, gv = (size_t)p * n;
+  float* R = ar + o.oR;
+  float* T = ar + o.oT;
+  each_flat(tm, n, n, [=](int i, int j) {
+    R[i * ld + j] = r_f[gm + i * n + j];
+    T[i * ld + j] = t[gm + i * n + j];
+  });
+  each_row(tm, n, [=](int i) {
+    ar[o.oJP + i] = jp[gv + i];
+    ar[o.oJM + i] = jm_f[gv + i];
+  });
+}
+
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock)
 layer_step_kernel(const float* __restrict__ c_rmp,
                   const float* __restrict__ c_rpm,
                   const float* __restrict__ c_tpp,
@@ -83,189 +107,182 @@ layer_step_kernel(const float* __restrict__ c_rmp,
                   float* __restrict__ o_rmp, float* __restrict__ o_rpm,
                   float* __restrict__ o_tpp, float* __restrict__ o_tmm,
                   float* __restrict__ o_jp, float* __restrict__ o_jm,
-                  int S, int n, int P, Schedule sch) {
+                  int S, int n, int ld, int P, Schedule sch) {
   extern __shared__ float smem[];
-  const int nn = n * n;
-  const int AR = arena_floats(n);
-  float* dv = smem;          // D-matrix diagonal, shared by all points
-  float* ar = smem + n;      // P per-point arenas
-  const int p0 = blockIdx.x * P;
-  const int np = min(P, S - p0);
-
-  const Arena o(n);
-  const int oR = o.oR, oT = o.oT, oJP = o.oJP, oJM = o.oJM;
-  const int oA = o.oA, oM0 = o.oM0, oM1 = o.oM1, oTMP = o.oTMP;
-  const int oX = o.oW1, wx = 4 * n + 2, oX2 = oX + n * wx, wx2 = 2 * n + 1;
-
-  // block-local views of the per-point device arrays
-  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
-  const float* g_rmp = c_rmp + gm;
-  const float* g_rpm = c_rpm + gm;
-  const float* g_tpp = c_tpp + gm;
-  const float* g_tmm = c_tmm + gm;
-  const float* g_jp = c_jp + gv;
-  const float* g_jm = c_jm + gv;
-
-  // ---- load the elemental layer ------------------------------------------
+  float* dv = smem;  // D-matrix diagonal, shared by all points
   for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = d[i];
-  load_elemental(ar, AR, o, n, np, p0, r_f, t, jp, jm_f, ek);
   __syncthreads();
+  const int team = threadIdx.x / C::TT;
+  const int p = blockIdx.x * P + team;
+  if (p >= S) return;
+  const Team<C> tm(threadIdx.x - team * C::TT, 1 + team);
+  float* ar = smem + round4(n) + team * step_arena_floats(n, ld);
+  Arena o(n, ld);
+  const size_t gm = (size_t)p * n * n, gv = (size_t)p * n;
+
+  // ---- load: c_rpm, c_tmm by cp.async (overlapping the doubling) ---------
+  float* CRPM = ar + step_composite_offset(n, ld);
+  float* CTMM = CRPM + n * ld;
+  each_flat(tm, n, n, [=](int i, int j) {
+    vsm::cp_async4(CRPM + i * ld + j, c_rpm + gm + i * n + j);
+    vsm::cp_async4(CTMM + i * ld + j, c_tmm + gm + i * n + j);
+  });
+  vsm::cp_async_commit();
+  load_elemental(tm, ar, o, p, r_f, t, jp, jm_f);
+  tm.sync();
 
   // ---- 1. doubling (flipped space) ----------------------------------------
-  doubling_phase(ar, AR, o, n, np, sch);
+  doubling_phase(tm, ar, o, ek[p], sch);
 
-  // ---- 2. un-flip: R <- D R (r2mp), JM <- D JM (j2m) ----------------------
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n;
-    ar[p * AR + oR + e] = dv[i] * ar[p * AR + oR + e];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    ar[p * AR + oJM + i] = dv[i] * ar[p * AR + oJM + i];
-  }
-  __syncthreads();
+  float* R = ar + o.oR;
+  const float* T = ar + o.oT;
+  const float* JP = ar + o.oJP;
+  float* JM = ar + o.oJM;
+  float* A = ar + o.oA;
+  float* M0 = ar + o.oM0;
+  // until the NS solve takes their slots: t2mm (an aligned copy, the B of
+  // c_rpm t2mm) and c_jp
+  float* T2 = ar + o.oTMP;
+  float* CJP = ar + o.oM1;
+  const int wx2 = x2_stride(n), wx = 2 * wx2;
+  float* X = ar + o.oW1;
+  float* X2 = X + n * wx;
+
+  // ---- 2. un-flip R <- D R (r2mp), JM <- D JM (j2m); t2mm, c_tpp, c_jp ----
+  each(tm, n, n, [=](int i, int j) {
+    R[i * ld + j] = dv[i] * R[i * ld + j];
+    const float t2 = (dv[i] * dv[j]) * T[i * ld + j];
+    X[i * wx + n + j] = t2;
+    T2[i * ld + j] = t2;
+  });
+  each_flat(tm, n, n, [=](int i, int j) {
+    X2[i * wx2 + j] = c_tpp[gm + i * n + j];
+  });
+  each_row(tm, n, [=](int i) {
+    JM[i] = dv[i] * JM[i];
+    CJP[i] = c_jp[gv + i];
+  });
+  vsm::cp_async_wait_all();
+  tm.sync();
 
   // ---- 3. interaction under the composite (push-through) ------------------
   // x1 = [r2mp c_tpp | t2mm | r2mp c_jp + j2m]           -> X[:, 0:2n+1]
-  // x2 = [c_tpp | c_rpm t2mm | c_jp + c_rpm j2m]         -> X2
-  // X[:, 2n+1:4n+2] = r2mp x2
-  mm(ar + oX, wx, AR, ar + oR, n, AR, g_tpp, n, nn, n, n, np, false);
-  mm(ar + oX + 2 * n, wx, AR, ar + oR, n, AR, g_jp, 1, n, n, 1, np, false);
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR;
-    a[oX + i * wx + n + j] = (dv[i] * dv[j]) * a[oT + e];
-    a[oX2 + i * wx2 + j] = g_tpp[idx];
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* a = ar + p * AR;
-    a[oX + i * wx + 2 * n] = a[oX + i * wx + 2 * n] + a[oJM + i];
-  }
-  mm(ar + oX2 + n, wx2, AR, g_rpm, n, nn, ar + oX + n, wx, AR, n, n, np,
-     false);
-  mm(ar + oX2 + 2 * n, wx2, AR, g_rpm, n, nn, ar + oJM, 1, AR, n, 1, np,
-     false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* a = ar + p * AR;
-    a[oX2 + i * wx2 + 2 * n] = g_jp[idx] + a[oX2 + i * wx2 + 2 * n];
-  }
-  __syncthreads();
-  mm(ar + oX + 2 * n + 1, wx, AR, ar + oR, n, AR, ar + oX2, wx2, AR, n, wx2,
-     np, false);
-  // a1 = I - r2mp c_rpm; M1 = NS inverse (ni iterations)
-  mm(ar + oA, n, AR, ar + oR, n, AR, g_rpm, n, nn, n, n, np, false);
-  __syncthreads();
-  eye_minus(ar, AR, n, np, oA);
-  __syncthreads();
-  const int oM = ns_solve(ar, AR, n, np, oA, oM0, oM1, oTMP, sch.ni);
-  // y = M1 [x1 | r2mp x2], in place in X, n columns at a time through TMP
-  for (int c0 = 0; c0 < wx; c0 += n) {
-    const int kb = min(n, wx - c0);
-    mm(ar + oTMP, n, AR, ar + oM, n, AR, ar + oX + c0, wx, AR, n, kb, np,
-       false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * n * kb; idx += blockDim.x) {
-      const int p = idx / (n * kb), e = idx - p * n * kb;
-      const int i = e / kb, j = e - i * kb;
-      ar[p * AR + oX + i * wx + c0 + j] = ar[p * AR + oTMP + i * n + j];
+  // x2 = [c_tpp | c_rpm t2mm | c_jp + c_rpm j2m]         -> X2[:, 0:2n+1]
+  // a1 = I - r2mp c_rpm (and the NS seed)
+  mm(tm, n, n, R, ld, X2, wx2,
+     [=](int i, int j, float s) { X[i * wx + j] = s; });
+  mv(tm, n, R, ld, [=](int l) { return CJP[l]; },
+     [=](int i, float s) { X[i * wx + 2 * n] = __fadd_rn(s, JM[i]); });
+  mm(tm, n, n, CRPM, ld, T2, ld,
+     [=](int i, int j, float s) { X2[i * wx2 + n + j] = s; });
+  mv(tm, n, CRPM, ld, [=](int l) { return JM[l]; },
+     [=](int i, float s) { X2[i * wx2 + 2 * n] = __fadd_rn(CJP[i], s); });
+  mm(tm, n, n, R, ld, CRPM, ld, [=](int i, int j, float s) {
+    ns_seed(A, M0, i * ld + j, i == j, s);
+  });
+  tm.sync();
+  // X[:, wx2:wx2+2n+1] = r2mp x2
+  mm(tm, n, 2 * n + 1, R, ld, X2, wx2,
+     [=](int i, int j, float s) { X[i * wx + wx2 + j] = s; });
+  tm.sync();
+  // M1 = NS inverse of a1 (ni iterations); y = M1 [x1 | r2mp x2] in place
+  const float* M =
+      ar + ns(tm, ar, n, ld, o.oA, o.oM0, o.oM1, o.oTMP, sch.ni);
+  mm<C, true>(tm, n, wx2 + 2 * n + 1, M, ld, X, wx,
+              [=](int i, int j, float s) { X[i * wx + j] = s; });
+  tm.sync();
+  // o1 = c_tmm y[:, 0:2n+1] -> r_mp, t_mm, j_m;  x2 += c_rpm y[:, wx2:]
+  mm(tm, n, 2 * n + 1, CTMM, ld, X, wx, [=](int i, int j, float s) {
+    if (j < n) {
+      o_rmp[gm + i * n + j] = __fadd_rn(c_rmp[gm + i * n + j], s);
+    } else if (j < 2 * n) {
+      o_tmm[gm + i * n + j - n] = s;
+    } else {
+      o_jm[gv + i] = __fadd_rn(c_jm[gv + i], s);
     }
-    __syncthreads();
-  }
-  // o1 = c_tmm y[:, 0:2n+1] (into the free NS region)
-  const int oO = oA;
-  mm(ar + oO, wx2, AR, g_tmm, n, nn, ar + oX, wx, AR, n, wx2, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    const float* o = ar + p * AR + oO + i * wx2;
-    o_rmp[gm + idx] = g_rmp[idx] + o[j];
-    o_tmm[gm + idx] = o[n + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    o_jm[gv + idx] = g_jm[idx] + ar[p * AR + oO + i * wx2 + 2 * n];
-  }
-  // x2 += c_rpm y[:, 2n+1:4n+2]; o2 = t2 x2
-  mm(ar + oX2, wx2, AR, g_rpm, n, nn, ar + oX + 2 * n + 1, wx, AR, n, wx2,
-     np, true);
-  __syncthreads();
-  mm(ar + oO, wx2, AR, ar + oT, n, AR, ar + oX2, wx2, AR, n, wx2, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    const float* a = ar + p * AR;
-    const float* o = a + oO + i * wx2;
-    o_tpp[gm + idx] = o[j];
-    o_rpm[gm + idx] = (dv[i] * dv[j]) * a[oR + e] + o[n + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    o_jp[gv + idx] = ar[p * AR + oJP + i] + ar[p * AR + oO + i * wx2 + 2 * n];
-  }
+  });
+  mm(tm, n, 2 * n + 1, CRPM, ld, X + wx2, wx, [=](int i, int j, float s) {
+    X2[i * wx2 + j] = __fadd_rn(X2[i * wx2 + j], s);
+  });
+  tm.sync();
+  // o2 = t2 x2 -> t_pp, r_pm, j_p
+  mm(tm, n, 2 * n + 1, T, ld, X2, wx2, [=](int i, int j, float s) {
+    if (j < n) {
+      o_tpp[gm + i * n + j] = s;
+    } else if (j < 2 * n) {
+      o_rpm[gm + i * n + j - n] =
+          __fadd_rn((dv[i] * dv[j - n]) * R[i * ld + j - n], s);
+    } else {
+      o_jp[gv + i] = __fadd_rn(JP[i], s);
+    }
+  });
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock)
 doubling_kernel(const float* __restrict__ r_f, const float* __restrict__ t,
                 const float* __restrict__ jp, const float* __restrict__ jm_f,
                 const float* __restrict__ ek, float* __restrict__ o_r,
                 float* __restrict__ o_t, float* __restrict__ o_jp,
-                float* __restrict__ o_jm, int S, int n, int P,
+                float* __restrict__ o_jm, int S, int n, int ld, int P,
                 Schedule sch) {
   extern __shared__ float smem[];
-  const int nn = n * n;
-  const int AR = doubling_arena_floats(n);
-  float* ar = smem;
-  const int p0 = blockIdx.x * P;
-  const int np = min(P, S - p0);
-  const Arena o(n);
-  load_elemental(ar, AR, o, n, np, p0, r_f, t, jp, jm_f, ek);
-  __syncthreads();
-  doubling_phase(ar, AR, o, n, np, sch);
-  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn;
-    o_r[gm + idx] = ar[p * AR + o.oR + e];
-    o_t[gm + idx] = ar[p * AR + o.oT + e];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    o_jp[gv + idx] = ar[p * AR + o.oJP + i];
-    o_jm[gv + idx] = ar[p * AR + o.oJM + i];
-  }
+  const int team = threadIdx.x / C::TT;
+  const int p = blockIdx.x * P + team;
+  if (p >= S) return;
+  const Team<C> tm(threadIdx.x - team * C::TT, 1 + team);
+  float* ar = smem + team * doubling_arena_floats(n, ld);
+  Arena o(n, ld);
+  load_elemental(tm, ar, o, p, r_f, t, jp, jm_f);
+  tm.sync();
+  doubling_phase(tm, ar, o, ek[p], sch);
+  const size_t gm = (size_t)p * n * n, gv = (size_t)p * n;
+  const float* R = ar + o.oR;
+  const float* T = ar + o.oT;
+  each_flat(tm, n, n, [=](int i, int j) {
+    o_r[gm + i * n + j] = R[i * ld + j];
+    o_t[gm + i * n + j] = T[i * ld + j];
+  });
+  each_row(tm, n, [=](int i) {
+    o_jp[gv + i] = ar[o.oJP + i];
+    o_jm[gv + i] = ar[o.oJM + i];
+  });
 }
 
 }  // namespace
 
-// Launch one layer step on `stream`. Returns the cudaError_t of the launch
-// (0 on success); the caller raises on anything else.
+// Launch one layer step on `stream`: ld is the arena's padded row stride
+// (>= n, a multiple of 4), pts_per_block the teams of a block. Returns the
+// cudaError_t of the launch (0 on success); the caller raises on anything
+// else.
 extern "C" int vsm_layer_step(
     const float* c_rmp, const float* c_rpm, const float* c_tpp,
     const float* c_tmm, const float* c_jp, const float* c_jm,
     const float* r_f, const float* t, const float* jp, const float* jm_f,
     const float* ek, const float* d, float* o_rmp, float* o_rpm,
     float* o_tpp, float* o_tmm, float* o_jp, float* o_jm, int S, int n,
-    const int* sched, int nd, int ni, int pts_per_block, int smem_bytes,
-    void* stream) {
+    int ld, const int* sched, int nd, int ni, int pts_per_block,
+    int smem_bytes, void* stream) {
   if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || pts_per_block < 1)
+  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0)
     return (int)cudaErrorInvalidValue;
   const size_t need =
-      (size_t)(n + pts_per_block * arena_floats(n)) * sizeof(float);
-  if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
+      (size_t)(round4(n) + pts_per_block * step_arena_floats(n, ld))
+      * sizeof(float);
+  const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
+  if (tt < 0) return (int)cudaErrorInvalidValue;
   const Schedule s = vsm::make_schedule(sched, nd, ni);
-  cudaError_t e = cudaFuncSetAttribute(
-      layer_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (e != cudaSuccess) return (int)e;
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  layer_step_kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d, o_rmp,
-      o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, pts_per_block, s);
-  return (int)cudaGetLastError();
+  return vsm::with_class(n, [&](auto c) {
+    auto* kern = layer_step_kernel<decltype(c)>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<blocks, pts_per_block * tt, smem_bytes, (cudaStream_t)stream>>>(
+        c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d,
+        o_rmp, o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, pts_per_block, s);
+    return (int)cudaGetLastError();
+  });
 }
 
 // Launch the doubling recursion alone on `stream`: (r, t, jp, jm) of S points
@@ -273,21 +290,24 @@ extern "C" int vsm_layer_step(
 extern "C" int vsm_doubling(const float* r_f, const float* t, const float* jp,
                             const float* jm_f, const float* ek, float* o_r,
                             float* o_t, float* o_jp, float* o_jm, int S,
-                            int n, const int* sched, int nd,
+                            int n, int ld, const int* sched, int nd,
                             int pts_per_block, int smem_bytes, void* stream) {
   if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched || pts_per_block < 1)
-    return (int)cudaErrorInvalidValue;
+  if (n < 1 || nd < 0 || nd > kMaxSched) return (int)cudaErrorInvalidValue;
   const size_t need =
-      (size_t)pts_per_block * doubling_arena_floats(n) * sizeof(float);
-  if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
+      (size_t)pts_per_block * doubling_arena_floats(n, ld) * sizeof(float);
+  const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
+  if (tt < 0) return (int)cudaErrorInvalidValue;
   const Schedule s = vsm::make_schedule(sched, nd, 0);
-  cudaError_t e = cudaFuncSetAttribute(
-      doubling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (e != cudaSuccess) return (int)e;
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  doubling_kernel<<<blocks, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, pts_per_block, s);
-  return (int)cudaGetLastError();
+  return vsm::with_class(n, [&](auto c) {
+    auto* kern = doubling_kernel<decltype(c)>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<blocks, pts_per_block * tt, smem_bytes, (cudaStream_t)stream>>>(
+        r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, ld, pts_per_block,
+        s);
+    return (int)cudaGetLastError();
+  });
 }

@@ -1,13 +1,15 @@
-// Device helpers shared by the RT layer kernels (layer_step.cu,
-// layer_step_dev.cu, layer_scan.cu): block-cooperative batched products,
-// Newton-Schulz solves and the plain-form doubling phase on per-point arenas
-// in shared memory.
+// Device helpers shared by the RT layer kernels.
 //
-// Every helper is called by all threads of a block. The block owns `np`
-// spectral points; point p's arena starts at ar + p * AR, and the helpers
-// address their operands by float offsets into it. The caller places the
-// __syncthreads() between dependent phases, except inside ns_solve and
-// ns_y, which synchronise their own steps and return synchronised.
+// Block-wide helpers (layer_step_dev.cu): batched products, the Y-form
+// Newton-Schulz solve. Every one is called by all threads of a block, which
+// owns `np` spectral points; point p's arena starts at ar + p * AR, and the
+// helpers address their operands by float offsets into it. The caller
+// places the __syncthreads() between dependent phases, except inside ns_y,
+// which synchronises its own steps and returns synchronised.
+//
+// Team helpers (layer_step.cu, layer_scan.cu), below: a team of whole warps
+// per spectral point, register-tiled products with fused stores, the
+// Newton-Schulz solve and the doubling phase.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -54,35 +56,6 @@ __device__ inline void mm(float* C, int ldc, int sc, const float* A, int lda,
          k, np);
 }
 
-// Newton-Schulz approximate inverse of A = I - B (A already in the arena):
-// M0 = 2I - A, then M <- M (2I - A M) `iters` times. Returns the offset of
-// the buffer holding the result (M0 or M1).
-__device__ inline int ns_solve(float* ar, int AR, int n, int np, int offA,
-                               int offM0, int offM1, int offT, int iters) {
-  const int nn = n * n;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR;
-    a[offM0 + e] = (i == j ? 2.f : 0.f) - a[offA + e];
-  }
-  __syncthreads();
-  int cur = offM0, oth = offM1;
-  for (int q = 0; q < iters; ++q) {
-    mm(ar + offT, n, AR, ar + offA, n, AR, ar + cur, n, AR, n, n, np, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-      const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-      float* tmp = ar + p * AR + offT;
-      tmp[e] = (i == j ? 2.f : 0.f) - tmp[e];
-    }
-    __syncthreads();
-    mm(ar + oth, n, AR, ar + cur, n, AR, ar + offT, n, AR, n, n, np, false);
-    __syncthreads();
-    const int s = cur; cur = oth; oth = s;
-  }
-  return cur;
-}
-
 // Y-form Newton-Schulz of the split form: Y ~= (I - B)^{-1} - I for B at
 // offB: Y = B, then W = B + B Y, Y <- W + Y (W - Y) `iters` times. The
 // result lands at offY; offW, offD, offT are scratch (nn floats each).
@@ -118,103 +91,343 @@ __device__ inline void ns_y(float* ar, int AR, int n, int np, int offB,
   }
 }
 
-// A = I - A in place (A holds a product)
-__device__ inline void eye_minus(float* ar, int AR, int n, int np,
-                                 int offA) {
-  const int nn = n * n;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR + offA;
-    a[e] = (i == j ? 1.f : 0.f) - a[e];
-  }
+// ---------------------------------------------------------------------------
+// Team helpers (layer_step.cu, layer_scan.cu). A team of C::TT threads, whole
+// warps, owns one spectral point and its arena for the whole launch and
+// synchronises only itself (__syncwarp, or a named barrier when it spans
+// warps); no helper waits for the other points of the block.
+//
+// Products are register-tiled on a padded width class NP >= n: thread
+// (rg, cg) of the team owns rows rg + r RG (r < TM) and the TN = 4
+// contiguous columns c0 + cg TN + c of every column block c0 (CB columns
+// wide). Per four l it loads TM float4 of A and four float4 of B and issues
+// 16 TM FMAs (every operand 16-byte aligned, strides multiples of 4). Rows or
+// columns past the operand's edge load a clamped, valid element and are
+// never stored, so no padded value reaches an output. Every output is one
+// fmaf chain over l = 0 .. n-1 from 0, as mm_add's, so the team helpers round
+// exactly as the block-wide ones. The tile coordinates are computed once per
+// team; no inner loop divides.
+
+// Tile classes: padded width NP, team threads TT, tile rows TM x columns TN.
+template <int NP_, int TT_, int TM_, int TN_>
+struct Cfg {
+  static constexpr int NP = NP_, TT = TT_, TM = TM_, TN = TN_;
+  static constexpr int RG = NP / TM;  // row groups
+  static constexpr int CG = TT / RG;  // column groups
+  static constexpr int CB = CG * TN;  // columns per block
+  static_assert(RG * TM == NP && RG * CG == TT && TT % 32 == 0, "tile");
+};
+using C16 = Cfg<16, 32, 2, 4>;
+using C32 = Cfg<32, 64, 4, 4>;
+using C48 = Cfg<48, 192, 3, 4>;
+using C64 = Cfg<64, 256, 4, 4>;
+
+// Threads per block at most (the team kernels' launch bound; <= 128
+// registers a thread).
+constexpr int kMaxBlock = 512;
+
+// f(C{}) for the tile class of width n (1 <= n <= 64); -1 beyond.
+template <class F>
+inline int with_class(int n, F f) {
+  if (n <= 16) return f(C16{});
+  if (n <= 32) return f(C32{});
+  if (n <= 48) return f(C48{});
+  if (n <= 64) return f(C64{});
+  return -1;
 }
 
-// Shared-memory floats of the doubling phase's arena (below): the state
-// R, T, JP, JM, EK (2 nn + 2n + 1) and the scratch A, M0, M1, TMP (4 nn) and
-// W1, W2 (2 n (2n+2)).
-__host__ __device__ inline int doubling_arena_floats(int n) {
-  return 10 * n * n + 6 * n + 1;
+// A team launch's checks: a tile class for n, a row stride ld >= n that is a
+// multiple of 4, the block within kMaxBlock threads and smem_bytes >= need.
+// Returns the class's team threads, or -1.
+inline int team_threads(int n, int ld, int pts_per_block, size_t need,
+                        int smem_bytes) {
+  const int tt = with_class(n, [](auto c) { return decltype(c)::TT; });
+  if (tt < 0 || ld < n || ld % 4 != 0 || pts_per_block < 1
+      || pts_per_block * tt > kMaxBlock || (size_t)smem_bytes < need)
+    return -1;
+  return tt;
 }
 
-// Arena offsets of the doubling phase (floats; nn = n*n):
-//   R [nn] | T [nn] | JP [n] | JM [n] | EK [1] |
-//   A [nn] | M0 [nn] | M1 [nn] | TMP [nn] | W1 [n x (2n+2)] | W2 [n x (2n+2)]
-// Used by the layer-step, doubling-only and layer-scan kernels.
-struct Arena {
-  int oR, oT, oJP, oJM, oEK, oA, oM0, oM1, oTMP, oW1, w2, oW2;
-  __device__ explicit Arena(int n) {
-    const int nn = n * n;
-    oR = 0; oT = nn; oJP = 2 * nn; oJM = 2 * nn + n; oEK = 2 * nn + 2 * n;
-    const int oS = oEK + 1;
-    oA = oS; oM0 = oS + nn; oM1 = oS + 2 * nn; oTMP = oS + 3 * nn;
-    oW1 = oS + 4 * nn; w2 = 2 * n + 2; oW2 = oW1 + n * w2;
+template <class C>
+struct Team {
+  int t, rg, cg, bar;
+  __device__ Team(int t_, int bar_)
+      : t(t_), rg(t_ / C::CG), cg(t_ % C::CG), bar(bar_) {}
+  __device__ __forceinline__ void sync() const {
+    if (C::TT == 32) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(C::TT) : "memory");
+    }
   }
 };
 
+// f(i, j) for every i < n, j < k that this thread owns: the rows of its
+// product tiles, every CG-th column.
+template <class C, class F>
+__device__ __forceinline__ void each(const Team<C>& tm, int n, int k, F f) {
+  for (int i = tm.rg; i < n; i += C::RG)
+    for (int j = tm.cg; j < k; j += C::CG) f(i, j);
+}
+
+// f(i) for every i < n, one per thread.
+template <class C, class F>
+__device__ __forceinline__ void each_row(const Team<C>& tm, int n, F f) {
+  for (int i = tm.t; i < n; i += C::TT) f(i);
+}
+
+// f(i, j) over an n x k array in row-major order, consecutive threads on
+// consecutive elements (coalesced device memory).
+template <class C, class F>
+__device__ __forceinline__ void each_flat(const Team<C>& tm, int n, int k,
+                                          F f) {
+  const int di = C::TT / k, dj = C::TT - di * k;
+  int i = tm.t / k, j = tm.t - i * k;
+  while (i < n) {
+    f(i, j);
+    i += di;
+    j += dj;
+    if (j >= k) {
+      j -= k;
+      ++i;
+    }
+  }
+}
+
+// The float4 tile of one column block: acc[r][c] = sum over l of
+// A[ra[r] + l] * B[l ldb + jb + c], one fmaf chain per element in the order
+// of l. A, B and their row strides are 16-byte aligned, so A is read as
+// float4 over four l and B as one float4 of the thread's TN = 4 columns.
+template <class C>
+__device__ __forceinline__ void tile4(float (&acc)[C::TM][C::TN],
+                                      const int (&ra)[C::TM], int n,
+                                      const float* A, const float* B,
+                                      int ldb, int jb) {
+  static_assert(C::TN == 4, "float4 tiles are four columns wide");
+  const float* b = B + jb;
+  int l = 0;
+  // no unrolling past the four l of one step: unrolled further, ptxas spills
+  // the N <= 16 and N <= 48 classes to the stack and runs them slower
+#pragma unroll 1
+  for (; l + 4 <= n; l += 4, b += 4 * ldb) {
+    float4 av[C::TM], bv[4];
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r)
+      av[r] = *reinterpret_cast<const float4*>(A + ra[r] + l);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      bv[q] = *reinterpret_cast<const float4*>(b + q * ldb);
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r) {
+      const float a4[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        acc[r][0] = fmaf(a4[q], bv[q].x, acc[r][0]);
+        acc[r][1] = fmaf(a4[q], bv[q].y, acc[r][1]);
+        acc[r][2] = fmaf(a4[q], bv[q].z, acc[r][2]);
+        acc[r][3] = fmaf(a4[q], bv[q].w, acc[r][3]);
+      }
+    }
+  }
+#pragma unroll 1
+  for (; l < n; ++l, b += ldb) {
+    const float4 v = *reinterpret_cast<const float4*>(b);
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r) {
+      const float a = A[ra[r] + l];
+      acc[r][0] = fmaf(a, v.x, acc[r][0]);
+      acc[r][1] = fmaf(a, v.y, acc[r][1]);
+      acc[r][2] = fmaf(a, v.z, acc[r][2]);
+      acc[r][3] = fmaf(a, v.w, acc[r][3]);
+    }
+  }
+}
+
+// out(i, j, s) for every output of A (n x n, row stride lda) @ B (n x k, row
+// stride ldb), s = the fmaf chain over l. A, B, lda and ldb must be 16-byte
+// aligned (every arena slot is; tile4 reads float4). With Inplace the team
+// synchronises before each column block's stores, so out may write the
+// block's columns of B.
+template <class C, bool Inplace = false, class Out>
+__device__ __forceinline__ void mm(const Team<C>& tm, int n, int k,
+                                   const float* A, int lda, const float* B,
+                                   int ldb, Out out) {
+  int ra[C::TM];
+#pragma unroll
+  for (int r = 0; r < C::TM; ++r)
+    ra[r] = min(tm.rg + r * C::RG, n - 1) * lda;
+  for (int c0 = 0; c0 < k; c0 += C::CB) {
+    const int j0 = c0 + tm.cg * C::TN;  // the thread's first column
+    float acc[C::TM][C::TN];
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r)
+#pragma unroll
+      for (int c = 0; c < C::TN; ++c) acc[r][c] = 0.f;
+    // past the edge (j0 >= ldb >= k: nothing stored) read the row's last TN
+    // columns
+    tile4<C>(acc, ra, n, A, B, ldb, min(j0, ldb - C::TN));
+    if (Inplace) tm.sync();
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r) {
+      const int i = tm.rg + r * C::RG;
+      if (i < n) {
+#pragma unroll
+        for (int c = 0; c < C::TN; ++c)
+          if (j0 + c < k) out(i, j0 + c, acc[r][c]);
+      }
+    }
+  }
+}
+
+// out(i, s) for every row of A (n x n, row stride lda) @ x, x(l) the vector;
+// one row per thread.
+template <class C, class X, class Out>
+__device__ __forceinline__ void mv(const Team<C>& tm, int n, const float* A,
+                                   int lda, X x, Out out) {
+  for (int i = tm.t; i < n; i += C::TT) {
+    const float* a = A + i * lda;
+    float s = 0.f;
+    for (int l = 0; l < n; ++l) s = fmaf(a[l], x(l), s);
+    out(i, s);
+  }
+}
+
+// The epilogue of a product s that starts a Newton-Schulz solve:
+// A = I - s and the seed M0 = 2I - A, at element e (diagonal or not).
+__device__ __forceinline__ void ns_seed(float* a, float* m0, int e, bool diag,
+                                        float s) {
+  const float v = (diag ? 1.f : 0.f) - s;
+  a[e] = v;
+  m0[e] = (diag ? 2.f : 0.f) - v;
+}
+
+// Newton-Schulz inverse of A (n x n, stride ld) from the seed at oM0 (both
+// written by the caller, then synchronised): M <- M (2I - A M) `iters`
+// times, with 2I - A M fused into the product's stores and the scratch at
+// oS. Returns the offset of the result, synchronised.
+template <class C>
+__device__ __forceinline__ int
+ns(const Team<C>& tm, float* ar, int n, int ld, int oA, int oM0, int oM1,
+   int oS, int iters) {
+  int cur = oM0, oth = oM1;
+  float* s = ar + oS;
+  for (int q = 0; q < iters; ++q) {
+    mm(tm, n, n, ar + oA, ld, ar + cur, ld, [=](int i, int j, float v) {
+      s[i * ld + j] = (i == j ? 2.f : 0.f) - v;
+    });
+    tm.sync();
+    float* m = ar + oth;
+    mm(tm, n, n, ar + cur, ld, s, ld,
+       [=](int i, int j, float v) { m[i * ld + j] = v; });
+    tm.sync();
+    const int x = cur;
+    cur = oth;
+    oth = x;
+  }
+  return cur;
+}
+
+// 4-byte asynchronous copy from device to shared memory (cp.async), and the
+// wait for all of this thread's copies.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// n rounded up to a multiple of 4 floats (16 bytes)
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Arena of the doubling phase (floats): six square slots of n rows, row
+// stride ld >= n (a multiple of 4, and 4 mod 8 where the kernel's arena
+// fits, so that the float4 rows a warp reads as A fall on distinct banks),
+// then
+//   R | T | A | M0 | M1 | TMP | JP [n4] | JM [n4] | W1 [n x w2] | W2 [n x w2]
+// with n4 = round4(n) and w2 = round4(2n + 2): every slot starts on 16
+// bytes. The doubling swaps T and TMP every step (the new T is written
+// beside the old one), so the current slots are oT and oTMP.
+struct Arena {
+  int n, ld, w2;
+  int oR, oT, oA, oM0, oM1, oTMP, oJP, oJM, oW1, oW2;
+  __host__ __device__ Arena(int n_, int ld_)
+      : n(n_), ld(ld_), w2(round4(2 * n_ + 2)) {
+    const int sq = n * ld;
+    oR = 0; oT = sq; oA = 2 * sq; oM0 = 3 * sq; oM1 = 4 * sq; oTMP = 5 * sq;
+    oJP = 6 * sq; oJM = oJP + round4(n); oW1 = oJM + round4(n);
+    oW2 = oW1 + n * w2;
+  }
+};
+
+__host__ __device__ inline int doubling_arena_floats(int n, int ld) {
+  const Arena o(n, ld);
+  return o.oW2 + n * o.w2;
+}
+
 // All scheduled doubling steps (flipped space) on the arena's R, T, JP, JM,
-// EK: per step A = I - R R, M = NS inverse of A, then
-// [R T | T | J1M + R JP | JP + R J1M] rides T (M .) once
-// (vsmartmom/pallas/doubling_kernel.py:doubling_body). Returns synchronised.
-__device__ inline void doubling_phase(float* ar, int AR, const Arena& o,
-                                      int n, int np, const Schedule& sch) {
-  const int nn = n * n, w2 = o.w2;
-  const int oR = o.oR, oT = o.oT, oJP = o.oJP, oJM = o.oJM, oEK = o.oEK;
-  const int oA = o.oA, oW1 = o.oW1, oW2 = o.oW2;
+// with ek the elemental layer's e^(-dtau/mu0) (kept in a register). Per step:
+//   A = I - R R, M0 = 2I - A           (one product, fused stores)
+//   M = NS inverse of A                (sch.it[step] iterations)
+//   W1 = [R T | T | J1M + R JP | JP + R J1M], J1M = JM ek (n x (2n+2))
+//   W2 = M W1; T W2 -> R += ., T' = ., JM += ., JP = JP ek + .
+// (vsmartmom/pallas/doubling_kernel.py:doubling_body). The sums of a
+// product round as torch's do (__fmul_rn, __fadd_rn). Returns synchronised,
+// with o.oT naming the current T.
+template <class C>
+__device__ __forceinline__ void
+doubling_phase(const Team<C>& tm, float* ar, Arena& o, float ek,
+               const Schedule& sch) {
+  const int n = o.n, ld = o.ld, w2 = o.w2;
+  float* R = ar + o.oR;
+  float* JP = ar + o.oJP;
+  float* JM = ar + o.oJM;
+  float* A = ar + o.oA;
+  float* M0 = ar + o.oM0;
+  float* W1 = ar + o.oW1;
+  float* W2 = ar + o.oW2;
   for (int step = 0; step < sch.nd; ++step) {
-    // A = I - R R; M = NS inverse of A
-    mm(ar + oA, n, AR, ar + oR, n, AR, ar + oR, n, AR, n, n, np, false);
-    __syncthreads();
-    eye_minus(ar, AR, n, np, oA);
-    __syncthreads();
-    const int oM = ns_solve(ar, AR, n, np, oA, o.oM0, o.oM1, o.oTMP,
-                            sch.it[step]);
-    // W1[:, 0:n+2] = [T | JP | JM ek]
-    for (int idx = threadIdx.x; idx < np * n * (n + 2); idx += blockDim.x) {
-      const int p = idx / (n * (n + 2)), e = idx - p * n * (n + 2);
-      const int i = e / (n + 2), j = e - i * (n + 2);
-      float* a = ar + p * AR;
-      a[oW1 + i * w2 + j] = j < n ? a[oT + i * n + j]
-                          : (j == n ? a[oJP + i] : a[oJM + i] * a[oEK]);
-    }
-    __syncthreads();
-    // W2[:, 0:n+2] = R [T | JP | J1M]
-    mm(ar + oW2, w2, AR, ar + oR, n, AR, ar + oW1, w2, AR, n, n + 2, np,
-       false);
-    __syncthreads();
-    // W1 = [R T | T | J1M + R JP | JP + R J1M]
-    for (int idx = threadIdx.x; idx < np * n * w2; idx += blockDim.x) {
-      const int p = idx / (n * w2), e = idx - p * n * w2;
-      const int i = e / w2, j = e - i * w2;
-      float* a = ar + p * AR;
-      float v;
-      if (j < n) v = a[oW2 + i * w2 + j];
-      else if (j < 2 * n) v = a[oT + i * n + (j - n)];
-      else if (j == 2 * n) v = a[oJM + i] * a[oEK] + a[oW2 + i * w2 + n];
-      else v = a[oJP + i] + a[oW2 + i * w2 + n + 1];
-      a[oW1 + i * w2 + j] = v;
-    }
-    __syncthreads();
-    // W1 = T (M W1)
-    mm(ar + oW2, w2, AR, ar + oM, n, AR, ar + oW1, w2, AR, n, w2, np, false);
-    __syncthreads();
-    mm(ar + oW1, w2, AR, ar + oT, n, AR, ar + oW2, w2, AR, n, w2, np, false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-      const int p = idx / n, i = idx - p * n;
-      float* a = ar + p * AR;
-      a[oJM + i] = a[oJM + i] + a[oW1 + i * w2 + 2 * n];
-      a[oJP + i] = a[oJP + i] * a[oEK] + a[oW1 + i * w2 + 2 * n + 1];
-    }
-    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-      const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-      float* a = ar + p * AR;
-      a[oR + e] = a[oR + e] + a[oW1 + i * w2 + j];
-      a[oT + e] = a[oW1 + i * w2 + n + j];
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < np; p += blockDim.x)
-      ar[p * AR + oEK] = ar[p * AR + oEK] * ar[p * AR + oEK];
-    __syncthreads();
+    const float* T = ar + o.oT;
+    float* Tn = ar + o.oTMP;
+    mm(tm, n, n, R, ld, R, ld, [=](int i, int j, float s) {
+      ns_seed(A, M0, i * ld + j, i == j, s);
+    });
+    tm.sync();
+    const float* M =
+        ar + ns(tm, ar, n, ld, o.oA, o.oM0, o.oM1, o.oTMP, sch.it[step]);
+    mm(tm, n, n, R, ld, T, ld, [=](int i, int j, float s) {
+      W1[i * w2 + j] = s;
+      W1[i * w2 + n + j] = T[i * ld + j];
+    });
+    mv(tm, n, R, ld, [=](int l) { return JP[l]; }, [=](int i, float s) {
+      W1[i * w2 + 2 * n] = __fadd_rn(__fmul_rn(JM[i], ek), s);
+    });
+    mv(tm, n, R, ld, [=](int l) { return __fmul_rn(JM[l], ek); },
+       [=](int i, float s) { W1[i * w2 + 2 * n + 1] = __fadd_rn(JP[i], s); });
+    tm.sync();
+    mm(tm, n, 2 * n + 2, M, ld, W1, w2,
+       [=](int i, int j, float s) { W2[i * w2 + j] = s; });
+    tm.sync();
+    mm(tm, n, 2 * n + 2, T, ld, W2, w2, [=](int i, int j, float s) {
+      if (j < n) {
+        R[i * ld + j] = __fadd_rn(R[i * ld + j], s);
+      } else if (j < 2 * n) {
+        Tn[i * ld + j - n] = s;
+      } else if (j == 2 * n) {
+        JM[i] = __fadd_rn(JM[i], s);
+      } else {
+        JP[i] = __fadd_rn(__fmul_rn(JP[i], ek), s);
+      }
+    });
+    tm.sync();
+    const int x = o.oT;
+    o.oT = o.oTMP;
+    o.oTMP = x;
+    ek = __fmul_rn(ek, ek);
   }
 }
 

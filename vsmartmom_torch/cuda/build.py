@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import NamedTuple
 
 import torch
 
@@ -45,22 +46,23 @@ MAX_SCHEDULE = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # 6 composite + 4 elemental + ek + d inputs, 6 outputs; S, n, schedule
-    # (host int*), nd, ni, points per block, shared bytes, stream
-    "vsm_layer_step": [_P] * 18 + [_I, _I, ctypes.POINTER(_I), _I, _I, _I,
-                                   _I, _P],
+    # 6 composite + 4 elemental + ek + d inputs, 6 outputs; S, n, row stride,
+    # schedule (host int*), nd, ni, points per block, shared bytes, stream
+    "vsm_layer_step": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
+                                   _I, _I, _P],
     # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, schedule,
     # nd, ni, points per block, shared bytes, stream
     "vsm_layer_step_dev": [_P] * 21 + [_I, _I, ctypes.POINTER(_I), _I, _I,
                                        _I, _I, _P],
-    # r, t, jp, jm, ek inputs, 4 outputs; S, n, schedule, nd, points per
-    # block, shared bytes, stream
-    "vsm_doubling": [_P] * 9 + [_I, _I, ctypes.POINTER(_I), _I, _I, _I, _P],
+    # r, t, jp, jm, ek inputs, 4 outputs; S, n, row stride, schedule, nd,
+    # points per block, shared bytes, stream
+    "vsm_doubling": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
+                                _P],
     # tau, omega, tau_sum, zw, zpp_c, zmp_c, qp, wct2, i0, d, 6 composite
-    # inputs, 6 outputs; S, n, nz, K, schedule, nd, ni, i_mu0_n, n_stokes,
-    # mu0, mu0_node, wct02, points per block, shared bytes, stream
-    "vsm_layer_scan": [_P] * 22 + [_I, _I, _I, _I, ctypes.POINTER(_I), _I,
-                                   _I, _I, _I, ctypes.c_float,
+    # inputs, 6 outputs; S, n, row stride, nz, K, schedule, nd, ni, i_mu0_n,
+    # n_stokes, mu0, mu0_node, wct02, points per block, shared bytes, stream
+    "vsm_layer_scan": [_P] * 22 + [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                                   _I, _I, _I, _I, ctypes.c_float,
                                    ctypes.c_float, ctypes.c_float, _I, _I,
                                    _P],
     # 6 composite + 4 elemental + ek + d inputs, 6 outputs, workspace; S, n,
@@ -159,6 +161,65 @@ def launch_config(arena_floats: int, shared_floats: int = 0):
     per_point = 4 * arena_floats
     pts = max(1, min(_MAX_POINTS_PER_BLOCK, _TARGET_BLOCK_BYTES // per_point))
     return pts, 4 * (shared_floats + pts * arena_floats)
+
+
+#: tile classes of the team kernels (``Cfg<NP, TT, TM, TN>`` in
+#: csrc/rt_device.cuh): padded width NP, team threads TT, tile rows TM and
+#: columns TN
+TILE_CLASSES = ((16, 32, 2, 4), (32, 64, 4, 4), (48, 192, 3, 4),
+                (64, 256, 4, 4))
+#: threads a team kernel's block may have (kMaxBlock in csrc/rt_device.cuh)
+MAX_BLOCK_THREADS = 512
+
+
+class TeamLaunch(NamedTuple):
+    """A team kernel's launch: teams (points) per block, dynamic
+    shared-memory bytes, the arena's row stride and the threads a team."""
+    points: int
+    smem_bytes: int
+    ld: int
+    team_threads: int
+
+
+def tile_class(n: int):
+    """(NP, TT, TM, TN) of the team kernels' tile class for width n."""
+    for cls in TILE_CLASSES:
+        if n <= cls[0]:
+            return cls
+    raise ValueError(f"N = {n}: the team kernels take N <= "
+                     f"{TILE_CLASSES[-1][0]}")
+
+
+def round4(n: int) -> int:
+    """n rounded up to a multiple of 4 floats (16 bytes)."""
+    return (n + 3) & ~3
+
+
+def team_launch_config(n: int, arena_floats, shared_floats: int = 0):
+    """The launch of a team kernel at width n whose points each use
+    ``arena_floats(n, ld)`` floats of shared memory, beside
+    ``shared_floats`` the block shares. The row stride ld is the least
+    ld >= n with ld = 4 mod 8 (float4 rows on distinct banks) unless that
+    arena no longer fits a block, then round4(n). A block takes as many
+    teams as half an SM's shared memory holds (two blocks an SM), at least
+    one and at most MAX_BLOCK_THREADS threads."""
+    tt = tile_class(n)[1]
+    ld = n + (4 - n) % 8
+    if 4 * (shared_floats + arena_floats(n, ld)) > MAX_SHARED_BYTES:
+        ld = round4(n)
+    per_point = 4 * arena_floats(n, ld)
+    pts = max(1, min(MAX_BLOCK_THREADS // tt,
+                     (MAX_SHARED_BYTES // 2 - 4 * shared_floats)
+                     // per_point))
+    return TeamLaunch(pts, 4 * (shared_floats + pts * arena_floats(n, ld)),
+                      ld, tt)
+
+
+def doubling_arena_floats(n: int, ld: int) -> int:
+    """Floats of the doubling phase's arena (``Arena`` in
+    csrc/rt_device.cuh): six n x ld slots, jp and jm (round4(n) each), and
+    W1, W2 of n x round4(2n + 2)."""
+    return 6 * n * ld + 2 * round4(n) + 2 * n * round4(2 * n + 2)
 
 
 def check_operands(name: str, xs, device):

@@ -8,10 +8,11 @@ with the state resident, returning the doubled (r, t, jp, jm).
 What bounds it on Hopper: per spectral point a chain of dependent N x N
 products (fp32 FMA) against (4 N^2 + 4 N + 1) floats of device memory:
 arithmetic. Design: ``doubling_kernel`` in csrc/layer_step.cu runs phase 1
-of the fused layer step (the same device function) on a smaller
-shared-memory arena of 10 N^2 + 6 N + 1 floats per point (state, NS
-iterates, packed operands) and writes the state back. Ragged S is masked
-in the kernel.
+of the fused layer step (the same team device function of
+csrc/rt_device.cuh, a team of whole warps per point) on a smaller
+shared-memory arena of about 6 N ld + 4 N^2 floats per point (state, NS
+iterates, packed operands; ld the padded row stride) and writes the state
+back. Ragged S is masked in the kernel.
 
 The plain version runs cuda/layer_step_kernel.py:doubling_body. The wrapper
 takes it only for CPU tensors; for CUDA tensors it launches the kernel or
@@ -28,15 +29,16 @@ from vsmartmom_torch.cuda.layer_step_kernel import doubling_body
 launches = 0
 
 
-def arena_floats(n: int) -> int:
-    """Shared-memory floats one spectral point uses (must match
-    ``doubling_arena_floats`` in csrc/layer_step.cu)."""
-    return 10 * n * n + 6 * n + 1
+def arena_floats(n: int, ld: int) -> int:
+    """Shared-memory floats one spectral point uses at row stride ld (must
+    match ``doubling_arena_floats`` in csrc/rt_device.cuh)."""
+    return build.doubling_arena_floats(n, ld)
 
 
-def launch_config(n: int):
-    """(points per block, dynamic shared-memory bytes) at stream count n."""
-    return build.launch_config(arena_floats(n))
+def launch_config(n: int) -> build.TeamLaunch:
+    """Teams per block, dynamic shared-memory bytes, row stride and team
+    threads at stream count n."""
+    return build.team_launch_config(n, arena_floats)
 
 
 def doubling_bytes(n: int) -> int:
@@ -72,7 +74,7 @@ def fused_doubling(r, t, jp, jm, ek, *, ns_schedule):
             or ek.shape != (s,):
         raise ValueError("fused_doubling: inconsistent shapes")
     sched = build.schedule_array(ns_schedule)
-    pts, smem = launch_config(n)
+    pts, smem, ld, _ = launch_config(n)
     if smem > build.MAX_SHARED_BYTES:
         raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
                          f"block, more than {build.MAX_SHARED_BYTES}")
@@ -82,7 +84,7 @@ def fused_doubling(r, t, jp, jm, ek, *, ns_schedule):
         return tuple(outs)
     err = build.lib().vsm_doubling(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, sched, len(ns_schedule), pts, smem,
+        s, n, ld, sched, len(ns_schedule), pts, smem,
         torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "doubling launch")
     global launches

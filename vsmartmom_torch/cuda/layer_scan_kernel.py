@@ -14,12 +14,15 @@ kernel and ``torch.expm1`` in the plain version.
 What bounds it on Hopper: as the layer step, a chain of small dependent
 N x N fp32 products per spectral point, fed from shared memory. The TPU
 kernel kept the composite in VMEM scratch across a sequential layer grid
-axis; Hopper's blocks run in no order, so each block of 256 threads owns P
-points and loops over the bucket's layers itself, every point's composite
-and working state resident in a shared-memory arena of 14 N^2 + 8 N + 1
-floats for the whole bucket (csrc/layer_scan.cu). Device memory sees the
+axis; Hopper's blocks run in no order, so a team of whole warps owns one
+point (one warp at N <= 16; 2, 6, 8 warps for the width classes 32, 48,
+64) and loops over the bucket's layers itself, the point's composite and
+working state resident in a shared-memory arena of about 10 N ld + 4 N^2
+floats for the whole bucket (ld the padded row stride; csrc/layer_scan.cu
+on the team helpers of csrc/rt_device.cuh: register-tiled products with
+the elementwise passes fused into their stores). Device memory sees the
 composite once in and once out, plus the per-layer scalars. The arena takes
-N <= 64 (``max_n``), the headline N = 44 included (one 110 KB point per
+N <= 64 (``max_n``), the headline N = 44 included (one 108 KB point per
 block).
 
 The plain version (``fused_layer_scan_plain``) loops over the layers with
@@ -40,22 +43,25 @@ from vsmartmom_torch.cuda.layer_step_kernel import doubling_body, \
 launches = 0
 
 
-def arena_floats(n: int) -> int:
-    """Shared-memory floats one spectral point uses (must match
-    ``scan_arena_floats`` in csrc/layer_scan.cu): the doubling arena
-    (10 n^2 + 6n + 1) and the composite (4 n^2 + 2n)."""
-    return 14 * n * n + 8 * n + 1
+def arena_floats(n: int, ld: int) -> int:
+    """Shared-memory floats one spectral point uses at row stride ld (must
+    match ``scan_arena_floats`` in csrc/layer_scan.cu): the doubling arena
+    and the composite (4 n ld + 2 round4(n))."""
+    return (build.doubling_arena_floats(n, ld) + 4 * n * ld
+            + 2 * build.round4(n))
 
 
-def launch_config(n: int):
-    """(points per block, dynamic shared-memory bytes) at stream count n."""
-    return build.launch_config(arena_floats(n))
+def launch_config(n: int) -> build.TeamLaunch:
+    """Teams per block, dynamic shared-memory bytes, row stride and team
+    threads at stream count n."""
+    return build.team_launch_config(n, arena_floats)
 
 
 def max_n() -> int:
-    """Largest stream count N whose one-point block fits Hopper's 227 KB."""
+    """Largest stream count N whose one-point block fits Hopper's 227 KB
+    (at the unpadded row stride ld = N)."""
     n = 1
-    while 4 * arena_floats(n + 1) <= build.MAX_SHARED_BYTES:
+    while 4 * arena_floats(n + 1, n + 1) <= build.MAX_SHARED_BYTES:
         n += 1
     return n
 
@@ -150,7 +156,10 @@ def fused_layer_scan(comp_in: LayerRT, tau, omega, zw, tau_sum, z_pp_c,
             or any(v.shape != (s, n) for v in comp_in[4:]):
         raise ValueError("fused_layer_scan: inconsistent shapes")
     sched = build.schedule_array(ns_schedule)
-    pts, smem = launch_config(n)
+    if n > max_n():
+        raise ValueError(f"N = {n} exceeds Hopper's shared memory: the "
+                         f"layer-scan kernel takes N <= {max_n()}")
+    pts, smem, ld, _ = launch_config(n)
     if smem > build.MAX_SHARED_BYTES:
         raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
                          f"block, more than {build.MAX_SHARED_BYTES}: the "
@@ -161,8 +170,8 @@ def fused_layer_scan(comp_in: LayerRT, tau, omega, zw, tau_sum, z_pp_c,
         return LayerRT(*outs)
     err = build.lib().vsm_layer_scan(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, nz, k, sched, len(ns_schedule), int(inter_iters), int(i_mu0_n),
-        int(n_stokes), float(mu0), float(mu0_node), float(wct02), pts, smem,
+        s, n, ld, nz, k, sched, len(ns_schedule), int(inter_iters),
+        int(i_mu0_n), int(n_stokes), float(mu0), float(mu0_node), float(wct02), pts, smem,
         torch.cuda.current_stream(tau.device).cuda_stream)
     build.check(err, "layer_scan launch")
     global launches

@@ -9,17 +9,21 @@ adding under the composite with ONE NS solve through the push-through
 identity (I - c_rpm r2)^-1 = I + c_rpm (I - r2 c_rpm)^-1 r2.
 
 What bounds it on Hopper: each spectral point is a chain of ~20-80 small
-dependent N x N products (N = 12..63) on the point's own data. Per point the
+dependent N x N products (N = 1..63) on the point's own data. Per point the
 kernel reads 4 composite + 2 elemental matrices and writes 4, so device
 memory traffic is small against the O(N^3) work per product; the work is
 fp32 FMA on the CUDA cores (no TF32, no tensor cores), fed from shared
-memory. Design: one block of 256 threads handles P points; every point's
-state (the elemental layer, the NS iterates, the packed right-hand operands)
-lives in its own shared-memory arena for the whole step, so nothing but the
-inputs and the new composite touches device memory. P is chosen so a block
-uses at most ~48 KB (several blocks per SM at small N); at N = 44 a block
-holds one point (92 KB), at N = 63 one point (188 KB, via the opt-in
-dynamic shared-memory limit). The ragged last block is masked in the kernel.
+memory. Design (csrc/layer_step.cu on the team helpers of
+csrc/rt_device.cuh): a team of whole warps per point (one warp at N <= 16;
+2, 6, 8 warps for the width classes 32, 48, 64) owns the point's arena
+(elemental layer, NS iterates, packed operands, the composite's c_rpm and
+c_tmm) for the whole step and synchronises only itself; products are
+register-tiled with the elementwise passes fused into their stores. A block
+holds as many teams as half an SM's shared memory takes (N = 15: 7 points
+of 15 KB; N = 44 and N = 63: one point, 108 KB and 221 KB). Every arena
+slot starts on 16 bytes and square slots have a row stride ld = 4 mod 8
+where it fits, so products read float4 rows without bank conflicts. The
+ragged last block is masked in the kernel.
 
 The plain version (``fused_layer_step_plain``) computes the same algebra
 with torch batched matmuls. The wrapper takes it only for CPU tensors; for
@@ -36,17 +40,21 @@ from vsmartmom_torch.cuda import build
 launches = 0
 
 
-def arena_floats(n: int) -> int:
-    """Shared-memory floats one spectral point uses (must match
-    ``arena_floats`` in csrc/layer_step.cu): r, t (2 n^2), jp, jm (2n),
-    ek (1), NS scratch (4 n^2) and the packed operands (6 n^2 + 4n)."""
-    return 12 * n * n + 6 * n + 1
+def arena_floats(n: int, ld: int) -> int:
+    """Shared-memory floats one spectral point uses at row stride ld (must
+    match ``step_arena_floats`` in csrc/layer_step.cu): the doubling arena
+    up to its packed operands, then the larger of the doubling's W1, W2 and
+    the interaction's X, X2 (3 n round4(2n + 1)), then the composite's
+    c_rpm and c_tmm (2 n ld)."""
+    w = max(2 * n * build.round4(2 * n + 2), 3 * n * build.round4(2 * n + 1))
+    return 6 * n * ld + 2 * build.round4(n) + w + 2 * n * ld
 
 
-def launch_config(n: int):
-    """(points per block, dynamic shared-memory bytes) at stream count n
-    (the block shares the D diagonal, n floats)."""
-    return build.launch_config(arena_floats(n), n)
+def launch_config(n: int) -> build.TeamLaunch:
+    """Teams per block, dynamic shared-memory bytes, row stride and team
+    threads at stream count n (the block shares the D diagonal,
+    round4(n) floats)."""
+    return build.team_launch_config(n, arena_floats, build.round4(n))
 
 
 def step_flops(n: int, ns_schedule, ni: int) -> int:
@@ -168,7 +176,7 @@ def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
             or ek.shape != (s,) or d_vec.shape != (n,):
         raise ValueError("fused_layer_step: inconsistent shapes")
     sched = build.schedule_array(ns_schedule)
-    pts, smem = launch_config(n)
+    pts, smem, ld, _ = launch_config(n)
     if smem > build.MAX_SHARED_BYTES:
         raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
                          f"block, more than {build.MAX_SHARED_BYTES}")
@@ -178,7 +186,7 @@ def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
         return LayerRT(*outs)
     err = build.lib().vsm_layer_step(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, sched, len(ns_schedule), int(ni), pts, smem,
+        s, n, ld, sched, len(ns_schedule), int(ni), pts, smem,
         torch.cuda.current_stream(r_f.device).cuda_stream)
     build.check(err, "layer_step launch")
     global launches

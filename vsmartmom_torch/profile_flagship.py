@@ -2,17 +2,20 @@
 
 Run from the repository root:
 
-    python3 -m vsmartmom_torch.profile_flagship [--trace DIR]
+    python3 -m vsmartmom_torch.profile_flagship [--engine E] [--trace DIR]
 
 Builds the Float32 flagship (default_parameters -> model_from_parameters)
 once to warm up, then profiles with ``torch.profiler`` (CPU + CUDA
-activities) one model build and one steady ``rt_run``. For each it prints:
+activities) one model build and one steady ``rt_run`` through engine E
+(``auto`` by default; any engine ``rt_run`` takes). For each it prints:
 
 - wall: host seconds around the call, synchronized, profiler on;
 - device busy: the union of the device intervals (kernels, copies, sets)
   that the profiler recorded inside the call;
 - idle share: 1 - busy / wall. The profiler slows the host, so this is an
   upper bound of the unprofiled idle share;
+- the port's own kernels (csrc/) against every other device event (torch
+  ops, copies): summed time, share of device busy and launches;
 - per device kernel: launches, summed time and its share of device busy.
 
 ``--trace DIR`` also writes each phase's Chrome trace into DIR.
@@ -47,6 +50,12 @@ def union_us(intervals):
     return busy
 
 
+#: name fragments of the port's own kernels (csrc/)
+PORT_KERNELS = ("layer_step_kernel", "layer_step_dev_kernel",
+                "doubling_kernel", "layer_scan_kernel", "lanes_kernel",
+                "voigt_kernel")
+
+
 def report(phase, wall_s, prof, card, top):
     iv = device_intervals(prof)
     if not iv:
@@ -60,6 +69,12 @@ def report(phase, wall_s, prof, card, top):
     for name, s, e in iv:
         per[name][0] += 1
         per[name][1] += (e - s) / 1e3
+    own = [(n, ms) for name, (n, ms) in per.items()
+           if any(k in name for k in PORT_KERNELS)]
+    own_n, own_ms = sum(n for n, _ in own), sum(ms for _, ms in own)
+    print(f"  port kernels {own_ms:.3f} ms ({100 * own_ms / busy_ms:.2f} % "
+          f"of busy) in {own_n} launches; other device events "
+          f"{busy_ms - own_ms:.3f} ms in {len(iv) - own_n} [card: {card}]")
     for name, (n, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f} % {n:6d}x  "
               f"{name[:90]}")
@@ -67,6 +82,8 @@ def report(phase, wall_s, prof, card, top):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--engine", default="auto",
+                    help="rt_run engine (default auto)")
     ap.add_argument("--trace", help="directory for the Chrome traces")
     ap.add_argument("--top", type=int, default=12,
                     help="device kernels listed per phase")
@@ -84,12 +101,13 @@ def main():
     params = vt.default_parameters()
     params.float_type = "Float32"
     model = vt.model_from_parameters(params, device=dev)     # warm-up
-    vt.rt_run(model, device=dev)
+    vt.rt_run(model, device=dev, engine=args.engine)
     torch.cuda.synchronize()
 
     phases = {"model build": lambda: vt.model_from_parameters(params,
                                                               device=dev),
-              "rt_run": lambda: vt.rt_run(model, device=dev)}
+              f"rt_run ({args.engine})":
+                  lambda: vt.rt_run(model, device=dev, engine=args.engine)}
     for phase, fn in phases.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -101,7 +119,8 @@ def main():
         if args.trace:
             os.makedirs(args.trace, exist_ok=True)
             prof.export_chrome_trace(os.path.join(
-                args.trace, phase.replace(" ", "_") + ".json"))
+                args.trace, phase.split(" (")[0].replace(" ", "_")
+                + f"_{args.engine}.json"))
 
 
 if __name__ == "__main__":
