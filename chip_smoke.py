@@ -5,13 +5,15 @@ Run from the repository root:  python3 chip_smoke.py
 
 1. Builds the six hand-written kernels from the five sources in
    vsmartmom_torch/csrc (one nvcc per source, all started together, sm_90a)
-   and prints each kernel's registers, shared and local memory (cuobjdump
-   on the built library); fails on local memory (spills) in the team
-   kernels (layer step, doubling, layer scan).
-1b. Runs those three team kernels against their plain versions at every
+   and prints each kernel's registers, stack, shared and local memory
+   (cuobjdump on the built library); fails on local memory (spills) or a
+   stack above 32 bytes in the team kernels (layer step, doubling, layer
+   scan, lanes step).
+1b. Runs those four team kernels against their plain versions at every
    width class of csrc/rt_device.cuh and its edges (N = 1, 13, 15, 16, 17,
    24, 32, 33, 44, 48, 49, 63, and 64 for the scan) at a ragged S = 1 007
-   on a synthetic slab: every field within 1e-5 of its max.
+   on a synthetic slab, and the lanes step's wide path at N = 72: every
+   field within 1e-5 of its max; times the wide path and its plain version.
 2. Drives the flagship O2 A-band forward run through the public API at full
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
@@ -164,23 +166,31 @@ def rel_err(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-#: the team kernels (mangled names hold these): no local memory allowed
-TEAM_KERNELS = ("layer_step_kernel", "doubling_kernel", "layer_scan_kernel")
+#: the team kernels (mangled names hold these): no local memory allowed, and
+#: no stack above MAX_TEAM_STACK bytes (the N <= 16 layer step's once grew
+#: to 56 bytes and ran 30 % slower)
+TEAM_KERNELS = ("layer_step_kernel", "doubling_kernel", "layer_scan_kernel",
+                "lanes_team_kernel")
+MAX_TEAM_STACK = 32
 #: widths of the phase below: every tile class of csrc/rt_device.cuh and its
-#: edges (the layer step and doubling take N <= 63, the scan N <= 64)
+#: edges (the layer step, doubling and lanes team kernel take N <= 63, the
+#: scan N <= 64), and one width of the lanes step's wide path
 WIDTHS = (1, 13, 15, 16, 17, 24, 32, 33, 44, 48, 49, 63, 64)
+LANES_WIDE_N = 72
 WIDTH_S = 1007
 
 
-def width_class_phase(torch, dev, lsk, dk, scn, LayerRT):
-    """The layer step, doubling and layer scan kernels against their plain
-    versions at every width of WIDTHS, at a ragged S (not a multiple of any
-    block's points), on a passive random slab (nd = 6) under a composite
-    built by plain steps. Each field within 1e-5 of its max; returns the
-    largest such error per kernel and N."""
+def width_class_phase(torch, dev, lsk, dk, scn, lnk, LayerRT):
+    """The layer step, doubling, layer scan and lanes step kernels against
+    their plain versions at every width of WIDTHS, and the lanes step's wide
+    path at LANES_WIDE_N, at a ragged S (not a multiple of any block's
+    points), on a passive random slab (nd = 6) under a composite built by
+    plain steps. Each field within 1e-5 of its max; returns the largest such
+    error per kernel and N, and the wide path's milliseconds, its plain
+    version's and its bound."""
     from vsmartmom_torch.core.rt import ns_doubling_schedule, vacuum_layer
     rng = np.random.default_rng(1)
-    S, nd, ni, out = WIDTH_S, 6, 3, {}
+    S, nd, ni, out, wide_ms = WIDTH_S, 6, 3, {}, None
 
     def f32(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
@@ -190,7 +200,7 @@ def width_class_phase(torch, dev, lsk, dk, scn, LayerRT):
         return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                    for a, b in zip(got, ref))
 
-    for n in WIDTHS:
+    for n in (*WIDTHS, LANES_WIDE_N):
         qp = np.linspace(0.1, 1.0, n) if n > 1 else np.array([0.5])
         sched = tuple(ns_doubling_schedule(0.5, float(qp.min()), nd))
         dtau, mqm = 0.5 / 2 ** nd, float(qp.min())
@@ -220,32 +230,49 @@ def width_class_phase(torch, dev, lsk, dk, scn, LayerRT):
             errs["doubling"] = worst(
                 dk.fused_doubling(*el, ek, ns_schedule=sched),
                 dk.fused_doubling_plain(*el, ek, ns_schedule=sched))
-        # the scan: two layers of a synthetic band, two Z components whose
-        # rows sum to one against the weights
-        nz, k = 2, 2
-        wct2 = np.full(n, 1.0 / n)
-        zc = rng.uniform(0.2, 1.0, (2, k, n, n))
-        zc /= (zc * wct2).sum(-1, keepdims=True)
-        tau = rng.uniform(0.2, 0.5, (nz, S))
-        omega = rng.uniform(0.3, 0.9, (nz, S))
-        zw = rng.uniform(0.2, 1.0, (nz, k, S))
-        zw /= zw.sum(1, keepdims=True)
-        i0 = np.zeros(n)
-        i0[n // 2] = 1.0
-        args = (comp, f32(tau), f32(omega), f32(zw),
-                f32(np.cumsum(tau, 0) - tau), f32(zc[0]), f32(zc[1]),
-                f32(qp), f32(wct2), f32(i0), d, 0.6, float(qp[n // 2]),
-                0.5 / np.pi)
-        kw = dict(ns_schedule=sched, i_mu0_n=n // 2, n_stokes=1,
-                  inter_iters=ni)
-        errs["layer_scan"] = worst(scn.fused_layer_scan(*args, **kw),
-                                   scn.fused_layer_scan_plain(*args, **kw))
+        if n <= 63 or n == LANES_WIDE_N:
+            largs = (lnk.to_lanes(comp), *(lnk.to_lanes_m(x) for x in el[:2]),
+                     *(lnk.to_lanes_v(x) for x in el[2:]), ek, d)
+            lkw = dict(ns_schedule=sched, ni=ni)
+            errs["lanes"] = worst(lnk.fused_layer_step_lanes(*largs, **lkw),
+                                  lnk.lanes_layer_step_plain(*largs, **lkw))
+        if n == LANES_WIDE_N:
+            check(not lnk.team_path(n), f"N = {n} took the team path")
+            wide_ms = (cuda_ms(torch, lambda: lnk.fused_layer_step_lanes(
+                                   *largs, **lkw), 3),
+                       cuda_ms(torch, lambda: lnk.lanes_layer_step_plain(
+                           *largs, **lkw), 1),
+                       1e3 * max(S * lnk.step_flops(n, sched, ni)
+                                 / PEAK_F32_FLOPS,
+                                 S * lnk.step_bytes(n) / PEAK_BYTES))
+        if n in WIDTHS:
+            # the scan: two layers of a synthetic band, two Z components
+            # whose rows sum to one against the weights
+            nz, k = 2, 2
+            wct2 = np.full(n, 1.0 / n)
+            zc = rng.uniform(0.2, 1.0, (2, k, n, n))
+            zc /= (zc * wct2).sum(-1, keepdims=True)
+            tau = rng.uniform(0.2, 0.5, (nz, S))
+            omega = rng.uniform(0.3, 0.9, (nz, S))
+            zw = rng.uniform(0.2, 1.0, (nz, k, S))
+            zw /= zw.sum(1, keepdims=True)
+            i0 = np.zeros(n)
+            i0[n // 2] = 1.0
+            args = (comp, f32(tau), f32(omega), f32(zw),
+                    f32(np.cumsum(tau, 0) - tau), f32(zc[0]), f32(zc[1]),
+                    f32(qp), f32(wct2), f32(i0), d, 0.6, float(qp[n // 2]),
+                    0.5 / np.pi)
+            kw = dict(ns_schedule=sched, i_mu0_n=n // 2, n_stokes=1,
+                      inter_iters=ni)
+            errs["layer_scan"] = worst(
+                scn.fused_layer_scan(*args, **kw),
+                scn.fused_layer_scan_plain(*args, **kw))
         torch.cuda.synchronize()
         for name, e in errs.items():
             check(e < 1e-5, f"{name} N={n} S={S}: max|diff| / max {e:.3e} "
                   f">= 1e-5")
             out.setdefault(name, {})[n] = float(f"{e:.3e}")
-    return out
+    return out, wide_ms
 
 
 def main():
@@ -311,7 +338,7 @@ def main():
     t0 = time.perf_counter()
     build.lib()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s {tag}")
-    spills = []
+    spills, team_seen = [], set()
     fn = None
     for line in build.resource_usage(build.build()).splitlines():
         line = line.strip()
@@ -320,15 +347,26 @@ def main():
         elif line.startswith("REG:"):
             print(f"{fn} {line}")
             local = int(line.split("LOCAL:")[1].split()[0])
-            if local and any(k in fn for k in TEAM_KERNELS):
+            stack = int(line.split("STACK:")[1].split()[0])
+            team = [k for k in TEAM_KERNELS if k in fn]
+            team_seen.update(team)
+            if team and (local or stack > MAX_TEAM_STACK):
                 spills.append(f"{fn} {line}")
-    check(not spills, f"local memory (spills) in a team kernel: {spills}")
+    check(team_seen == set(TEAM_KERNELS),
+          f"team kernels missing from the library: "
+          f"{set(TEAM_KERNELS) - team_seen}")
+    check(not spills, f"local memory or a stack above {MAX_TEAM_STACK} "
+          f"bytes in a team kernel: {spills}")
 
     # ---- 1b. the team kernels at every width class and its edges -----------
-    widths = width_class_phase(torch, dev, lsk, dk, scn, LayerRT)
+    widths, (wide_ms, wide_plain, wide_bound) = width_class_phase(
+        torch, dev, lsk, dk, scn, lnk, LayerRT)
     print(f"width classes (S = {WIDTH_S}): every launch within 1e-5 of max "
           f"per field of its plain version; max|diff| / max by N: "
           f"{json.dumps(widths)} {tag}")
+    print(f"lanes step, wide path (N = {LANES_WIDE_N}, S = {WIDTH_S}): "
+          f"kernel {wide_ms:.3f} ms, plain {wide_plain:.3f} ms, bound "
+          f"{wide_bound:.4f} ms {tag}")
 
     # ---- 2. the flagship forward run, launches counted ----------------------
     params = vt.default_parameters()

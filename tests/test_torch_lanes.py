@@ -22,7 +22,9 @@ from vsmartmom.util.quadrature import rt_set_streams as jax_streams
 from vsmartmom_torch.core.rt import (LayerRT, doubling, interaction,
                                      make_rsolve, ns_doubling_schedule,
                                      vacuum_layer)
+import vsmartmom_torch.core.rt_run as rtr
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+from vsmartmom_torch.cuda import build
 from vsmartmom_torch.cuda import lanes_kernel as lk
 from vsmartmom_torch.scattering.phase import (Polarization,
                                               get_greek_rayleigh)
@@ -68,15 +70,19 @@ def _fixture(d_vec, S=24, nd=6, seed=3):
 BOUNDS = {"float32": 2e-5, "float64": 1e-12}
 
 
+@pytest.mark.parametrize("n", [15, 1, 16, 17, 33, 63, 72])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("stokes", ["I", "IQU"])
-def test_lanes_plain_matches_jax_lanes_math(stokes, dtype):
+def test_lanes_plain_matches_jax_lanes_math(stokes, dtype, n):
     """lanes_layer_step_plain against JAX lanes_layer_step_math on the
-    fixture of tests/test_pallas_doubling.py:217 (N = 15, D = +1) and on an
-    IQU slab whose D vector has -1 entries (N = 15)."""
-    d_vec = (np.ones(15) if stokes == "I"
-             else np.tile([1.0, 1.0, -1.0], 5))
-    sched, comp_l, elem_l, ek = _fixture(d_vec)
+    fixture of tests/test_pallas_doubling.py:217 (D = +1) and on an IQU slab
+    whose D vector has -1 entries, at N = 15 (that fixture's width), the
+    edges of the team kernel's width classes (1, 16, 17, 33, 63) and one
+    width of the wide path (72). The plain version is the yardstick of both
+    kernel paths on the card."""
+    d_vec = (np.ones(n) if stokes == "I"
+             else np.resize([1.0, 1.0, -1.0], n))
+    sched, comp_l, elem_l, ek = _fixture(d_vec, S=24 if n == 15 else 6)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     ref = lanes_layer_step_math(
         *(jnp.asarray(x, jdt) for x in comp_l + elem_l),
@@ -92,6 +98,69 @@ def test_lanes_plain_matches_jax_lanes_math(stokes, dtype):
         assert b.shape == a.shape and b.dtype == tdt
         rel = np.abs(b.numpy() - a).max() / np.abs(a).max()
         assert rel < BOUNDS[dtype], (name, rel)
+
+
+@pytest.mark.parametrize("n", range(1, 64))
+def test_team_arena_fits_hopper_shared_memory(n):
+    """The team kernel's launch at every N it takes (<= 63) fits one
+    block's 227 KB with the block's D diagonal and one arena per team, with
+    teams of whole warps within the block's thread bound and named barriers,
+    and a float4 row stride."""
+    assert lk.team_path(n) and lk.TEAM_MAX_N == rtr.KERNEL_MAX_N
+    cfg = lk.launch_config(n)
+    assert cfg.smem_bytes == 4 * (build.round4(n)
+                                  + cfg.points * lk.arena_floats(n, cfg.ld))
+    assert cfg.points >= 1 and cfg.smem_bytes <= build.MAX_SHARED_BYTES
+    assert cfg.team_threads == build.tile_class(n)[1]
+    assert cfg.team_threads % 32 == 0
+    assert cfg.points * cfg.team_threads <= build.MAX_BLOCK_THREADS
+    assert cfg.team_threads == 32 or cfg.points <= 15   # bar.sync ids 1..15
+    assert cfg.ld >= n and cfg.ld % 4 == 0
+
+
+class _FakeLib:
+    """Stands in for the kernel library: records each entry called and its
+    arguments, and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("vsm_lanes"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("n", [1, 15, 44, 63, 64, 72])
+def test_width_dispatch_team_and_wide_paths(n, monkeypatch):
+    """N <= 63 launches the team kernel (vsm_lanes) at its launch config
+    with no workspace; N > 63 the wide path (vsm_lanes_wide) with a
+    workspace of (6 N^2 + 6 N) S floats."""
+    fake, S = _FakeLib(), 5
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    allocs = []
+    real_empty = torch.empty
+
+    def counting_empty(*size, **kw):
+        allocs.append(size)
+        return real_empty(*size, **kw)
+
+    monkeypatch.setattr(torch, "empty", counting_empty)
+    m = real_empty((n, n, S))
+    v = real_empty((n, S))
+    ins = [m] * 4 + [v] * 2 + [m, m, v, v, real_empty(S), real_empty(n)]
+    outs = [m] * 4 + [v] * 2
+    assert lk._launch(ins, outs, (2, 3), 4, 0) == 0
+    (name, args), = fake.calls
+    if n <= 63:
+        assert lk.team_path(n) and name == "vsm_lanes" and not allocs
+        pts, smem, ld, _ = lk.launch_config(n)
+        assert args[18:21] == (S, n, ld) and args[22:] == (2, 4, pts, smem, 0)
+    else:
+        assert not lk.team_path(n) and name == "vsm_lanes_wide"
+        assert allocs == [(lk.workspace_floats(n) * S,)]
+        assert args[19:21] == (S, n) and args[22:] == (2, 4, 0)
+    assert list(args[21]) == [2, 3]
 
 
 def test_lanes_layout_round_trip():

@@ -65,9 +65,12 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, ctypes.c_float,
                                    ctypes.c_float, ctypes.c_float, _I, _I,
                                    _P],
-    # 6 composite + 4 elemental + ek + d inputs, 6 outputs, workspace; S, n,
-    # schedule, nd, ni, stream
-    "vsm_lanes": [_P] * 19 + [_I, _I, ctypes.POINTER(_I), _I, _I, _P],
+    # the team path: the arguments of vsm_layer_step
+    "vsm_lanes": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
+                              _I, _P],
+    # the wide path: 6 composite + 4 elemental + ek + d inputs, 6 outputs,
+    # workspace; S, n, schedule, nd, ni, stream
+    "vsm_lanes_wide": [_P] * 19 + [_I, _I, ctypes.POINTER(_I), _I, _I, _P],
     # grid_t, centers, starts, n_chunks, nu, amp, igd, y, n_lines, cutoff,
     # out, n_tiles, stream
     "vsm_voigt": [_P] * 8 + [_I, ctypes.c_float, _P, _I, _P],

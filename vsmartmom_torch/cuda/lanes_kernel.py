@@ -11,14 +11,24 @@ Newton-Schulz doubling and the two-solve interaction with ``tt`` never
 materialized, as the TPU body associates them.
 
 What bounds it on Hopper: per point a chain of small dependent N x N fp32
-products. The TPU kernel put the points on the 128-lane axis so that a
-product became N broadcast FMAs (there Mosaic scalarized them). Here a warp
-covers 32 consecutive points, so every load is one coalesced line, and a
-block of 32 points x min(N, 16) row threads runs the point's products row by
-row with no per-point shared-memory arena: the state and scratch live in a
-device-memory workspace in the same layout, (6 N^2 + 6 N) S floats,
-allocated here with ``torch.empty``. It takes any N. Every product re-reads
-its operands from the cache hierarchy (csrc/lanes.cu).
+products, O(N^3) FMAs against O(N^2) bytes of device memory. The TPU kernel
+put the points on the 128-lane axis so that a product became N broadcast
+FMAs (there Mosaic scalarized them). Here the layout stays at the kernel's
+boundary only, and the width picks one of two paths (csrc/lanes.cu):
+- N <= TEAM_MAX_N (63): the team kernel, the layer step's design
+  (``layer_step_kernel``) on the team helpers of csrc/rt_device.cuh. A team
+  of whole warps per point owns the point's shared-memory arena (the
+  doubling arena, whose packed operands the interaction reuses, then c_rpm
+  and c_tmm) and runs register-tiled fp32 products with fused stores; the
+  loads and stores address the lanes layout directly, the teams of a block
+  on consecutive points sharing its sectors. No device-memory workspace.
+- N > 63: the wide path, which takes any N (the team kernels' tile
+  classes stop at NP = 64). A warp covers 32 consecutive points, every
+  load is one coalesced line, and a block of 32 points x min(N, 16) row
+  threads runs the point's products row by row out of a device-memory
+  workspace in the same layout, (6 N^2 + 6 N) S floats, allocated here
+  with ``torch.empty``.
+Both paths raise on a failed launch and count in ``launches``.
 
 The plain version (``lanes_layer_step_plain``) is the port of
 ``lanes_layer_step_math``, taking the wrapper's arguments. The wrapper
@@ -68,9 +78,35 @@ def from_lanes(comp_l: LayerRT) -> LayerRT:
                    *(from_lanes_v(v) for v in comp_l[4:]))
 
 
+#: widest N the team kernel takes (the layer step's range,
+#: ``core.rt_run.KERNEL_MAX_N``); wider N takes the wide path
+TEAM_MAX_N = 63
+
+
+def team_path(n: int) -> bool:
+    """Whether width n launches the team kernel (else the wide path)."""
+    return n <= TEAM_MAX_N
+
+
+def arena_floats(n: int, ld: int) -> int:
+    """Shared-memory floats one point of the team kernel uses at row stride
+    ld (must match ``lanes_arena_floats`` in csrc/lanes.cu): the doubling
+    arena, whose W1, W2 hold the interaction's X, X2 (2 n round4(2n + 1)
+    floats), then c_rpm and c_tmm (2 n ld)."""
+    return build.doubling_arena_floats(n, ld) + 2 * n * ld
+
+
+def launch_config(n: int) -> build.TeamLaunch:
+    """The team kernel's teams per block, dynamic shared-memory bytes, row
+    stride and team threads at width n (the block shares the D diagonal,
+    round4(n) floats)."""
+    return build.team_launch_config(n, arena_floats, build.round4(n))
+
+
 def workspace_floats(n: int) -> int:
-    """Device-memory workspace floats per point (must match csrc/lanes.cu):
-    r, t, NS scratch A, M, M2, TMP (6 n^2) and six vectors."""
+    """Device-memory workspace floats per point of the wide path (must
+    match csrc/lanes.cu): r, t, NS scratch A, M, M2, TMP (6 n^2) and six
+    vectors."""
     return 6 * n * n + 6 * n
 
 
@@ -182,18 +218,29 @@ def fused_layer_step_lanes(comp_l: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
             or any(v.shape != (n, s) for v in vecs) \
             or ek.shape != (s,) or d_vec.shape != (n,):
         raise ValueError("fused_layer_step_lanes: inconsistent shapes")
-    sched = build.schedule_array(ns_schedule)
     outs = [torch.empty_like(r_f) for _ in range(4)] \
         + [torch.empty_like(jp) for _ in range(2)]
     if s == 0:
         return LayerRT(*outs)
-    ws = torch.empty(workspace_floats(n) * s, dtype=torch.float32,
-                     device=r_f.device)
-    err = build.lib().vsm_lanes(
-        *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        ws.data_ptr(), s, n, sched, len(ns_schedule), int(ni),
-        torch.cuda.current_stream(r_f.device).cuda_stream)
-    build.check(err, "lanes launch")
+    build.check(_launch(ins, outs, ns_schedule, int(ni),
+                        torch.cuda.current_stream(r_f.device).cuda_stream),
+                "lanes launch")
     global launches
     launches += 1
     return LayerRT(*outs)
+
+
+def _launch(ins, outs, ns_schedule, ni: int, stream) -> int:
+    """Launch the team kernel (N <= TEAM_MAX_N) or the wide path on the
+    checked operands; returns the launch's cudaError_t."""
+    n, _, s = ins[6].shape
+    ptrs = [x.data_ptr() for x in (*ins, *outs)]
+    sched = build.schedule_array(ns_schedule)
+    if team_path(n):
+        pts, smem, ld, _ = launch_config(n)
+        return build.lib().vsm_lanes(*ptrs, s, n, ld, sched,
+                                     len(ns_schedule), ni, pts, smem, stream)
+    ws = torch.empty(workspace_floats(n) * s, dtype=torch.float32,
+                     device=ins[6].device)
+    return build.lib().vsm_lanes_wide(*ptrs, ws.data_ptr(), s, n, sched,
+                                      len(ns_schedule), ni, stream)

@@ -52,8 +52,8 @@ def union_us(intervals):
 
 #: name fragments of the port's own kernels (csrc/)
 PORT_KERNELS = ("layer_step_kernel", "layer_step_dev_kernel",
-                "doubling_kernel", "layer_scan_kernel", "lanes_kernel",
-                "voigt_kernel")
+                "doubling_kernel", "layer_scan_kernel", "lanes_team_kernel",
+                "lanes_wide_kernel", "voigt_kernel")
 
 
 def report(phase, wall_s, prof, card, top):
