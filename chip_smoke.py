@@ -7,13 +7,15 @@ Run from the repository root:  python3 chip_smoke.py
    vsmartmom_torch/csrc (one nvcc per source, all started together, sm_90a)
    and prints each kernel's registers, stack, shared and local memory
    (cuobjdump on the built library); fails on local memory (spills) or a
-   stack above 32 bytes in the team kernels (layer step, doubling, layer
-   scan, lanes step).
-1b. Runs those four team kernels against their plain versions at every
+   stack above 32 bytes in the team kernels (layer step, split-form step,
+   doubling, layer scan, lanes step).
+1b. Runs those five team kernels against their plain versions at every
    width class of csrc/rt_device.cuh and its edges (N = 1, 13, 15, 16, 17,
-   24, 32, 33, 44, 48, 49, 63, and 64 for the scan) at a ragged S = 1 007
-   on a synthetic slab, and the lanes step's wide path at N = 72: every
-   field within 1e-5 of its max; times the wide path and its plain version.
+   24, 32, 33, 44, 48, 49, 63, and 64 for the scan and the split-form step)
+   at a ragged S = 1 007 on a synthetic slab, the split-form step's fifth
+   class at N = 65, 72 and 75, and the lanes step's wide path at N = 72:
+   every field within 1e-5 of its max; times the wide path and its plain
+   version.
 2. Drives the flagship O2 A-band forward run through the public API at full
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
@@ -169,26 +171,30 @@ def rel_err(a, b):
 #: the team kernels (mangled names hold these): no local memory allowed, and
 #: no stack above MAX_TEAM_STACK bytes (the N <= 16 layer step's once grew
 #: to 56 bytes and ran 30 % slower)
-TEAM_KERNELS = ("layer_step_kernel", "doubling_kernel", "layer_scan_kernel",
-                "lanes_team_kernel")
+TEAM_KERNELS = ("layer_step_kernel", "layer_step_dev_kernel",
+                "doubling_kernel", "layer_scan_kernel", "lanes_team_kernel")
 MAX_TEAM_STACK = 32
 #: widths of the phase below: every tile class of csrc/rt_device.cuh and its
 #: edges (the layer step, doubling and lanes team kernel take N <= 63, the
-#: scan N <= 64), and one width of the lanes step's wide path
+#: scan N <= 64), one width of the lanes step's wide path, and the widths of
+#: the split-form step's fifth class (N = 65 .. 75)
 WIDTHS = (1, 13, 15, 16, 17, 24, 32, 33, 44, 48, 49, 63, 64)
 LANES_WIDE_N = 72
+DEV_WIDE_WIDTHS = (65, 72, 75)
 WIDTH_S = 1007
 
 
-def width_class_phase(torch, dev, lsk, dk, scn, lnk, LayerRT):
+def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
     """The layer step, doubling, layer scan and lanes step kernels against
-    their plain versions at every width of WIDTHS, and the lanes step's wide
-    path at LANES_WIDE_N, at a ragged S (not a multiple of any block's
-    points), on a passive random slab (nd = 6) under a composite built by
-    plain steps. Each field within 1e-5 of its max; returns the largest such
-    error per kernel and N, and the wide path's milliseconds, its plain
-    version's and its bound."""
-    from vsmartmom_torch.core.rt import ns_doubling_schedule, vacuum_layer
+    their plain versions at every width of WIDTHS, the lanes step's wide
+    path at LANES_WIDE_N, and the split-form step at WIDTHS and
+    DEV_WIDE_WIDTHS, at a ragged S (not a multiple of any block's points),
+    on a passive random slab (nd = 6; the split form's pre-split) under a
+    composite built by two plain steps. Each field within 1e-5 of its max;
+    returns the largest such error per kernel and N, and the wide path's
+    milliseconds, its plain version's and its bound."""
+    from vsmartmom_torch.core.rt import (LayerRTDev, ns_doubling_schedule,
+                                         vacuum_layer, vacuum_layer_dev)
     rng = np.random.default_rng(1)
     S, nd, ni, out, wide_ms = WIDTH_S, 6, 3, {}, None
 
@@ -200,7 +206,7 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, LayerRT):
         return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                    for a, b in zip(got, ref))
 
-    for n in (*WIDTHS, LANES_WIDE_N):
+    for n in sorted({*WIDTHS, LANES_WIDE_N, *DEV_WIDE_WIDTHS}):
         qp = np.linspace(0.1, 1.0, n) if n > 1 else np.array([0.5])
         sched = tuple(ns_doubling_schedule(0.5, float(qp.min()), nd))
         dtau, mqm = 0.5 / 2 ** nd, float(qp.min())
@@ -214,7 +220,26 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, LayerRT):
             return (f32(r), f32(t), f32(rng.uniform(0, dtau, (S, n))),
                     f32(rng.uniform(0, dtau, (S, n))))
 
+        def dev_slab(scale):
+            r = rng.uniform(0, 1, (S, n, n)) * dtau * scale / (n * mqm)
+            e = rng.uniform(0, 1, (S, n, n)) * dtau / (2 * n * mqm)
+            g = np.full((S, n), np.exp(-dtau / mqm))
+            return (f32(r), f32(g), f32(e),
+                    f32(rng.uniform(0, dtau, (S, n))),
+                    f32(rng.uniform(0, dtau, (S, n))))
+
         ek = f32(np.full(S, np.exp(-dtau / 0.7)))
+        dcomp = vacuum_layer_dev(S, n, torch.float32, dev)
+        for scale in (1.0, 0.6):
+            dcomp = LayerRTDev(*(x.contiguous() for x in
+                                 ldk.fused_layer_step_dev_plain(
+                                     dcomp, *dev_slab(scale), ek, d,
+                                     ns_schedule=sched, ni=4)))
+        dargs = (dcomp, *dev_slab(0.8), ek, d)
+        errs["layer_step_dev"] = worst(
+            ldk.fused_layer_step_dev(*dargs, ns_schedule=sched, ni=ni),
+            ldk.fused_layer_step_dev_plain(*dargs, ns_schedule=sched, ni=ni))
+        del dcomp, dargs
         comp = vacuum_layer(S, n, torch.float32, dev)
         for scale in (1.0, 0.6):
             comp = LayerRT(*(x.contiguous() for x in
@@ -360,7 +385,7 @@ def main():
 
     # ---- 1b. the team kernels at every width class and its edges -----------
     widths, (wide_ms, wide_plain, wide_bound) = width_class_phase(
-        torch, dev, lsk, dk, scn, lnk, LayerRT)
+        torch, dev, lsk, dk, scn, lnk, ldk, LayerRT)
     print(f"width classes (S = {WIDTH_S}): every launch within 1e-5 of max "
           f"per field of its plain version; max|diff| / max by N: "
           f"{json.dumps(widths)} {tag}")

@@ -36,6 +36,8 @@ from vsmartmom_torch.scattering.phase import (Polarization,
                                               get_greek_rayleigh)
 from vsmartmom_torch.util.quadrature import rt_set_streams
 
+from test_torch_layer_step import _tile_cover
+
 torch.set_num_threads(2)
 
 
@@ -219,6 +221,14 @@ DEV_CASES = [
     (40, 15, (1.0,), (0, 1, 2, 4, 4), 3),
     (37, 12, (1.0, 1.0, -1.0, -1.0), (0, 0, 1, 2), 0),
     (16, 16, (1.0, 1.0, -1.0), (4, 4, 4), 4),
+    # the split-form kernel's width classes and edges (N = 1, the first
+    # width of the 32, 48 and fifth classes, the widest N), a D pattern of
+    # +-1 each and one zero-iteration step
+    (5, 1, (1.0, -1.0), (0, 2, 3), 2),
+    (9, 17, (1.0, -1.0), (3, 0, 2), 3),
+    (6, 33, (1.0, 1.0, -1.0, -1.0), (2, 0, 3), 2),
+    (3, 64, (1.0, -1.0), (0, 3, 3), 3),
+    (3, 75, (1.0, 1.0, -1.0, -1.0), (2, 3, 0), 3),
 ]
 
 
@@ -277,15 +287,33 @@ def test_select_engine_auto_takes_the_split_form():
             select_engine(eng, cuda, torch.float32, 148, True)
 
 
-def test_dev_kernel_arena_fits_hopper_up_to_its_largest_n():
-    """The split-form arena takes the headline N = 44 and every N up to
-    max_n(); the wrapper refuses beyond."""
-    from vsmartmom_torch.cuda.build import MAX_SHARED_BYTES
-    assert ldk.max_n() >= 44
-    for n in (1, 15, 44, ldk.max_n()):
-        pts, smem = ldk.launch_config(n)
-        assert pts >= 1 and smem <= MAX_SHARED_BYTES, (n, pts, smem)
-    assert ldk.launch_config(ldk.max_n() + 1)[1] > MAX_SHARED_BYTES
+@pytest.mark.parametrize("n", range(1, 76))
+def test_dev_kernel_arena_fits_hopper_up_to_its_largest_n(n):
+    """The split-form team kernel takes every N up to max_n() = 75: its
+    launch fits one block's 227 KB, with a float4 row stride ld >= N + 2,
+    teams of whole warps within the block's thread bound and named
+    barriers, and tiles that store every output of its products (widths N,
+    N + 1, N + 2, 2N + 1, 2N + 2 and 3N + 2) exactly once. Beyond 75 the
+    wrapper refuses."""
+    from vsmartmom_torch.cuda import build
+    assert ldk.max_n() == 75
+    cfg = ldk.launch_config(n)
+    cls = build.tile_class(n, build.DEV_TILE_CLASSES)
+    assert cls[0] >= n and cfg.team_threads == cls[1]
+    assert cfg.points >= 1 and cfg.smem_bytes <= build.MAX_SHARED_BYTES
+    assert cfg.smem_bytes == 4 * (build.round4(n)
+                                  + cfg.points * ldk.arena_floats(n, cfg.ld))
+    assert cfg.ld >= n + 2 and cfg.ld % 4 == 0
+    assert cfg.ld % 8 == 4 or cfg.ld == build.round4(n + 2)
+    assert cfg.team_threads % 32 == 0
+    assert cfg.points * cfg.team_threads <= build.MAX_BLOCK_THREADS
+    assert cfg.team_threads == 32 or cfg.points <= 15   # bar.sync ids 1..15
+    for k in (n, n + 1, n + 2, 2 * n + 1, 2 * n + 2, 3 * n + 2):
+        cover = _tile_cover(n, k, cls)
+        assert len(cover) == n * k and set(cover) == {
+            (i, j) for i in range(n) for j in range(k)}, (n, k)
+    with pytest.raises(ValueError):
+        ldk.launch_config(ldk.max_n() + 1)
 
 
 def test_kernel_engines_refuse_layers_without_schedules():

@@ -192,11 +192,13 @@ def test_launch_config_fits_hopper_shared_memory(n):
 
 
 def test_tile_classes_match_the_cuda_header():
-    """build.TILE_CLASSES and MAX_BLOCK_THREADS are the Cfg<...> classes and
-    kMaxBlock of csrc/rt_device.cuh."""
+    """build.DEV_TILE_CLASSES (TILE_CLASSES and the split-form step's fifth
+    class) and MAX_BLOCK_THREADS are the Cfg<...> classes and kMaxBlock of
+    csrc/rt_device.cuh."""
     with open(os.path.join(build.CSRC, "rt_device.cuh")) as f:
         src = f.read()
     found = tuple(tuple(int(x) for x in m) for m in re.findall(
         r"using C\d+ = Cfg<(\d+), (\d+), (\d+), (\d+)>;", src))
-    assert found == build.TILE_CLASSES
+    assert found == build.DEV_TILE_CLASSES
+    assert build.DEV_TILE_CLASSES[:-1] == build.TILE_CLASSES
     assert f"constexpr int kMaxBlock = {build.MAX_BLOCK_THREADS};" in src

@@ -7,22 +7,58 @@
 // Replaces the TPU kernel vsmartmom/pallas/layer_step_kernel.py:
 // _layer_step_kernel_dev (reached from _fused_layer_step_dev_prim), whose
 // algebra is vsmartmom/core/rt.py:doubling_dev + interaction_dev with the
-// Y-form Newton-Schulz solve over the static schedules. Additions keep the
-// association the algebra writes (e.g. (e + y g) + yp).
+// Y-form Newton-Schulz solve over the static schedules. Every sum outside a
+// product rounds as the plain version's torch ops do, with the association
+// core/rt.py writes (e.g. (e + y g) + yp): __fmul_rn / __fadd_rn, never
+// contracted into an FMA.
 //
 // Bound: as the plain layer step (layer_step.cu), a chain of small dependent
-// N x N products per spectral point, O(N^3) fp32 FMAs against O(N^2) bytes:
-// arithmetic and shared-memory bandwidth. Design: the same block-cooperative
-// products on per-point shared-memory arenas (rt_device.cuh); the composite
-// is read from device memory where a product needs it and written once.
-// fp32 FMA on the CUDA cores (no TF32, no tensor cores).
+// N x N products per spectral point, O(N^3) fp32 FMAs against O(N^2) bytes
+// of device memory, so arithmetic and the shared-memory loads that feed it
+// bound it, not device memory. Design: the layer step's (layer_step.cu) on
+// the team helpers of rt_device.cuh. A team of whole warps per point owns
+// its arena in dynamic shared memory for the whole step and synchronises
+// only itself; products are register-tiled fp32 FMA (no TF32, no tensor
+// cores) with the elementwise passes fused into their stores, and the
+// outputs are stored to device memory straight from the last products. The
+// tile classes are those of rt_device.cuh for N <= 64 and the fifth class
+// C80 for N = 65 .. 75, which only this kernel instantiates.
 //
-// Per-point arena layout (floats; nn = n*n), 10 nn + 8 n + 1 in all:
-//   R [nn] | E [nn] | G [n] | JP [n] | JM [n] | EK [1] | scratch [8 nn + 5 n]
-// scratch: Y [nn] | then, by phase,
-//   NS solve:    RR [nn] | W [nn] | D [nn] | T [nn]
-//   doubling:    PA [n x (2n+2)] | PB [n x (2n+2)]
-//   interaction: Z [n x (3n+2)] | YZ [n x (3n+2)] | X2 [n x (n+1)]
+// Per doubling step (flipped space; E's slot holds [E | jp | j1m], so one
+// product covers r [E | jp | j1m]):
+//   B = R R, Y = B, PY[:, n:2n] = E          (one product, fused stores)
+//   Y = ns_y(B)                               (sch.it[step] iterations)
+//   R [E | jp | j1m]  -> PY = [rt | E | v1 | v2]
+//   Y PY, in place    -> PY = [mrt | d_mt | mv1 | mv2]
+//   E PY              -> R, E' (the other E slot), JM, JP, and E' 's jp,
+//                        j1m columns; then g <- g g, ek <- ek ek
+// Then the unflip R <- D R, JM <- D JM, E2J = [sgn E | j2m], and the
+// push-through interaction, products p1 .. p6 of core/rt.py:interaction_dev
+// with one Y-form solve of b1 = r2mp c_rpm:
+//   p1 = r2mp [c_epp | c_jp] -> ZA = [rc_tpp | e2mm | v1]
+//   p2 = c_rpm E2J           -> X2 = [crpm_t2mm | v2]
+//   p3 = r2mp X2             -> P3
+//   Y ZA, Y P3 (in place)    -> ZA = [y_a | d2 | y_v1], P3 = [y_b2 | y_bv]
+//   p4 = c_emm ZA            -> r_mp, e_mm, j_m (device memory)
+//   p5 = c_rpm [y_a], c_rpm P3 (in place) -> ZA[:, 0:n] = i1, P3 = [i2 | iv]
+//   p6 = e2 [i1], e2 [i2 | iv] -> e_pp; r_pm, j_p (device memory)
+//
+// Per-point arena (floats; ld >= n + 2 the row stride, a multiple of 4 and
+// 4 mod 8 where the arena fits; sq = n ld; every slot on 16 bytes):
+//   R [sq] | E0 [sq] | E1 [sq] | G | JP | JM | GC [round4(n) each] |
+//   scratch: s0 s1 | s2 s3 | s4 | s5 [sq each]
+// Doubling: PY = s0 s1 (row stride 2 ld), B = s2, D = s3, Y and W = s4, s5
+// (swapped by each NS iteration); E0 and E1 swap every step. Interaction:
+// the NS solve in the same slots; ZA = s2 s3 (row stride 2 ld), X2 = the Y
+// slot the solve leaves free, E2J = the free E slot. The composite's squares
+// are staged by cp.async into slots the doubling frees: c_rpm and
+// [c_epp | c_jp] into s0, s1 after the doubling (P3 = s1 once p1 has read
+// it), c_emm into the solve's Y slot once Y's products are done. Staging
+// them beside the doubling's state instead, while it runs, needs three
+// more squares: at N = 15 that arena holds 7 points a block against 10,
+// and ran slower. The block shares the D diagonal (round4(n) floats)
+// ahead of its arenas; the ragged last block is masked (a team past S
+// returns after the block's only barrier).
 
 #include <cuda_runtime.h>
 
@@ -30,17 +66,44 @@
 
 namespace {
 
+using vsm::each;
+using vsm::each_flat;
+using vsm::each_row;
+using vsm::kMaxBlock;
 using vsm::kMaxSched;
-using vsm::kThreads;
-using vsm::Schedule;
 using vsm::mm;
 using vsm::ns_y;
+using vsm::round4;
+using vsm::Schedule;
+using vsm::Team;
 
-__host__ __device__ inline int dev_arena_floats(int n) {
-  return 10 * n * n + 8 * n + 1;
+// f(C{}) for the split-form step's tile class of width n (1 <= n <= 80);
+// -1 beyond.
+template <class F>
+inline int with_dev_class(int n, F f) {
+  if (n > 64 && n <= 80) return f(vsm::C80{});
+  return vsm::with_class(n, f);
 }
 
-__global__ void __launch_bounds__(kThreads)
+struct DevArena {
+  int n, ld, sq;
+  int oR, oE0, oE1, oG, oJP, oJM, oGC;
+  int oS;                    // s0; slot k at oS + k sq
+  __host__ __device__ DevArena(int n_, int ld_)
+      : n(n_), ld(ld_), sq(n_ * ld_) {
+    const int n4 = round4(n);
+    oR = 0; oE0 = sq; oE1 = 2 * sq;
+    oG = 3 * sq; oJP = oG + n4; oJM = oJP + n4; oGC = oJM + n4;
+    oS = oGC + n4;
+  }
+  __host__ __device__ int slot(int k) const { return oS + k * sq; }
+  __host__ __device__ int floats() const { return slot(6); }
+};
+
+// (kMaxBlock, 1): with the block bound alone ptxas holds the C16
+// instantiation to 64 registers and spills it to a 56-byte stack
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock, 1)
 layer_step_dev_kernel(const float* __restrict__ c_rmp,
                       const float* __restrict__ c_rpm,
                       const float* __restrict__ c_epp,
@@ -58,295 +121,300 @@ layer_step_dev_kernel(const float* __restrict__ c_rmp,
                       float* __restrict__ o_rmp, float* __restrict__ o_rpm,
                       float* __restrict__ o_epp, float* __restrict__ o_emm,
                       float* __restrict__ o_g, float* __restrict__ o_jp,
-                      float* __restrict__ o_jm, int S, int n, int P,
+                      float* __restrict__ o_jm, int S, int n, int ld, int P,
                       Schedule sch) {
   extern __shared__ float smem[];
-  const int nn = n * n;
-  const int AR = dev_arena_floats(n);
-  float* dv = smem;          // D-matrix diagonal, shared by all points
-  float* ar = smem + n;      // P per-point arenas
-  const int p0 = blockIdx.x * P;
-  const int np = min(P, S - p0);
-
-  const int oR = 0, oE = nn, oG = 2 * nn, oJP = 2 * nn + n;
-  const int oJM = 2 * nn + 2 * n, oEK = 2 * nn + 3 * n, oS = oEK + 1;
-  const int oY = oS, oRR = oS + nn, oW = oS + 2 * nn, oD = oS + 3 * nn;
-  const int oT = oS + 4 * nn;
-  const int w1 = n + 2, w2 = 2 * n + 2, oPA = oS + nn, oPB = oPA + n * w2;
-  const int wz = 3 * n + 2, oZ = oS + nn, oYZ = oZ + n * wz;
-  const int wx2 = n + 1, oX2 = oYZ + n * wz, wo = 2 * n + 1;
-
-  // block-local views of the per-point device arrays
-  const size_t gm = (size_t)p0 * nn, gv = (size_t)p0 * n;
-  const float* g_rmp = c_rmp + gm;
-  const float* g_rpm = c_rpm + gm;
-  const float* g_epp = c_epp + gm;
-  const float* g_emm = c_emm + gm;
-  const float* g_g = c_g + gv;
-  const float* g_jp = c_jp + gv;
-  const float* g_jm = c_jm + gv;
-
-  // ---- load the elemental layer ------------------------------------------
+  float* dv = smem;  // D-matrix diagonal, shared by all points
   for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = d[i];
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn;
-    ar[p * AR + oR + e] = r_f[gm + idx];
-    ar[p * AR + oE + e] = e_el[gm + idx];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    ar[p * AR + oG + i] = g_el[gv + idx];
-    ar[p * AR + oJP + i] = jp[gv + idx];
-    ar[p * AR + oJM + i] = jm_f[gv + idx];
-  }
-  for (int p = threadIdx.x; p < np; p += blockDim.x)
-    ar[p * AR + oEK] = ek[p0 + p];
   __syncthreads();
+  const int team = threadIdx.x / C::TT;
+  const int p = blockIdx.x * P + team;
+  if (p >= S) return;
+  const Team<C> tm(threadIdx.x - team * C::TT, 1 + team);
+  const DevArena o(n, ld);
+  float* ar = smem + round4(n) + team * o.floats();
+  const size_t gm = (size_t)p * n * n, gv = (size_t)p * n;
+  const int w2 = 2 * ld;  // row stride of the two-square slots PY, ZA
+
+  float* R = ar + o.oR;
+  float* G = ar + o.oG;
+  float* JP = ar + o.oJP;
+  float* JM = ar + o.oJM;
+  float* GC = ar + o.oGC;
+  float* PY = ar + o.slot(0);
+  float* B = ar + o.slot(2);
+
+  // ---- load: the elemental layer, g and c_g -------------------------------
+  float ekp = ek[p];
+  {
+    float* E0 = ar + o.oE0;
+    each_flat(tm, n, n, [=](int i, int j) {
+      R[i * ld + j] = r_f[gm + i * n + j];
+      E0[i * ld + j] = e_el[gm + i * n + j];
+    });
+    each_row(tm, n, [=](int i) {
+      G[i] = g_el[gv + i];
+      JP[i] = jp[gv + i];
+      JM[i] = jm_f[gv + i];
+      GC[i] = c_g[gv + i];
+      E0[i * ld + n] = jp[gv + i];
+      E0[i * ld + n + 1] = __fmul_rn(jm_f[gv + i], ekp);
+    });
+  }
+  tm.sync();
 
   // ---- 1. split-form doubling (flipped space) -----------------------------
+  int oE = o.oE0, oEn = o.oE1, oY = o.slot(4), oW = o.slot(5);
+  const int oD = o.slot(3);
   for (int step = 0; step < sch.nd; ++step) {
-    // Y = (I - R R)^-1 - I, Y-form NS
-    mm(ar + oRR, n, AR, ar + oR, n, AR, ar + oR, n, AR, n, n, np, false);
-    __syncthreads();
-    ns_y(ar, AR, n, np, oRR, oY, oW, oD, oT, sch.it[step]);
-    // PA = [E | JP | JM ek] (row stride n+2); PB = R PA
-    for (int idx = threadIdx.x; idx < np * n * w1; idx += blockDim.x) {
-      const int p = idx / (n * w1), e = idx - p * n * w1;
-      const int i = e / w1, j = e - i * w1;
-      float* a = ar + p * AR;
-      a[oPA + i * w1 + j] = j < n ? a[oE + i * n + j]
-                          : (j == n ? a[oJP + i] : a[oJM + i] * a[oEK]);
+    const float* E = ar + oE;
+    float* En = ar + oEn;
+    {
+      float* Y = ar + oY;
+      mm(tm, n, n, R, ld, R, ld, [=](int i, int j, float s) {
+        B[i * ld + j] = s;
+        Y[i * ld + j] = s;
+        PY[i * w2 + n + j] = E[i * ld + j];
+      });
     }
-    __syncthreads();
-    mm(ar + oPB, w1, AR, ar + oR, n, AR, ar + oPA, w1, AR, n, w1, np,
-       false);
-    __syncthreads();
-    // PA = [rt | E | v1 | v2] (row stride 2n+2):
-    // rt = R G + R E, v1 = j1m + R jp, v2 = jp + R j1m
-    for (int idx = threadIdx.x; idx < np * n * w2; idx += blockDim.x) {
-      const int p = idx / (n * w2), e = idx - p * n * w2;
-      const int i = e / w2, j = e - i * w2;
-      float* a = ar + p * AR;
-      float v;
-      if (j < n) v = a[oR + i * n + j] * a[oG + j] + a[oPB + i * w1 + j];
-      else if (j < 2 * n) v = a[oE + i * n + (j - n)];
-      else if (j == 2 * n) v = a[oJM + i] * a[oEK] + a[oPB + i * w1 + n];
-      else v = a[oJP + i] + a[oPB + i * w1 + n + 1];
-      a[oPA + i * w2 + j] = v;
-    }
-    __syncthreads();
-    // PB = Y PA
-    mm(ar + oPB, w2, AR, ar + oY, n, AR, ar + oPA, w2, AR, n, w2, np,
-       false);
-    __syncthreads();
-    // PA = [mrt | d_mt | mv1 | mv2]: PA + PB, and d_mt = E + Y G + Y E
-    for (int idx = threadIdx.x; idx < np * n * w2; idx += blockDim.x) {
-      const int p = idx / (n * w2), e = idx - p * n * w2;
-      const int i = e / w2, j = e - i * w2;
-      float* a = ar + p * AR;
-      const float yp = a[oPB + i * w2 + j];
+    tm.sync();
+    oY = ns_y(tm, ar, n, ld, o.slot(2), oY, oW, oD, sch.it[step]);
+    oW = oY == o.slot(4) ? o.slot(5) : o.slot(4);
+    const float* Y = ar + oY;
+    // rp = R [E | jp | j1m]: rt = R g + R E, v1 = j1m + R jp, v2 = jp + R j1m
+    mm(tm, n, n + 2, R, ld, E, ld, [=](int i, int j, float s) {
+      if (j < n) {
+        PY[i * w2 + j] = __fadd_rn(__fmul_rn(R[i * ld + j], G[j]), s);
+      } else if (j == n) {
+        PY[i * w2 + 2 * n] = __fadd_rn(E[i * ld + n + 1], s);
+      } else {
+        PY[i * w2 + 2 * n + 1] = __fadd_rn(JP[i], s);
+      }
+    });
+    tm.sync();
+    // yp = Y [rt | E | v1 | v2]: mrt = rt + ., d_mt = (E + Y g) + ., mv1,
+    // mv2
+    mm<C, true>(tm, n, 2 * n + 2, Y, ld, PY, w2, [=](int i, int j, float s) {
+      float* q = PY + i * w2 + j;
       if (j >= n && j < 2 * n) {
         const int c = j - n;
-        a[oPA + i * w2 + j] =
-            a[oE + i * n + c] + a[oY + i * n + c] * a[oG + c] + yp;
+        *q = __fadd_rn(__fadd_rn(E[i * ld + c],
+                                 __fmul_rn(Y[i * ld + c], G[c])), s);
       } else {
-        a[oPA + i * w2 + j] = a[oPA + i * w2 + j] + yp;
+        *q = __fadd_rn(*q, s);
       }
-    }
-    __syncthreads();
-    // PB = E PA
-    mm(ar + oPB, w2, AR, ar + oE, n, AR, ar + oPA, w2, AR, n, w2, np,
-       false);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-      const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-      float* a = ar + p * AR;
-      const float gi = a[oG + i];
-      a[oR + e] = a[oR + e] + gi * a[oPA + i * w2 + j] + a[oPB + i * w2 + j];
-      a[oE + e] = gi * a[oPA + i * w2 + n + j] + a[oE + e] * a[oG + j]
-                + a[oPB + i * w2 + n + j];
-    }
-    for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-      const int p = idx / n, i = idx - p * n;
-      float* a = ar + p * AR;
-      const float gi = a[oG + i];
-      a[oJM + i] = a[oJM + i] + gi * a[oPA + i * w2 + 2 * n]
-                 + a[oPB + i * w2 + 2 * n];
-      a[oJP + i] = a[oJP + i] * a[oEK] + gi * a[oPA + i * w2 + 2 * n + 1]
-                 + a[oPB + i * w2 + 2 * n + 1];
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-      const int p = idx / n, i = idx - p * n;
-      ar[p * AR + oG + i] = ar[p * AR + oG + i] * ar[p * AR + oG + i];
-    }
-    for (int p = threadIdx.x; p < np; p += blockDim.x)
-      ar[p * AR + oEK] = ar[p * AR + oEK] * ar[p * AR + oEK];
-    __syncthreads();
+    });
+    tm.sync();
+    // ep = E [mrt | d_mt | mv1 | mv2]: r = (r + g mrt) + ., e' = (g d_mt +
+    // e g) + ., jm = (jm + g mv1) + ., jp = (jp ek + g mv2) + .
+    const float ek2 = __fmul_rn(ekp, ekp);
+    const float ekc = ekp;
+    mm(tm, n, 2 * n + 2, E, ld, PY, w2, [=](int i, int j, float s) {
+      const float gi = G[i];
+      const float* q = PY + i * w2;
+      if (j < n) {
+        R[i * ld + j] =
+            __fadd_rn(__fadd_rn(R[i * ld + j], __fmul_rn(gi, q[j])), s);
+      } else if (j < 2 * n) {
+        const int c = j - n;
+        En[i * ld + c] = __fadd_rn(__fadd_rn(__fmul_rn(gi, q[j]),
+                                             __fmul_rn(E[i * ld + c], G[c])),
+                                   s);
+      } else if (j == 2 * n) {
+        const float m = __fadd_rn(__fadd_rn(JM[i], __fmul_rn(gi, q[j])), s);
+        JM[i] = m;
+        En[i * ld + n + 1] = __fmul_rn(m, ek2);
+      } else {
+        const float v = __fadd_rn(
+            __fadd_rn(__fmul_rn(JP[i], ekc), __fmul_rn(gi, q[j])), s);
+        JP[i] = v;
+        En[i * ld + n] = v;
+      }
+    });
+    tm.sync();
+    // read next after the next step's first product and its barrier
+    each_row(tm, n, [=](int i) { G[i] = __fmul_rn(G[i], G[i]); });
+    const int x = oE;
+    oE = oEn;
+    oEn = x;
+    ekp = ek2;
   }
 
-  // ---- 2. un-flip: R <- D R (r2mp), JM <- D JM (j2m) ----------------------
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n;
-    ar[p * AR + oR + e] = dv[i] * ar[p * AR + oR + e];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    ar[p * AR + oJM + i] = dv[i] * ar[p * AR + oJM + i];
-  }
-  __syncthreads();
-  // added layer: r2mp = R, r2pm = sgn R, e2 = E, e2mm = sgn E, g2 = G,
-  // j2p = JP, j2m = JM (sgn_ij = d_i d_j)
+  // ---- 2. un-flip: R <- D R (r2mp), JM <- D JM (j2m), E2J = [sgn E | j2m]
+  const float* E = ar + oE;
+  float* E2J = ar + oEn;
+  each(tm, n, n, [=](int i, int j) {
+    R[i * ld + j] = __fmul_rn(dv[i], R[i * ld + j]);
+    E2J[i * ld + j] = __fmul_rn(__fmul_rn(dv[i], dv[j]), E[i * ld + j]);
+  });
+  each_row(tm, n, [=](int i) {
+    const float m = __fmul_rn(dv[i], JM[i]);
+    JM[i] = m;
+    E2J[i * ld + n] = m;
+  });
+  // c_rpm -> CRPM, [c_epp | c_jp] -> CEP, into the doubling's PY
+  float* CRPM = ar + o.slot(0);
+  float* CEP = ar + o.slot(1);
+  each_flat(tm, n, n, [=](int i, int j) {
+    vsm::cp_async4(CRPM + i * ld + j, c_rpm + gm + i * n + j);
+    vsm::cp_async4(CEP + i * ld + j, c_epp + gm + i * n + j);
+  });
+  each_row(tm, n,
+           [=](int i) { vsm::cp_async4(CEP + i * ld + n, c_jp + gv + i); });
+  vsm::cp_async_commit();
+  vsm::cp_async_wait_all();
+  tm.sync();
 
   // ---- 3. split-form interaction (push-through single solve) --------------
-  // Y = (I - r2mp c_rpm)^-1 - I
-  mm(ar + oRR, n, AR, ar + oR, n, AR, g_rpm, n, nn, n, n, np, false);
-  __syncthreads();
-  ns_y(ar, AR, n, np, oRR, oY, oW, oD, oT, sch.ni);
-  // Z = [rc_tpp | e2mm | v1 | p3]: p1 = r2mp [c_epp | c_jp] into Z[:, 0:n]
-  // and Z[:, 2n]; e2mm into Z[:, n:2n]
-  mm(ar + oZ, wz, AR, ar + oR, n, AR, g_epp, n, nn, n, n, np, false);
-  mm(ar + oZ + 2 * n, wz, AR, ar + oR, n, AR, g_jp, 1, n, n, 1, np, false);
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR;
-    a[oZ + i * wz + n + j] = (dv[i] * dv[j]) * a[oE + e];
+  // b1 = r2mp c_rpm, Y = b1; Y = ns_y(b1)
+  {
+    float* Y = ar + oY;
+    mm(tm, n, n, R, ld, CRPM, ld, [=](int i, int j, float s) {
+      B[i * ld + j] = s;
+      Y[i * ld + j] = s;
+    });
   }
-  __syncthreads();
-  // rc_tpp = r2mp gc + p1, v1 = p1 + j2m
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR;
-    a[oZ + i * wz + j] = a[oR + e] * g_g[p * n + j] + a[oZ + i * wz + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* a = ar + p * AR;
-    a[oZ + i * wz + 2 * n] = a[oZ + i * wz + 2 * n] + a[oJM + i];
-  }
-  // X2 = [crpm_t2mm | v2]: p2 = c_rpm [e2mm | j2m]
-  mm(ar + oX2, wx2, AR, g_rpm, n, nn, ar + oZ + n, wz, AR, n, n, np, false);
-  mm(ar + oX2 + n, wx2, AR, g_rpm, n, nn, ar + oJM, 1, AR, n, 1, np, false);
-  __syncthreads();
-  // crpm_t2mm = c_rpm g2 + p2, v2 = c_jp + p2
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    float* a = ar + p * AR;
-    a[oX2 + i * wx2 + j] = g_rpm[idx] * a[oG + j] + a[oX2 + i * wx2 + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    float* a = ar + p * AR;
-    a[oX2 + i * wx2 + n] = g_jp[idx] + a[oX2 + i * wx2 + n];
-  }
-  __syncthreads();
-  // p3 = r2mp X2 into Z[:, 2n+1:3n+2]
-  mm(ar + oZ + 2 * n + 1, wz, AR, ar + oR, n, AR, ar + oX2, wx2, AR, n, wx2,
-     np, false);
-  __syncthreads();
-  // YZ = Y Z; then YZ = [y_a | d2 | y_v1 | y_b2 | y_bv] = Z + YZ, with
-  // d2 = e2mm + Y g2 + YZ
-  mm(ar + oYZ, wz, AR, ar + oY, n, AR, ar + oZ, wz, AR, n, wz, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * n * wz; idx += blockDim.x) {
-    const int p = idx / (n * wz), e = idx - p * n * wz;
-    const int i = e / wz, j = e - i * wz;
-    float* a = ar + p * AR;
-    const float z = a[oZ + i * wz + j];
+  tm.sync();
+  oY = ns_y(tm, ar, n, ld, o.slot(2), oY, oW, oD, sch.ni);
+  float* Y = ar + oY;
+  float* X2 = ar + (oY == o.slot(4) ? o.slot(5) : o.slot(4));
+  float* ZA = B;  // s2 s3, row stride w2
+  float* P3 = CEP;  // once p1 has read it
+  // p1 = r2mp [c_epp | c_jp]: ZA = [rc_tpp | e2mm | v1], rc_tpp = r2mp gc +
+  // p1, v1 = p1 + j2m
+  mm(tm, n, n + 1, R, ld, CEP, ld, [=](int i, int j, float s) {
+    if (j < n) {
+      ZA[i * w2 + j] = __fadd_rn(__fmul_rn(R[i * ld + j], GC[j]), s);
+      ZA[i * w2 + n + j] = E2J[i * ld + j];
+    } else {
+      ZA[i * w2 + 2 * n] = __fadd_rn(s, JM[i]);
+    }
+  });
+  // p2 = c_rpm [e2mm | j2m]: X2 = [crpm_t2mm | v2], crpm_t2mm = c_rpm g2 +
+  // p2, v2 = c_jp + p2
+  mm(tm, n, n + 1, CRPM, ld, E2J, ld, [=](int i, int j, float s) {
+    if (j < n) {
+      X2[i * ld + j] = __fadd_rn(__fmul_rn(CRPM[i * ld + j], G[j]), s);
+    } else {
+      X2[i * ld + n] = __fadd_rn(c_jp[gv + i], s);
+    }
+  });
+  tm.sync();
+  // p3 = r2mp [crpm_t2mm | v2]
+  mm(tm, n, n + 1, R, ld, X2, ld,
+     [=](int i, int j, float s) { P3[i * ld + j] = s; });
+  tm.sync();
+  // Y ZA in place: [y_a | d2 | y_v1], d2 = (e2mm + Y g2) + .; Y P3 in
+  // place: [y_b2 | y_bv]
+  mm<C, true>(tm, n, 2 * n + 1, Y, ld, ZA, w2, [=](int i, int j, float s) {
+    float* z = ZA + i * w2 + j;
     if (j >= n && j < 2 * n) {
       const int c = j - n;
-      a[oYZ + i * wz + j] =
-          z + a[oY + i * n + c] * a[oG + c] + a[oYZ + i * wz + j];
+      *z = __fadd_rn(__fadd_rn(*z, __fmul_rn(Y[i * ld + c], G[c])), s);
     } else {
-      a[oYZ + i * wz + j] = z + a[oYZ + i * wz + j];
+      *z = __fadd_rn(*z, s);
     }
+  });
+  mm<C, true>(tm, n, n + 1, Y, ld, P3, ld, [=](int i, int j, float s) {
+    P3[i * ld + j] = __fadd_rn(P3[i * ld + j], s);
+  });
+  tm.sync();
+  // c_emm -> CEMM, into Y's slot, free now
+  float* CEMM = Y;
+  each_flat(tm, n, n, [=](int i, int j) {
+    vsm::cp_async4(CEMM + i * ld + j, c_emm + gm + i * n + j);
+  });
+  vsm::cp_async_commit();
+  vsm::cp_async_wait_all();
+  tm.sync();
+  // p4 = c_emm [y_a | d2 | y_v1]: r_mp = (c_rmp + gc y_a) + ., e_mm =
+  // (gc d2 + c_emm g2) + ., j_m = (c_jm + gc y_v1) + .
+  {
+    const float* CE = CEMM;
+    mm(tm, n, 2 * n + 1, CE, ld, ZA, w2, [=](int i, int j, float s) {
+      const float gci = GC[i];
+      const float z = ZA[i * w2 + j];
+      if (j < n) {
+        o_rmp[gm + i * n + j] = __fadd_rn(
+            __fadd_rn(c_rmp[gm + i * n + j], __fmul_rn(gci, z)), s);
+      } else if (j < 2 * n) {
+        const int c = j - n;
+        o_emm[gm + i * n + c] = __fadd_rn(
+            __fadd_rn(__fmul_rn(gci, z), __fmul_rn(CE[i * ld + c], G[c])),
+            s);
+      } else {
+        o_jm[gv + i] = __fadd_rn(__fadd_rn(c_jm[gv + i], __fmul_rn(gci, z)),
+                                 s);
+      }
+    });
   }
-  __syncthreads();
-  // p4 = c_emm [y_a | d2 | y_v1] into Z (row stride 2n+1); outputs
-  // r_mp, e_mm, j_m
-  mm(ar + oZ, wo, AR, g_emm, n, nn, ar + oYZ, wz, AR, n, wo, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    const float* a = ar + p * AR;
-    const float gci = g_g[p * n + i];
-    o_rmp[gm + idx] = g_rmp[idx] + gci * a[oYZ + i * wz + j]
-                    + a[oZ + i * wo + j];
-    o_emm[gm + idx] = gci * a[oYZ + i * wz + n + j] + g_emm[idx] * a[oG + j]
-                    + a[oZ + i * wo + n + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    const float* a = ar + p * AR;
-    o_jm[gv + idx] = g_jm[idx] + g_g[idx] * a[oYZ + i * wz + 2 * n]
-                   + a[oZ + i * wo + 2 * n];
-  }
-  __syncthreads();
-  // p5 = c_rpm [y_b1 | y_b2 | y_bv] (y_b1 = y_a) into Z; then
-  // Z = [i1 | i2 | iv] = [c_epp | crpm_t2mm | v2] + p5
-  mm(ar + oZ, wo, AR, g_rpm, n, nn, ar + oYZ, wz, AR, n, n, np, false);
-  mm(ar + oZ + n, wo, AR, g_rpm, n, nn, ar + oYZ + 2 * n + 1, wz, AR, n,
-     n + 1, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * n * wo; idx += blockDim.x) {
-    const int p = idx / (n * wo), e = idx - p * n * wo;
-    const int i = e / wo, j = e - i * wo;
-    float* a = ar + p * AR;
-    const float x = j < n ? g_epp[p * nn + i * n + j]
-                          : a[oX2 + i * wx2 + (j - n)];
-    a[oZ + i * wo + j] = x + a[oZ + i * wo + j];
-  }
-  __syncthreads();
-  // p6 = e2 [i1 | i2 | iv] into YZ (row stride 2n+1); outputs e_pp, r_pm,
-  // j_p, g
-  mm(ar + oYZ, wo, AR, ar + oE, n, AR, ar + oZ, wo, AR, n, wo, np, false);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn, i = e / n, j = e - i * n;
-    const float* a = ar + p * AR;
-    const float g2i = a[oG + i];
-    o_epp[gm + idx] = g2i * a[oZ + i * wo + j] + a[oE + e] * g_g[p * n + j]
-                    + a[oYZ + i * wo + j];
-    o_rpm[gm + idx] = (dv[i] * dv[j]) * a[oR + e]
-                    + g2i * a[oZ + i * wo + n + j] + a[oYZ + i * wo + n + j];
-  }
-  for (int idx = threadIdx.x; idx < np * n; idx += blockDim.x) {
-    const int p = idx / n, i = idx - p * n;
-    const float* a = ar + p * AR;
-    o_jp[gv + idx] = a[oJP + i] + a[oG + i] * a[oZ + i * wo + 2 * n]
-                   + a[oYZ + i * wo + 2 * n];
-    o_g[gv + idx] = g_g[idx] * a[oG + i];
-  }
+  tm.sync();
+  // p5 = c_rpm [y_a | y_b2 | y_bv] in place: i1 = c_epp + ., [i2 | iv] =
+  // [crpm_t2mm | v2] + .
+  mm<C, true>(tm, n, n, CRPM, ld, ZA, w2, [=](int i, int j, float s) {
+    ZA[i * w2 + j] = __fadd_rn(c_epp[gm + i * n + j], s);
+  });
+  mm<C, true>(tm, n, n + 1, CRPM, ld, P3, ld, [=](int i, int j, float s) {
+    P3[i * ld + j] = __fadd_rn(X2[i * ld + j], s);
+  });
+  tm.sync();
+  // p6 = e2 [i1 | i2 | iv]: e_pp = (g2 i1 + e2 gc) + ., r_pm = (sgn r2mp +
+  // g2 i2) + ., j_p = (j2p + g2 iv) + .; g = gc g2
+  mm(tm, n, n, E, ld, ZA, w2, [=](int i, int j, float s) {
+    o_epp[gm + i * n + j] = __fadd_rn(
+        __fadd_rn(__fmul_rn(G[i], ZA[i * w2 + j]),
+                  __fmul_rn(E[i * ld + j], GC[j])), s);
+  });
+  mm(tm, n, n + 1, E, ld, P3, ld, [=](int i, int j, float s) {
+    const float q = __fmul_rn(G[i], P3[i * ld + j]);
+    if (j < n) {
+      o_rpm[gm + i * n + j] = __fadd_rn(
+          __fadd_rn(__fmul_rn(__fmul_rn(dv[i], dv[j]), R[i * ld + j]), q),
+          s);
+    } else {
+      o_jp[gv + i] = __fadd_rn(__fadd_rn(JP[i], q), s);
+    }
+  });
+  each_row(tm, n, [=](int i) { o_g[gv + i] = __fmul_rn(GC[i], G[i]); });
 }
 
 }  // namespace
 
-// Launch one split-form layer step on `stream`. Returns the cudaError_t of
-// the launch (0 on success); the caller raises on anything else.
+// Launch one split-form layer step on `stream`: ld is the arena's row stride
+// (>= n + 2, a multiple of 4), pts_per_block the teams of a block. Returns
+// the cudaError_t of the launch (0 on success); the caller raises on
+// anything else.
 extern "C" int vsm_layer_step_dev(
     const float* c_rmp, const float* c_rpm, const float* c_epp,
     const float* c_emm, const float* c_g, const float* c_jp,
     const float* c_jm, const float* r_f, const float* g_el,
     const float* e_el, const float* jp, const float* jm_f, const float* ek,
     const float* d, float* o_rmp, float* o_rpm, float* o_epp, float* o_emm,
-    float* o_g, float* o_jp, float* o_jm, int S, int n, const int* sched,
-    int nd, int ni, int pts_per_block, int smem_bytes, void* stream) {
+    float* o_g, float* o_jp, float* o_jm, int S, int n, int ld,
+    const int* sched, int nd, int ni, int pts_per_block, int smem_bytes,
+    void* stream) {
   if (S <= 0) return 0;
   if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || pts_per_block < 1)
     return (int)cudaErrorInvalidValue;
+  const int tt = with_dev_class(n, [](auto c) { return decltype(c)::TT; });
+  if (tt < 0 || ld < n + 2 || ld % 4 != 0
+      || pts_per_block * tt > kMaxBlock)
+    return (int)cudaErrorInvalidValue;
   const size_t need =
-      (size_t)(n + pts_per_block * dev_arena_floats(n)) * sizeof(float);
+      (round4(n) + (size_t)pts_per_block * DevArena(n, ld).floats())
+      * sizeof(float);
   if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
   const Schedule s = vsm::make_schedule(sched, nd, ni);
-  cudaError_t e = cudaFuncSetAttribute(
-      layer_step_dev_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (e != cudaSuccess) return (int)e;
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  layer_step_dev_kernel<<<blocks, kThreads, smem_bytes,
-                          (cudaStream_t)stream>>>(
-      c_rmp, c_rpm, c_epp, c_emm, c_g, c_jp, c_jm, r_f, g_el, e_el, jp, jm_f,
-      ek, d, o_rmp, o_rpm, o_epp, o_emm, o_g, o_jp, o_jm, S, n,
-      pts_per_block, s);
-  return (int)cudaGetLastError();
+  return with_dev_class(n, [&](auto c) {
+    auto* kern = layer_step_dev_kernel<decltype(c)>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<blocks, pts_per_block * tt, smem_bytes, (cudaStream_t)stream>>>(
+        c_rmp, c_rpm, c_epp, c_emm, c_g, c_jp, c_jm, r_f, g_el, e_el, jp,
+        jm_f, ek, d, o_rmp, o_rpm, o_epp, o_emm, o_g, o_jp, o_jm, S, n, ld,
+        pts_per_block, s);
+    return (int)cudaGetLastError();
+  });
 }

@@ -1,101 +1,12 @@
-// Device helpers shared by the RT layer kernels.
+// Device helpers shared by the RT layer kernels (layer_step.cu,
+// layer_step_dev.cu, layer_scan.cu, lanes.cu): a team of whole warps per
+// spectral point, register-tiled products with fused stores, the
+// Newton-Schulz solves (plain and Y-form) and the plain-form doubling phase.
 //
-// Block-wide helpers (layer_step_dev.cu): batched products, the Y-form
-// Newton-Schulz solve. Every one is called by all threads of a block, which
-// owns `np` spectral points; point p's arena starts at ar + p * AR, and the
-// helpers address their operands by float offsets into it. The caller
-// places the __syncthreads() between dependent phases, except inside ns_y,
-// which synchronises its own steps and returns synchronised.
-//
-// Team helpers (layer_step.cu, layer_scan.cu), below: a team of whole warps
-// per spectral point, register-tiled products with fused stores, the
-// Newton-Schulz solve and the doubling phase.
-#pragma once
-
-#include <cuda_runtime.h>
-
-namespace vsm {
-
-constexpr int kThreads = 256;
-constexpr int kMaxSched = 64;
-
-struct Schedule {
-  int nd;                 // doubling steps
-  int ni;                 // NS iterations of the interaction solve
-  int it[kMaxSched];      // NS iterations of each doubling step
-};
-
-// C[p] (n x k, row stride ldc) = D[p] + A[p] (n x n, lda) @ B[p] (n x k,
-// ldb) for the block's np points; sc/sd/sa/sb step between points. D may be
-// nullptr (no addend) or alias C (accumulate). Pointers are generic: shared
-// arenas or device memory. fp32 FMA, one output element per thread.
-__device__ inline void mm_add(float* C, int ldc, int sc, const float* D,
-                              int ldd, int sd, const float* A, int lda,
-                              int sa, const float* B, int ldb, int sb, int n,
-                              int k, int np) {
-  const int per = n * k;
-  for (int idx = threadIdx.x; idx < np * per; idx += blockDim.x) {
-    const int p = idx / per;
-    const int r = idx - p * per;
-    const int i = r / k;
-    const int j = r - i * k;
-    const float* a = A + p * sa + i * lda;
-    const float* b = B + p * sb + j;
-    float s = 0.f;
-    for (int l = 0; l < n; ++l) s = fmaf(a[l], b[l * ldb], s);
-    float* c = C + p * sc + i * ldc + j;
-    *c = D ? D[p * sd + i * ldd + j] + s : s;
-  }
-}
-
-// C = A @ B, or C += A @ B with acc
-__device__ inline void mm(float* C, int ldc, int sc, const float* A, int lda,
-                          int sa, const float* B, int ldb, int sb, int n,
-                          int k, int np, bool acc) {
-  mm_add(C, ldc, sc, acc ? C : nullptr, ldc, sc, A, lda, sa, B, ldb, sb, n,
-         k, np);
-}
-
-// Y-form Newton-Schulz of the split form: Y ~= (I - B)^{-1} - I for B at
-// offB: Y = B, then W = B + B Y, Y <- W + Y (W - Y) `iters` times. The
-// result lands at offY; offW, offD, offT are scratch (nn floats each).
-__device__ inline void ns_y(float* ar, int AR, int n, int np, int offB,
-                            int offY, int offW, int offD, int offT,
-                            int iters) {
-  const int nn = n * n;
-  for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-    const int p = idx / nn, e = idx - p * nn;
-    ar[p * AR + offY + e] = ar[p * AR + offB + e];
-  }
-  __syncthreads();
-  for (int q = 0; q < iters; ++q) {
-    // W = B + B Y
-    mm_add(ar + offW, n, AR, ar + offB, n, AR, ar + offB, n, AR, ar + offY,
-           n, AR, n, n, np);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-      const int p = idx / nn, e = idx - p * nn;
-      float* a = ar + p * AR;
-      a[offD + e] = a[offW + e] - a[offY + e];
-    }
-    __syncthreads();
-    // T = W + Y (W - Y); Y = T
-    mm_add(ar + offT, n, AR, ar + offW, n, AR, ar + offY, n, AR, ar + offD,
-           n, AR, n, n, np);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < np * nn; idx += blockDim.x) {
-      const int p = idx / nn, e = idx - p * nn;
-      ar[p * AR + offY + e] = ar[p * AR + offT + e];
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Team helpers (layer_step.cu, layer_scan.cu). A team of C::TT threads, whole
-// warps, owns one spectral point and its arena for the whole launch and
-// synchronises only itself (__syncwarp, or a named barrier when it spans
-// warps); no helper waits for the other points of the block.
+// A team of C::TT threads, whole warps, owns one spectral point and its
+// arena for the whole launch and synchronises only itself (__syncwarp, or a
+// named barrier when it spans warps); no helper waits for the other points
+// of the block.
 //
 // Products are register-tiled on a padded width class NP >= n: thread
 // (rg, cg) of the team owns rows rg + r RG (r < TM) and the TN = 4
@@ -104,9 +15,22 @@ __device__ inline void ns_y(float* ar, int AR, int n, int np, int offB,
 // 16 TM FMAs (every operand 16-byte aligned, strides multiples of 4). Rows or
 // columns past the operand's edge load a clamped, valid element and are
 // never stored, so no padded value reaches an output. Every output is one
-// fmaf chain over l = 0 .. n-1 from 0, as mm_add's, so the team helpers round
-// exactly as the block-wide ones. The tile coordinates are computed once per
-// team; no inner loop divides.
+// fmaf chain over l = 0 .. n-1 from 0, in the order of torch's batched
+// matmul at these sizes. The tile coordinates are computed once per team;
+// no inner loop divides.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace vsm {
+
+constexpr int kMaxSched = 64;
+
+struct Schedule {
+  int nd;                 // doubling steps
+  int ni;                 // NS iterations of the interaction solve
+  int it[kMaxSched];      // NS iterations of each doubling step
+};
 
 // Tile classes: padded width NP, team threads TT, tile rows TM x columns TN.
 template <int NP_, int TT_, int TM_, int TN_>
@@ -121,6 +45,9 @@ using C16 = Cfg<16, 32, 2, 4>;
 using C32 = Cfg<32, 64, 4, 4>;
 using C48 = Cfg<48, 192, 3, 4>;
 using C64 = Cfg<64, 256, 4, 4>;
+// the split-form step's fifth class, N = 65 .. 80 (layer_step_dev.cu alone
+// instantiates it; with_class below stops at 64)
+using C80 = Cfg<80, 320, 4, 4>;
 
 // Threads per block at most (the team kernels' launch bound; <= 128
 // registers a thread).
@@ -325,6 +252,40 @@ ns(const Team<C>& tm, float* ar, int n, int ld, int oA, int oM0, int oM1,
     oth = x;
   }
   return cur;
+}
+
+// Y-form Newton-Schulz of the split form: Y ~= (I - B)^{-1} - I for B at oB
+// (n x n, stride ld), from the seed Y = B at oY (both written by the caller,
+// then synchronised). Per iteration two products with fused stores:
+//   W = B + B Y, and D = W - Y in the same store;
+//   W <- W + Y D, which is the new Y (W's slot and Y's swap).
+// Sums round as torch's (core/rt.py:ns_y). oW and oD are scratch. Returns
+// the offset of the result, synchronised; the other of oY, oW is free.
+template <class C>
+__device__ __forceinline__ int
+ns_y(const Team<C>& tm, float* ar, int n, int ld, int oB, int oY, int oW,
+     int oD, int iters) {
+  const float* B = ar + oB;
+  float* D = ar + oD;
+  for (int q = 0; q < iters; ++q) {
+    const float* Y = ar + oY;
+    float* W = ar + oW;
+    mm(tm, n, n, B, ld, Y, ld, [=](int i, int j, float s) {
+      const int e = i * ld + j;
+      const float w = __fadd_rn(B[e], s);
+      W[e] = w;
+      D[e] = __fsub_rn(w, Y[e]);
+    });
+    tm.sync();
+    mm(tm, n, n, Y, ld, D, ld, [=](int i, int j, float s) {
+      W[i * ld + j] = __fadd_rn(W[i * ld + j], s);
+    });
+    tm.sync();
+    const int x = oY;
+    oY = oW;
+    oW = x;
+  }
+  return oY;
 }
 
 // 4-byte asynchronous copy from device to shared memory (cp.async), and the

@@ -36,9 +36,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: shared memory a block may use on Hopper (227 KB)
 MAX_SHARED_BYTES = 232448
-#: target shared memory per block when several points fit
-_TARGET_BLOCK_BYTES = 48 * 1024
-_MAX_POINTS_PER_BLOCK = 16
 #: longest doubling schedule the kernels' launch parameters hold (kMaxSched
 #: in csrc/rt_device.cuh)
 MAX_SCHEDULE = 64
@@ -50,10 +47,10 @@ _SIGNATURES = {
     # schedule (host int*), nd, ni, points per block, shared bytes, stream
     "vsm_layer_step": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
                                    _I, _I, _P],
-    # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, schedule,
-    # nd, ni, points per block, shared bytes, stream
-    "vsm_layer_step_dev": [_P] * 21 + [_I, _I, ctypes.POINTER(_I), _I, _I,
-                                       _I, _I, _P],
+    # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, row
+    # stride, schedule, nd, ni, points per block, shared bytes, stream
+    "vsm_layer_step_dev": [_P] * 21 + [_I, _I, _I, ctypes.POINTER(_I), _I,
+                                       _I, _I, _I, _P],
     # r, t, jp, jm, ek inputs, 4 outputs; S, n, row stride, schedule, nd,
     # points per block, shared bytes, stream
     "vsm_doubling": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
@@ -156,21 +153,14 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def launch_config(arena_floats: int, shared_floats: int = 0):
-    """(points per block, dynamic shared-memory bytes) for a kernel whose
-    points each use ``arena_floats`` floats of shared memory, beside
-    ``shared_floats`` the block shares. P is chosen so a block uses at most
-    ~48 KB when several points fit, and at least one point."""
-    per_point = 4 * arena_floats
-    pts = max(1, min(_MAX_POINTS_PER_BLOCK, _TARGET_BLOCK_BYTES // per_point))
-    return pts, 4 * (shared_floats + pts * arena_floats)
-
-
 #: tile classes of the team kernels (``Cfg<NP, TT, TM, TN>`` in
 #: csrc/rt_device.cuh): padded width NP, team threads TT, tile rows TM and
 #: columns TN
 TILE_CLASSES = ((16, 32, 2, 4), (32, 64, 4, 4), (48, 192, 3, 4),
                 (64, 256, 4, 4))
+#: the split-form step's tile classes: the four above and ``C80`` of
+#: csrc/rt_device.cuh for N = 65 .. 80, which only that kernel instantiates
+DEV_TILE_CLASSES = TILE_CLASSES + ((80, 320, 4, 4),)
 #: threads a team kernel's block may have (kMaxBlock in csrc/rt_device.cuh)
 MAX_BLOCK_THREADS = 512
 
@@ -184,13 +174,13 @@ class TeamLaunch(NamedTuple):
     team_threads: int
 
 
-def tile_class(n: int):
-    """(NP, TT, TM, TN) of the team kernels' tile class for width n."""
-    for cls in TILE_CLASSES:
+def tile_class(n: int, classes=TILE_CLASSES):
+    """(NP, TT, TM, TN) of the tile class for width n among ``classes``."""
+    for cls in classes:
         if n <= cls[0]:
             return cls
     raise ValueError(f"N = {n}: the team kernels take N <= "
-                     f"{TILE_CLASSES[-1][0]}")
+                     f"{classes[-1][0]}")
 
 
 def round4(n: int) -> int:
@@ -198,18 +188,21 @@ def round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def team_launch_config(n: int, arena_floats, shared_floats: int = 0):
+def team_launch_config(n: int, arena_floats, shared_floats: int = 0,
+                       min_ld: int | None = None, classes=TILE_CLASSES):
     """The launch of a team kernel at width n whose points each use
     ``arena_floats(n, ld)`` floats of shared memory, beside
-    ``shared_floats`` the block shares. The row stride ld is the least
-    ld >= n with ld = 4 mod 8 (float4 rows on distinct banks) unless that
-    arena no longer fits a block, then round4(n). A block takes as many
-    teams as half an SM's shared memory holds (two blocks an SM), at least
-    one and at most MAX_BLOCK_THREADS threads."""
-    tt = tile_class(n)[1]
-    ld = n + (4 - n) % 8
+    ``shared_floats`` the block shares, on the tile class of n among
+    ``classes``. The row stride ld is the least ld >= min_ld (default n)
+    with ld = 4 mod 8 (float4 rows on distinct banks) unless that arena no
+    longer fits a block, then round4(min_ld). A block takes as many teams as
+    half an SM's shared memory holds (two blocks an SM), at least one and at
+    most MAX_BLOCK_THREADS threads."""
+    tt = tile_class(n, classes)[1]
+    min_ld = n if min_ld is None else min_ld
+    ld = min_ld + (4 - min_ld) % 8
     if 4 * (shared_floats + arena_floats(n, ld)) > MAX_SHARED_BYTES:
-        ld = round4(n)
+        ld = round4(min_ld)
     per_point = 4 * arena_floats(n, ld)
     pts = max(1, min(MAX_BLOCK_THREADS // tt,
                      (MAX_SHARED_BYTES // 2 - 4 * shared_floats)

@@ -14,13 +14,21 @@ What bounds it on Hopper: as the plain layer step
 (cuda/layer_step_kernel.py), a chain of small dependent N x N products per
 spectral point, fp32 FMA on the CUDA cores fed from shared memory; device
 memory traffic (7 composite + 5 elemental fields in, 7 out) is small
-against the O(N^3) work. Design: one block of 256 threads handles P points,
-each with a shared-memory arena of 10 N^2 + 8 N + 1 floats (state, the Y
-iterate, NS scratch, and the packed operands of width up to 3N + 2), for
-the whole step. At N = 15 a block holds 5 points (47 KB); at N = 44 one
-point (79 KB); the largest N is 75 (227 KB). Matrix products are full fp32
-(the counterpart of the JAX kernel's "highest" mode). The ragged last
-block is masked in the kernel, so no vacuum padding is needed.
+against the O(N^3) work. Design (csrc/layer_step_dev.cu on the team helpers
+of csrc/rt_device.cuh, the layer step's design): a team of whole warps per
+point owns the point's arena (state, the Y-form NS iterates, packed
+operands, the composite's c_rpm, [c_epp | c_jp] and c_emm) for the whole
+step and synchronises only itself; products are register-tiled with the
+elementwise passes fused into their stores, and the new composite is stored
+straight from the last products. The tile classes are the layer step's four
+for N <= 64 and a fifth, NP = 80, for N = 65 .. 75. Every arena slot is a
+square of row stride ld >= N + 2 (E's slot carries jp and j1m as two more
+columns); the composite's squares are staged into slots the doubling
+frees. A block holds as many teams as half an SM's shared memory takes
+(N = 15: 10 points of 11 KB; N = 44: one point of 81 KB; N = 75: one of
+223 KB). Matrix products are full fp32 (the counterpart of the JAX
+kernel's "highest" mode); every sum outside a product rounds as the plain
+version's torch ops. The ragged last block is masked in the kernel.
 
 The plain version (``fused_layer_step_dev_plain``) is the JAX package's
 ``_xla_twin_step_dev`` on the port's torch functions. The wrapper takes it
@@ -38,26 +46,32 @@ from vsmartmom_torch.cuda import build
 launches = 0
 
 
-def arena_floats(n: int) -> int:
-    """Shared-memory floats one spectral point uses (must match
-    ``dev_arena_floats`` in csrc/layer_step_dev.cu): r, e (2 n^2), g, jp,
-    jm (3n), ek (1), Y (n^2) and the interaction's packed operands
-    (7 n^2 + 5n), which also hold the NS and doubling scratch."""
-    return 10 * n * n + 8 * n + 1
+def arena_floats(n: int, ld: int) -> int:
+    """Shared-memory floats one spectral point uses at row stride ld (must
+    match ``DevArena`` in csrc/layer_step_dev.cu): R and two E slots, g, jp,
+    jm and c_g (round4(n) each), then six scratch squares, which also take
+    the composite's c_rpm, [c_epp | c_jp] and c_emm once the doubling is
+    done."""
+    return 9 * n * ld + 4 * build.round4(n)
 
 
-def launch_config(n: int):
-    """(points per block, dynamic shared-memory bytes) at stream count n
-    (the block shares the D diagonal, n floats)."""
-    return build.launch_config(arena_floats(n), n)
+def launch_config(n: int) -> build.TeamLaunch:
+    """Teams per block, dynamic shared-memory bytes, row stride (>= n + 2)
+    and team threads at stream count n (the block shares the D diagonal,
+    round4(n) floats)."""
+    if not 1 <= n <= max_n():
+        raise ValueError(f"N = {n}: the split-form kernel takes "
+                         f"1 <= N <= {max_n()}")
+    return build.team_launch_config(n, arena_floats, build.round4(n),
+                                    min_ld=n + 2,
+                                    classes=build.DEV_TILE_CLASSES)
 
 
 def max_n() -> int:
-    """Largest stream count N whose one-point block fits Hopper's 227 KB."""
-    n = 1
-    while 4 * (n + 1 + arena_floats(n + 1)) <= build.MAX_SHARED_BYTES:
-        n += 1
-    return n
+    """Largest stream count N the kernel takes. The fifth tile class
+    (NP = 80) and the arena would reach N = 78; chip_smoke.py checks the
+    kernel up to 75."""
+    return 75
 
 
 def step_flops(n: int, ns_schedule, ni: int) -> int:
@@ -122,18 +136,14 @@ def fused_layer_step_dev(comp: LayerRTDev, r_f, g_el, e_el, jp, jm_f, ek,
             or ek.shape != (s,) or d_vec.shape != (n,):
         raise ValueError("fused_layer_step_dev: inconsistent shapes")
     sched = build.schedule_array(ns_schedule)
-    pts, smem = launch_config(n)
-    if smem > build.MAX_SHARED_BYTES:
-        raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
-                         f"block, more than {build.MAX_SHARED_BYTES}: the "
-                         f"split-form kernel takes N <= {max_n()}")
+    pts, smem, ld, _ = launch_config(n)
     outs = [torch.empty_like(comp.r_mp) for _ in range(4)] \
         + [torch.empty_like(comp.j_p) for _ in range(3)]
     if s == 0:
         return LayerRTDev(*outs)
     err = build.lib().vsm_layer_step_dev(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, sched, len(ns_schedule), int(ni), pts, smem,
+        s, n, ld, sched, len(ns_schedule), int(ni), pts, smem,
         torch.cuda.current_stream(r_f.device).cuda_stream)
     build.check(err, "layer_step_dev launch")
     global launches
