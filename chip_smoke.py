@@ -8,7 +8,8 @@ Run from the repository root:  python3 chip_smoke.py
    and prints each kernel's registers, stack, shared and local memory
    (cuobjdump on the built library); fails on local memory (spills) or a
    stack above 32 bytes in the team kernels (layer step, split-form step,
-   doubling, layer scan, lanes step).
+   doubling, layer scan, lanes step), and on local memory in the Voigt
+   kernel and its reduction.
 1b. Runs those five team kernels against their plain versions at every
    width class of csrc/rt_device.cuh and its edges (N = 1, 13, 15, 16, 17,
    24, 32, 33, 44, 48, 49, 63, and 64 for the scan and the split-form step)
@@ -20,14 +21,22 @@ Run from the repository root:  python3 chip_smoke.py
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
    launch counts reset just before, and checks that the model build launched
-   the Voigt kernel once per layer (34) and rt_run the layer-step kernel once
-   per layer and moment (102).
+   the Voigt kernel once per molecule with lines in the band (O2: one launch
+   for all 34 layers; the band is a declared line-free window of CO2) and
+   rt_run the layer-step kernel once per layer and moment (102).
 3. Re-runs both kernels' call sites with every launch compared against the
    kernel's plain torch version on the same inputs (layer step: max|diff| /
    max < 1e-5 per field; Voigt: max|diff| <= 2e-5 max sigma, and <= 1e-3 max
-   sigma against the dense f64 engine), plus the layer step at N = 44
-   (Stokes IQUV) on a synthetic slab, and times kernel and plain version
-   with CUDA events.
+   sigma against the dense f64 engine at the bottom layer), plus the layer
+   step at N = 44 (Stokes IQUV) on a synthetic slab, and times kernel and
+   plain version with CUDA events.
+3c. The Voigt kernel at the HAPI gate's CO2 shape (data/hitran/CO2.npz,
+   6 000-6 400 cm^-1 at 0.01 cm^-1: 40 001 points, 9 915 lines, 40 cm^-1
+   cutoff, the flagship profile's 34 (p, T)), one launch through
+   compute_absorption_profile, held against the plain version at all 34
+   layers (max|diff| <= 2e-5 max sigma) and timed with CUDA events, with
+   its bound per launch and per layer; both Voigt phases print the
+   blocking plan of their shape.
 4. Checks R and T: finite, physical, and within 1e-3 (max|dR| / max R) of the
    float64 torch engine at the same Newton-Schulz schedules on the card.
 5. (a) The flagship again through rt_run(engine="kernel_dev"): 102 launches
@@ -69,6 +78,11 @@ The last two lines of standard output are one JSON object with the kernels'
 launch counts, errors, times and bounds, then the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
+
+voigt_times() times the Voigt kernel alone at the flagship and the HAPI-grid
+CO2 shapes through entry points that every design of that kernel has kept,
+so a copy of this script beside an older tree of the repository times that
+tree's design: python3 -c 'import chip_smoke; chip_smoke.voigt_times()'.
 """
 import json
 import os
@@ -168,12 +182,119 @@ def rel_err(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+#: the HAPI gate's grid (tests/test_hapi_gate.py): 40 001 points
+HAPI_GRID = 6000.0 + 0.01 * np.arange(40001)
+
+
+def voigt_shapes(params):
+    """(name, molecule, grid, vmr) of the Voigt kernel's two shapes: O2 over
+    the flagship band, CO2 over the HAPI gate's grid."""
+    return [("flagship", "O2", np.asarray(params.spec_bands[0], np.float64),
+             0.21), ("co2_hapi", "CO2", HAPI_GRID, 4e-4)]
+
+
+def voigt_compared(torch, vk, absorption_profile, mol, grid, vmr, ap,
+                   profile, dev):
+    """absorption_profile (kernel engine) of one molecule over grid with
+    every call of the Voigt entry point held against its plain version, its
+    work counted and both timed: (KernelStats, tau)."""
+    stats = KernelStats()
+    real = vk.voigt_tiles
+    vk.voigt_tiles = compare_hook(torch, stats, real, vk.voigt_tiles_plain,
+                                  vk.voigt_work, reps=(10, 2))
+    try:
+        tau = absorption_profile(np.zeros((len(grid), profile.n_layers)),
+                                 mol, ap, grid, vmr, profile,
+                                 engine="kernel", device=dev)
+    finally:
+        vk.voigt_tiles = real
+    check(np.isfinite(tau).all() and tau.max() > 0,
+          f"{mol}: tau not finite and positive")
+    return stats, tau
+
+
+def voigt_geometry(vk, grid, nu, cutoff, n_layers):
+    """The blocking plan of a Voigt shape, built on the CPU: point blocks,
+    line items, lines swept per grid point against lines within the cutoff
+    of it (means over the grid) and the workspace of n_layers layers."""
+    plan = vk.VoigtPlan(grid, nu, cutoff, device="cpu")
+    n_real = np.minimum(vk.BLOCK,
+                        len(grid) - vk.BLOCK * np.arange(plan.n_blocks))
+    swept = np.sum((plan.last - plan.first) * n_real) / len(grid)
+    nu = np.sort(nu)
+    window = (np.searchsorted(nu, grid + cutoff, side="right")
+              - np.searchsorted(nu, grid - cutoff, side="left"))
+    mb = n_layers * plan.n_items * vk.BLOCK * 4e-6
+    return (f"plan: {plan.n_blocks} point blocks, {plan.n_items} items, "
+            f"{swept:.2f} lines swept per point against {window.mean():.2f} "
+            f"in window, workspace {mb:.1f} MB")
+
+
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi unavailable"
+
+
+#: the directory of this script: the root of a checkout of the repository
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def setup():
+    """torch, once a CUDA device and the package beside this script are
+    there; fails otherwise."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is False)")
+    if not os.path.isdir(os.path.join(HERE, "vsmartmom_torch")):
+        fail(f"vsmartmom_torch not found beside {__file__}: run from a "
+             f"checkout of the repository")
+    sys.path.insert(0, HERE)
+    return torch
+
+
+def voigt_times():
+    """The Voigt kernel of the package beside this script at both shapes of
+    voigt_shapes, over the flagship profile's 34 layers, every call held
+    against the plain version: one JSON line per shape."""
+    torch = setup()
+    import vsmartmom_torch as vt
+    from vsmartmom_torch.core.atmosphere import compute_atmos_profile_fields
+    from vsmartmom_torch.cuda import voigt_kernel as vk
+    from vsmartmom_torch.spectroscopy.profiles import \
+        compute_absorption_profile
+    params = vt.default_parameters()
+    ap = params.absorption_params
+    profile = compute_atmos_profile_fields(params.T, params.p, params.q,
+                                           ap.vmr)
+    card = card_name()
+    for name, mol, grid, vmr in voigt_shapes(params):
+        stats, _ = voigt_compared(torch, vk, compute_absorption_profile, mol,
+                                  grid, vmr, ap, profile,
+                                  torch.device("cuda:0"))
+        check(stats.rel <= 2e-5, f"{name}: Voigt kernel vs plain "
+              f"{stats.rel:.3e} of max sigma > 2e-5")
+        print(json.dumps({
+            "shape": name, "layers": profile.n_layers,
+            "launches": stats.calls, "ms_per_launch": stats.mean_ms()[0],
+            "ms_per_layer": float(np.sum(stats.ms)) / profile.n_layers,
+            "plain_ms_per_layer": float(np.sum(stats.plain_ms))
+            / profile.n_layers, "max_rel_err": stats.rel, "card": card}),
+            flush=True)
+
+
 #: the team kernels (mangled names hold these): no local memory allowed, and
 #: no stack above MAX_TEAM_STACK bytes (the N <= 16 layer step's once grew
 #: to 56 bytes and ran 30 % slower)
 TEAM_KERNELS = ("layer_step_kernel", "layer_step_dev_kernel",
                 "doubling_kernel", "layer_scan_kernel", "lanes_team_kernel")
 MAX_TEAM_STACK = 32
+#: the Voigt kernel and its reduction: no local memory allowed either
+VOIGT_KERNELS = ("voigt_kernel", "voigt_reduce_kernel")
 #: widths of the phase below: every tile class of csrc/rt_device.cuh and its
 #: edges (the layer step, doubling and lanes team kernel take N <= 63, the
 #: scan N <= 64), one width of the lanes step's wide path, and the widths of
@@ -301,14 +422,7 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
 
 
 def main():
-    import torch
-    if not torch.cuda.is_available():
-        fail("no CUDA device (torch.cuda.is_available() is False)")
-    here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "vsmartmom_torch")):
-        fail(f"vsmartmom_torch not found beside {__file__}: run from a "
-             f"checkout of the repository")
-    sys.path.insert(0, here)
+    torch = setup()
 
     import vsmartmom_torch as vt
     from vsmartmom_torch.core.api import build_band_inputs
@@ -326,8 +440,9 @@ def main():
     from vsmartmom_torch.scattering.phase import (Polarization,
                                                   get_greek_rayleigh)
     from vsmartmom_torch.util.quadrature import rt_set_streams
-    from vsmartmom_torch.spectroscopy.profiles import \
-        compute_absorption_profile
+    from vsmartmom_torch.spectroscopy.hitran import HitranEmptyError
+    from vsmartmom_torch.spectroscopy.profiles import (
+        compute_absorption_profile, hitran_artifact, read_linelist)
     from vsmartmom_torch.spectroscopy.voigt import (
         compute_absorption_cross_section, make_hitran_model)
 
@@ -348,12 +463,7 @@ def main():
         _, _, ls = rtr.build_layer_schedules(
             band_.tau, band_.omega, float(np.min(quad_.qp_mu)), "schulz")
         return len(rtr.schedule_buckets(ls)) if ls is not None else 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else "nvidia-smi unavailable"
+    card = card_name()
     tag = f"[card: {card}]"
     print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
@@ -363,7 +473,7 @@ def main():
     t0 = time.perf_counter()
     build.lib()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s {tag}")
-    spills, team_seen = [], set()
+    spills, team_seen, voigt_seen = [], set(), set()
     fn = None
     for line in build.resource_usage(build.build()).splitlines():
         line = line.strip()
@@ -375,12 +485,18 @@ def main():
             stack = int(line.split("STACK:")[1].split()[0])
             team = [k for k in TEAM_KERNELS if k in fn]
             team_seen.update(team)
-            if team and (local or stack > MAX_TEAM_STACK):
+            voigt = [k for k in VOIGT_KERNELS if k in fn]
+            voigt_seen.update(voigt)
+            if (team and (local or stack > MAX_TEAM_STACK)) \
+                    or (voigt and local):
                 spills.append(f"{fn} {line}")
     check(team_seen == set(TEAM_KERNELS),
           f"team kernels missing from the library: "
           f"{set(TEAM_KERNELS) - team_seen}")
-    check(not spills, f"local memory or a stack above {MAX_TEAM_STACK} "
+    check(voigt_seen == set(VOIGT_KERNELS),
+          f"Voigt kernels missing from the library: "
+          f"{set(VOIGT_KERNELS) - voigt_seen}")
+    check(not spills, f"local memory, or a stack above {MAX_TEAM_STACK} "
           f"bytes in a team kernel: {spills}")
 
     # ---- 1b. the team kernels at every width class and its edges -----------
@@ -398,6 +514,19 @@ def main():
     params.float_type = "Float32"
     grid = np.asarray(params.spec_bands[0], np.float64)
     n_spec = len(grid)
+    ap = params.absorption_params
+
+    def has_lines(mol):
+        try:
+            read_linelist(hitran_artifact(mol), mol,
+                          grid.min() - ap.wing_cutoff,
+                          grid.max() + ap.wing_cutoff)
+        except HitranEmptyError:
+            return False
+        return True
+
+    # the kernel engine launches once per molecule with lines in the band
+    voigt_mols = [m for m in ap.molecules[0] if has_lines(m)]
 
     reset_counts()
     torch.cuda.synchronize()
@@ -416,8 +545,8 @@ def main():
     print(f"flagship: nSpec={n_spec}, nZ={n_z}, max_m={max_m}, "
           f"N={len(model.quad_points.qp_mu_n)}; launches: voigt {n_voigt}, "
           f"layer step {n_step} {tag}")
-    check(n_voigt == n_z, f"{n_voigt} Voigt launches in the build, "
-          f"expected {n_z}")
+    check(n_voigt == len(voigt_mols), f"{n_voigt} Voigt launches in the "
+          f"build, expected one per molecule with lines: {voigt_mols}")
     check(n_step == max_m * n_z, f"{n_step} layer-step launches in rt_run, "
           f"expected {max_m * n_z}")
     check(R.shape == (len(params.vza), 1, n_spec) and T.shape == R.shape,
@@ -432,7 +561,6 @@ def main():
         vt.rt_run(model, device=dev)
         torch.cuda.synchronize()
         t_steady = min(t_steady, time.perf_counter() - t0)
-    ap = params.absorption_params
     tau = np.zeros((n_spec, n_z))
     t0 = time.perf_counter()
     compute_absorption_profile(tau, "O2", ap, grid, 0.21, model.profile,
@@ -443,24 +571,14 @@ def main():
           f"rt_run first {t_rt_first:.3f} s, steady {t_steady:.3f} s = "
           f"{n_spec / t_steady:.1f} points/s {tag}")
 
-    # ---- 3a. Voigt kernel vs plain version at every layer's (p, T) ----------
-    v_stats = KernelStats()
-    real_voigt = vk.voigt_tiles
-    vk.voigt_tiles = compare_hook(torch, v_stats, real_voigt,
-                                  vk.voigt_tiles_plain, vk.voigt_work,
-                                  reps=(10, 2))
-    try:
-        compute_absorption_profile(np.zeros((n_spec, n_z)), "O2", ap, grid,
-                                   0.21, model.profile, engine="kernel",
-                                   device=dev)
-    finally:
-        vk.voigt_tiles = real_voigt
-    check(v_stats.calls == n_z, "Voigt comparison did not run per layer")
+    # ---- 3a. Voigt kernel vs plain version, all layers in one launch -------
+    (_, mol, _, vmr), (_, mol_c, grid_c, vmr_c) = voigt_shapes(params)
+    v_stats, _ = voigt_compared(torch, vk, compute_absorption_profile, mol,
+                                grid, vmr, ap, model.profile, dev)
+    check(v_stats.calls == 1, "the O2 Voigt comparison did not run once")
     check(v_stats.rel <= 2e-5, f"Voigt kernel vs plain: "
           f"{v_stats.rel:.3e} of max sigma > 2e-5")
     # against the dense f64 engine at the bottom layer's (p, T)
-    from vsmartmom_torch.spectroscopy.profiles import (hitran_artifact,
-                                                       read_linelist)
     ht = read_linelist(hitran_artifact("O2"), "O2", grid.min() - 40.0,
                        grid.max() + 40.0)
     hm = make_hitran_model(ht, ap.broadening, wing_cutoff=ap.wing_cutoff,
@@ -477,11 +595,37 @@ def main():
     check(dense_rel <= 1e-3, f"Voigt kernel vs dense f64: {dense_rel:.3e}")
     v_ms, v_plain = v_stats.mean_ms()
     v_bound, v_by = v_stats.bound()
-    print(f"voigt: {len(ht)} lines, {n_z} layers: max|diff| vs plain "
-          f"{v_stats.abs:.3e} ({v_stats.rel:.3e} of max sigma), vs "
-          f"dense f64 {dense_rel:.3e} of max sigma; kernel {v_ms:.4f} ms, "
-          f"plain {v_plain:.4f} ms, dense f64 {1e3 * t_dense:.2f} ms, bound "
-          f"{v_bound:.4f} ms ({v_by}) per layer {tag}")
+    print(f"voigt (flagship O2): {len(ht)} lines, {n_z} layers in "
+          f"{v_stats.calls} launch: max|diff| vs plain {v_stats.abs:.3e} "
+          f"({v_stats.rel:.3e} of max sigma), vs dense f64 {dense_rel:.3e} "
+          f"of max sigma at the bottom layer; kernel {v_ms:.4f} ms per launch"
+          f" = {v_ms / n_z:.5f} ms per layer, plain {v_plain:.4f} ms, dense "
+          f"f64 {1e3 * t_dense:.2f} ms per layer, bound {v_bound:.4f} ms "
+          f"({v_by}) per launch = {v_bound / n_z:.5f} ms per layer {tag}")
+    print(f"voigt (flagship O2) "
+          f"{voigt_geometry(vk, grid, ht.nu, ap.wing_cutoff, n_z)}")
+
+    # ---- 3c. Voigt kernel at the HAPI gate's CO2 shape ----------------------
+    c_stats, _ = voigt_compared(torch, vk, compute_absorption_profile, mol_c,
+                                grid_c, vmr_c, ap, model.profile, dev)
+    check(c_stats.calls == 1, f"CO2: {c_stats.calls} Voigt launches, "
+          f"expected 1")
+    check(c_stats.rel <= 2e-5, f"CO2 Voigt kernel vs plain: "
+          f"{c_stats.rel:.3e} of max sigma > 2e-5")
+    c_ms, c_plain = c_stats.mean_ms()
+    c_bound, c_by = c_stats.bound()
+    ct = read_linelist(hitran_artifact(mol_c), mol_c,
+                       grid_c.min() - ap.wing_cutoff,
+                       grid_c.max() + ap.wing_cutoff)
+    print(f"voigt (HAPI-grid CO2): {len(ct)} lines, {len(grid_c)} points, "
+          f"{n_z} layers in {c_stats.calls} launch: max|diff| vs plain "
+          f"{c_stats.abs:.3e} ({c_stats.rel:.3e} of max sigma) over every "
+          f"layer; kernel {c_ms:.4f} ms per launch = {c_ms / n_z:.5f} ms per "
+          f"layer, plain {c_plain:.2f} ms per launch, bound {c_bound:.4f} ms "
+          f"({c_by}, {c_stats.flops:.4g} operations, {c_stats.nbytes} bytes)"
+          f" per launch = {c_bound / n_z:.5f} ms per layer {tag}")
+    print(f"voigt (HAPI-grid CO2) "
+          f"{voigt_geometry(vk, grid_c, ct.nu, ap.wing_cutoff, n_z)}")
 
     # ---- 3b. layer-step kernel vs plain version at every layer and moment ---
     def step_work(comp, r_f, *args, ns_schedule, ni):
@@ -771,7 +915,7 @@ def main():
         del Rh, Th
 
     # ---- 7. (c) float32 Natraj (N = 136) under auto -------------------------
-    nat = np.load(os.path.join(here, "tests", "data", "natraj_trues.npz"))
+    nat = np.load(os.path.join(HERE, "tests", "data", "natraj_trues.npz"))
     mu = np.array([0.02, 0.06, 0.10, 0.16, 0.20, 0.28, 0.32, 0.40, 0.52,
                    0.64, 0.72, 0.84, 0.92, 0.96, 0.98, 1.00])
     vza = np.degrees(np.arccos(mu))

@@ -1,28 +1,43 @@
-// Tiled line-by-line Voigt cross section for Hopper.
+// Layered line-by-line Voigt cross section for Hopper.
 //
 // Replaces the TPU kernel vsmartmom/pallas/voigt_kernel.py:_voigt_kernel
 // (reached through _voigt_pallas_call from VoigtPlan.run):
 //   sigma(nu) = sum_l amp_l Re w(igd_l (nu - nu_l) + i y_l)
 // over the lines with |nu - nu_l| <= cutoff and amp_l > 0, Re w from
 // Humlicek region II where |x| + y >= 8 and Weideman-32 elsewhere, all in
-// f32 real arithmetic around each tile's own centre (the host keeps the
-// absolute wavenumbers in f64 and ships tile-centred offsets).
+// f32 real arithmetic. The host keeps the absolute wavenumbers in f64 and
+// ships offsets from the centre of the real points of each block's
+// 1024-point tile, as the TPU kernel takes them (offsets from each 256-point
+// block's own centre put the port 3.2e-5 of max sigma from the JAX plan,
+// over the 2e-5 the tests allow).
 //
-// Bound: a few hundred f32 operations per (line, grid point) pair inside the
-// wing window and a handful of bytes per grid point, so arithmetic bounds
-// it. Design: one block per 1024-point tile, one thread per grid point; the
-// lines (sorted on the host) are swept only over the tile's own range, and
-// are staged through shared memory 256 at a time so each line parameter is
-// read from device memory once per tile. A thread evaluates only the branch
-// its (x, y) selects and skips lines outside the window.
+// Bound: a few dozen f32 operations per in-window (line, grid point) pair
+// (a few hundred on Weideman's branch) against a few bytes per grid point,
+// so arithmetic bounds it; one pair is a chain of dependent operations with
+// a division, so latency is what a thread waits on.
+// Design, for every layer of a band in one launch:
+// - the grid is cut into point blocks of kBlock points, and the host plan
+//   gives each block its own line range at line granularity, split into
+//   items of at most kSplit lines; the launch is a grid of (item, layer)
+//   blocks of kThreads threads, so even a narrow band fills the card;
+// - an item stages its lines (tile-centred) in shared memory once, then
+//   each thread sweeps them for kPts grid points at a time: the points'
+//   Humlicek chains are independent and interleave, Weideman's branch runs
+//   only for the pairs that need it (near a line centre), and a select, not
+//   a branch, keeps the in-window pairs;
+// - every item writes its partial sums to a workspace, and a second pass
+//   adds a block's items in item order: no float atomics, so two runs of
+//   the same inputs agree bit for bit.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 1024;    // grid points per block (one per thread)
-constexpr int kChunk = 64;     // line rows of the host plan
-constexpr int kStage = 256;    // lines staged per shared-memory pass
+constexpr int kThreads = 64;                  // threads of an item's block
+constexpr int kPts = 4;                       // grid points a thread
+constexpr int kBlock = kThreads * kPts;       // grid points of a point block
+constexpr int kSplit = 128;                   // most lines an item sweeps
+constexpr int kReduceThreads = 256;
 
 constexpr float kIsqrtPi = 0.5641895835477563f;
 // sqrt(32 / sqrt(2))
@@ -44,7 +59,11 @@ __constant__ float kW32[32] = {
     3.7424975634801558e-12f, -1.3031797863050087e-12f};
 
 // Re w(x + iy), Humlicek (1982) region II:
-// t = y - i x; w = t (1.410474 + u/sqrt(pi)) / (0.75 + u (3 + u)), u = t^2
+// t = y - i x; w = t (1.410474 + u/sqrt(pi)) / (0.75 + u (3 + u)), u = t^2.
+// The last division is __fdividef (2 ulp; 0 where the denominator exceeds
+// 2^126, i.e. |x| > ~5.5e4, where IEEE division gives 0 at ~6.6e4): it
+// replaces the IEEE division's refinement and slow-path check, the longest
+// stretch of the pair's instruction stream.
 __device__ float rew_humlicek2(float x, float y) {
   const float u_re = y * y - x * x;
   const float u_im = -2.f * x * y;
@@ -55,8 +74,8 @@ __device__ float rew_humlicek2(float x, float y) {
   const float d3 = 3.f + u_re;
   const float den_re = 0.75f + u_re * d3 - u_im * u_im;
   const float den_im = u_im * d3 + u_re * u_im;
-  return (num_re * den_re + num_im * den_im) /
-         (den_re * den_re + den_im * den_im);
+  return __fdividef(num_re * den_re + num_im * den_im,
+                    den_re * den_re + den_im * den_im);
 }
 
 // Re w(x + iy), Weideman-32: iz = (-y, x); Z = (L + iz)/(L - iz);
@@ -79,58 +98,95 @@ __device__ float rew_weideman32(float x, float y) {
   return q_re * r_re - q_im * r_im;
 }
 
-__global__ void __launch_bounds__(kTile)
-voigt_kernel(const float* __restrict__ grid_t,
+// One (item, layer): the partial sums of the item's lines over its point
+// block, written to ws[layer][item][0 .. kBlock).
+__global__ void __launch_bounds__(kThreads)
+voigt_kernel(const float* __restrict__ grid_b,
              const float* __restrict__ centers,
-             const int* __restrict__ starts, const int* __restrict__ n_chunks,
+             const int* __restrict__ item_block,
+             const int* __restrict__ item_lo, const int* __restrict__ item_hi,
              const float* __restrict__ nu, const float* __restrict__ amp,
              const float* __restrict__ igd, const float* __restrict__ yv,
-             int n_lines, float cutoff, float* __restrict__ out) {
-  __shared__ float s_nu[kStage], s_amp[kStage], s_igd[kStage], s_y[kStage];
-  const int tile = blockIdx.x;
-  const float g = grid_t[(size_t)tile * kTile + threadIdx.x];
-  const float c = centers[tile];
-  const int lo = starts[tile] * kChunk;
-  const int hi = min((starts[tile] + n_chunks[tile]) * kChunk, n_lines);
-  float acc = 0.f;
-  for (int base = lo; base < hi; base += kStage) {
-    const int m = min(kStage, hi - base);
-    if (threadIdx.x < m) {
-      const int l = base + threadIdx.x;
-      s_nu[threadIdx.x] = nu[l] - c;
-      s_amp[threadIdx.x] = amp[l];
-      s_igd[threadIdx.x] = igd[l];
-      s_y[threadIdx.x] = yv[l];
-    }
-    __syncthreads();
-    for (int l = 0; l < m; ++l) {
-      const float dx = g - s_nu[l];
-      if (fabsf(dx) <= cutoff && s_amp[l] > 0.f) {
-        const float x = s_igd[l] * dx;
-        const float y = s_y[l];
-        const float rw = fabsf(x) + y >= 8.f ? rew_humlicek2(x, y)
-                                             : rew_weideman32(x, y);
-        acc += s_amp[l] * rw;
-      }
-    }
-    __syncthreads();
+             int n_lines, int n_items, float cutoff, float* __restrict__ ws) {
+  __shared__ float4 s_line[kSplit];   // (nu - centre, amp, igd, y)
+  const int item = blockIdx.x, layer = blockIdx.y;
+  const int blk = item_block[item];
+  const int lo = item_lo[item];
+  const int n = item_hi[item] - lo;
+  const float c = centers[blk];
+  const size_t row = (size_t)layer * n_lines + lo;
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    s_line[i] = make_float4(nu[row + i] - c, amp[row + i], igd[row + i],
+                            yv[row + i]);
+  float g[kPts], acc[kPts];
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) {
+    g[k] = grid_b[(size_t)blk * kBlock + k * kThreads + threadIdx.x];
+    acc[k] = 0.f;
   }
-  out[(size_t)tile * kTile + threadIdx.x] = acc;
+  __syncthreads();
+  for (int l = 0; l < n; ++l) {
+    const float4 ln = s_line[l];
+    float dx[kPts], x[kPts], rw[kPts];
+#pragma unroll
+    for (int k = 0; k < kPts; ++k) {
+      dx[k] = g[k] - ln.x;
+      x[k] = ln.z * dx[k];
+      rw[k] = rew_humlicek2(x[k], ln.w);
+    }
+#pragma unroll
+    for (int k = 0; k < kPts; ++k)
+      if (fabsf(x[k]) + ln.w < 8.f) rw[k] = rew_weideman32(x[k], ln.w);
+#pragma unroll
+    for (int k = 0; k < kPts; ++k)
+      acc[k] += (fabsf(dx[k]) <= cutoff && ln.y > 0.f) ? ln.y * rw[k] : 0.f;
+  }
+  float* out = ws + ((size_t)layer * n_items + item) * kBlock;
+#pragma unroll
+  for (int k = 0; k < kPts; ++k) out[k * kThreads + threadIdx.x] = acc[k];
+}
+
+// out[layer][p] = the sum of p's block's items in item order.
+__global__ void __launch_bounds__(kReduceThreads)
+voigt_reduce_kernel(const float* __restrict__ ws,
+                    const int* __restrict__ block_item0, int n_items,
+                    int n_grid, float* __restrict__ out) {
+  const int layer = blockIdx.y;
+  const int p = blockIdx.x * kReduceThreads + threadIdx.x;
+  if (p >= n_grid) return;
+  const int blk = p / kBlock;
+  const float* w = ws + (size_t)layer * n_items * kBlock + p % kBlock;
+  float s = 0.f;
+  for (int i = block_item0[blk]; i < block_item0[blk + 1]; ++i)
+    s += w[(size_t)i * kBlock];
+  out[(size_t)layer * n_grid + p] = s;
 }
 
 }  // namespace
 
-// Launch the tiled Voigt sum on `stream`: grid_t (n_tiles, 1024) tile-centred
-// grid; per-tile centres, first line row and row count; sorted per-line
-// nu (band-centred), amp, igd, y. Returns the launch's cudaError_t.
-extern "C" int vsm_voigt(const float* grid_t, const float* centers,
-                         const int* starts, const int* n_chunks,
+// The layered Voigt sum on `stream`: grid_b (n_blocks, kBlock) grid offsets
+// from the centre of each block's tile, and those (n_blocks,) centres; items (n_items,): point block, first and
+// end line; block_item0 (n_blocks + 1,): each block's first item; per layer
+// and sorted line nu (band-centred), amp, igd, y, (n_layers, n_lines); ws
+// (n_layers, n_items, kBlock) partial sums; out (n_layers, n_grid). Returns
+// the first launch's non-zero cudaError_t, else 0.
+extern "C" int vsm_voigt(const float* grid_b, const float* centers,
+                         const int* item_block, const int* item_lo,
+                         const int* item_hi, const int* block_item0,
                          const float* nu, const float* amp, const float* igd,
-                         const float* y, int n_lines, float cutoff,
-                         float* out, int n_tiles, void* stream) {
-  if (n_tiles <= 0) return 0;
-  voigt_kernel<<<n_tiles, kTile, 0, (cudaStream_t)stream>>>(
-      grid_t, centers, starts, n_chunks, nu, amp, igd, y, n_lines, cutoff,
-      out);
+                         const float* y, int n_layers, int n_lines,
+                         int n_items, int n_grid, float cutoff, float* ws,
+                         float* out, void* stream) {
+  if (n_layers <= 0 || n_grid <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  voigt_kernel<<<dim3(n_items, n_layers), kThreads, 0, s>>>(
+      grid_b, centers, item_block, item_lo, item_hi, nu, amp, igd, y,
+      n_lines, n_items, cutoff, ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  voigt_reduce_kernel<<<dim3((n_grid + kReduceThreads - 1) / kReduceThreads,
+                             n_layers),
+                        kReduceThreads, 0, s>>>(ws, block_item0, n_items,
+                                                n_grid, out);
   return (int)cudaGetLastError();
 }

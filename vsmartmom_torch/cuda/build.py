@@ -68,9 +68,10 @@ _SIGNATURES = {
     # the wide path: 6 composite + 4 elemental + ek + d inputs, 6 outputs,
     # workspace; S, n, schedule, nd, ni, stream
     "vsm_lanes_wide": [_P] * 19 + [_I, _I, ctypes.POINTER(_I), _I, _I, _P],
-    # grid_t, centers, starts, n_chunks, nu, amp, igd, y, n_lines, cutoff,
-    # out, n_tiles, stream
-    "vsm_voigt": [_P] * 8 + [_I, ctypes.c_float, _P, _I, _P],
+    # grid_b, centers, item_block, item_lo, item_hi, block_item0, nu, amp,
+    # igd, y; n_layers, n_lines, n_items, n_grid, cutoff, workspace, out,
+    # stream
+    "vsm_voigt": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _P, _P, _P],
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""Tiled line-by-line Voigt cross section — CUDA kernel and plain version.
+"""Layered line-by-line Voigt cross section — CUDA kernel and plain version.
 
 Replaces the TPU kernel ``vsmartmom/pallas/voigt_kernel.py:_voigt_kernel``
 (reached through ``_voigt_pallas_call`` from ``VoigtPlan.run``):
@@ -6,13 +6,19 @@ sigma(nu) = sum_l amp_l Re w(igd_l (nu - nu_l) + i y_l) over the lines with
 |nu - nu_l| <= cutoff (around the SHIFTED centre) and amp_l > 0; Re w from
 Humlicek II where |x| + y >= 8 and Weideman-32 elsewhere.
 
-What bounds it on Hopper: a few hundred f32 operations per in-window
+What bounds it on Hopper: a few dozen f32 operations per in-window
 (line, grid point) pair against a few bytes per grid point, so arithmetic.
 Design: the host (f64 numpy, once per grid and line list) sorts the lines,
-cuts the grid into 1024-point tiles centred on their real points and
-finds each tile's line range; the kernel runs one block per tile and one
-thread per grid point, sweeps only the tile's lines, staged through shared
-memory, and evaluates only the branch of Re w each pair selects.
+cuts the grid into point blocks of BLOCK points, finds each block's line
+range at line granularity and splits it into items of at most SPLIT lines.
+Offsets are taken from the centre of the real points of the block's
+TILE-point tile, as the TPU kernel takes them: centred on their own 256
+points, blocks put the port 3.2e-5 of max sigma from the JAX plan, over the
+2e-5 that the tests allow. One launch covers every layer of a band:
+a block of the kernel per (item, layer) sweeps the item's lines for its
+point block, a thread four grid points at a time, into a workspace of
+partial sums, and a second pass adds each block's items in order (no float
+atomics: the result is deterministic). See csrc/voigt.cu.
 
 The dense f64 engine (spectroscopy/voigt.py) masks around the UNSHIFTED
 centre; it is a different function from this one.
@@ -24,8 +30,13 @@ import torch
 
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
-TILE = 1024                        # grid points per tile (one per thread)
-CHUNK = 64                         # lines per row of the tile line ranges
+BLOCK = 256                        # grid points of a point block (kBlock)
+TILE = 1024                        # grid points sharing one offset centre
+SPLIT = 128                        # most lines an item sweeps (kSplit)
+#: most layers one launch takes (the grid's y dimension)
+MAX_LAYERS = 65535
+#: most (line, grid point) pairs the plain version holds at once
+PAIRS_PER_CHUNK = 1 << 22
 
 _ISQRTPI = 0.5641895835477563
 _SQRT_LN2 = 0.8325546111576977
@@ -81,28 +92,53 @@ def rew_hw32sd(x, y):
     return torch.where(s >= 8.0, _rew_humlicek2(x, y), _rew_weideman32(x, y))
 
 
-def _line_range(starts, n_chunks, t, n_lines):
-    lo = int(starts[t]) * CHUNK
-    return lo, min((int(starts[t]) + int(n_chunks[t])) * CHUNK, n_lines)
+def _item_pairs(grid_b, centers, item_block, item_lo, item_hi, nu, amp, igd,
+                y, cutoff: float):
+    """The (line, grid point) pairs of every (layer, item), in chunks of at
+    most PAIRS_PER_CHUNK pairs: yields each chunk's rows of the (layers x
+    blocks, BLOCK) output, and its scaled offsets x, y and amp as (units,
+    lines, BLOCK) or broadcastable, with the mask of the pairs the kernel keeps
+    (the item's lines, in window, amp > 0)."""
+    n_layers, n_lines = nu.shape
+    n_items, n_blocks = item_block.shape[0], grid_b.shape[0]
+    count = (item_hi - item_lo).long()
+    r = int(count.max()) if n_items else 0
+    if r == 0 or n_layers == 0:
+        return
+    dev = nu.device
+    blk_of, lo_of = item_block.long(), item_lo.long()
+    j = torch.arange(r, device=dev)
+    flat = [v.reshape(-1) for v in (nu, amp, igd, y)]
+    per = max(1, PAIRS_PER_CHUNK // (r * grid_b.shape[1]))
+    for u0 in range(0, n_layers * n_items, per):
+        u = torch.arange(u0, min(u0 + per, n_layers * n_items), device=dev)
+        layer, item = u // n_items, u % n_items
+        blk = blk_of[item]
+        valid = j[None, :] < count[item][:, None]
+        idx = (layer[:, None] * n_lines
+               + torch.clamp(lo_of[item][:, None] + j[None, :],
+                             max=n_lines - 1))
+        nu_g, amp_g, igd_g, y_g = (v[idx][:, :, None] for v in flat)
+        dx = grid_b[blk][:, None, :] - (nu_g - centers[blk][:, None, None])
+        keep = valid[:, :, None] & (torch.abs(dx) <= cutoff) & (amp_g > 0.0)
+        yield layer * n_blocks + blk, igd_g * dx, y_g, amp_g, keep
 
 
-def voigt_tiles_plain(grid_t, centers, starts, n_chunks, nu, amp, igd, y,
-                      cutoff: float):
-    """Plain torch version of the kernel: per tile, the (lines x 1024)
-    masked sum over the tile's line range. Shapes as voigt_tiles."""
-    n_tiles = grid_t.shape[0]
-    out = torch.zeros_like(grid_t)
-    starts, n_chunks = starts.tolist(), n_chunks.tolist()
-    for t in range(n_tiles):
-        lo, hi = _line_range(starts, n_chunks, t, nu.shape[0])
-        if hi <= lo:
-            continue
-        dx = grid_t[t][None, :] - (nu[lo:hi] - centers[t])[:, None]
-        x = igd[lo:hi, None] * dx
-        re_w = rew_hw32sd(x, y[lo:hi, None].expand_as(x))
-        keep = (torch.abs(dx) <= cutoff) & (amp[lo:hi, None] > 0.0)
-        out[t] = torch.where(keep, amp[lo:hi, None] * re_w, 0.0).sum(dim=0)
-    return out
+def voigt_tiles_plain(grid_b, centers, item_block, item_lo, item_hi,
+                      block_item0, nu, amp, igd, y, cutoff: float,
+                      n_grid: int):
+    """Plain torch version of the kernel: for each layer and item, the
+    masked sum of the item's lines over its point block, added per block.
+    Shapes as voigt_tiles."""
+    n_layers, n_blocks = nu.shape[0], grid_b.shape[0]
+    out = torch.zeros((n_layers * n_blocks, grid_b.shape[1]),
+                      dtype=grid_b.dtype, device=grid_b.device)
+    for rows, x, yv, a, keep in _item_pairs(
+            grid_b, centers, item_block, item_lo, item_hi, nu, amp, igd, y,
+            cutoff):
+        part = torch.where(keep, a * rew_hw32sd(x, yv.expand_as(x)), 0.0)
+        out.index_add_(0, rows, part.sum(dim=1))
+    return out.reshape(n_layers, n_blocks * grid_b.shape[1])[:, :n_grid]
 
 
 #: f32 operations of one in-window (line, grid point) pair: the shift, the
@@ -113,68 +149,89 @@ FLOPS_HUMLICEK = 29
 FLOPS_WEIDEMAN = 243
 
 
-def voigt_work(grid_t, centers, starts, n_chunks, nu, amp, igd, y,
-               cutoff: float):
+def voigt_work(grid_b, centers, item_block, item_lo, item_hi, block_item0,
+               nu, amp, igd, y, cutoff: float, n_grid: int):
     """(operations, device-memory bytes) that one call needs on these
-    inputs: only the in-window pairs with amp > 0 are evaluated, each by
-    the branch of Re w its (x, y) selects; every input is read once and
-    the (n_tiles, 1024) output written once."""
-    n_tiles = grid_t.shape[0]
+    inputs, summed over its layers: only the in-window pairs with amp > 0
+    are evaluated, each by the branch of Re w its (x, y) selects; every
+    input is read once and the (layers, n_grid) output written once."""
     ops = 0
-    st, nc = starts.tolist(), n_chunks.tolist()
-    for t in range(n_tiles):
-        lo, hi = _line_range(st, nc, t, nu.shape[0])
-        if hi <= lo:
-            continue
-        dx = grid_t[t][None, :] - (nu[lo:hi] - centers[t])[:, None]
-        keep = (torch.abs(dx) <= cutoff) & (amp[lo:hi, None] > 0.0)
-        far = (torch.abs(igd[lo:hi, None] * dx) + y[lo:hi, None]) >= 8.0
-        n_h = int((keep & far).sum())
+    for _, x, yv, _, keep in _item_pairs(
+            grid_b, centers, item_block, item_lo, item_hi, nu, amp, igd, y,
+            cutoff):
+        n_h = int((keep & (torch.abs(x) + yv >= 8.0)).sum())
         n_w = int(keep.sum()) - n_h
         ops += (n_h * (FLOPS_PAIR + FLOPS_HUMLICEK)
                 + n_w * (FLOPS_PAIR + FLOPS_WEIDEMAN))
-    nbytes = sum(x.numel() * x.element_size()
-                 for x in (grid_t, centers, starts, n_chunks, nu, amp, igd,
-                           y)) + grid_t.numel() * 4
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in (grid_b, centers, item_block, item_lo, item_hi,
+                           block_item0, nu, amp, igd, y)) \
+        + nu.shape[0] * n_grid * 4
     return ops, nbytes
 
 
-def voigt_tiles(grid_t, centers, starts, n_chunks, nu, amp, igd, y,
-                cutoff: float):
-    """Tiled Voigt sum. grid_t: (n_tiles, 1024) tile-centred grid (f32);
-    centers: (n_tiles,) f32; starts, n_chunks: (n_tiles,) int32 line rows of
-    CHUNK lines; nu (band-centred), amp, igd, y: (n_lines,) f32, sorted by
-    wavenumber. Returns (n_tiles, 1024).
+def _launch(grid_b, centers, item_block, item_lo, item_hi, block_item0, nu,
+            amp, igd, y, cutoff: float, n_grid: int, stream):
+    """Launch the kernel and its reduction on checked operands, with the
+    (layers, items, BLOCK) workspace of partial sums; returns the launch's
+    cudaError_t and the (layers, n_grid) output."""
+    from vsmartmom_torch.cuda import build
+    n_layers, n_lines = nu.shape
+    n_items = item_block.shape[0]
+    ws = torch.empty((n_layers, n_items, BLOCK), dtype=torch.float32,
+                     device=nu.device)
+    out = torch.empty((n_layers, n_grid), dtype=torch.float32,
+                      device=nu.device)
+    err = build.lib().vsm_voigt(
+        *(v.data_ptr() for v in (grid_b, centers, item_block, item_lo,
+                                 item_hi, block_item0, nu, amp, igd, y)),
+        n_layers, n_lines, n_items, n_grid, float(cutoff), ws.data_ptr(),
+        out.data_ptr(), stream)
+    return err, out
+
+
+def voigt_tiles(grid_b, centers, item_block, item_lo, item_hi, block_item0,
+                nu, amp, igd, y, cutoff: float, n_grid: int):
+    """Layered Voigt sum. grid_b: (n_blocks, BLOCK) grid offsets from the
+    centre of each block's tile (f32); centers: (n_blocks,) f32 those
+    centres; item_block, item_lo, item_hi:
+    (n_items,) int32 point block and [first, end) sorted-line indices of
+    each item (a block's items adjacent, in line order); block_item0:
+    (n_blocks + 1,) int32 first item of each block; nu (band-centred), amp,
+    igd, y: (layers, n_lines) f32, sorted by wavenumber along the lines.
+    Returns (layers, n_grid).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.
     """
-    if grid_t.device.type == "cpu":
-        return voigt_tiles_plain(grid_t, centers, starts, n_chunks, nu, amp,
-                                 igd, y, cutoff)
-    if grid_t.device.type != "cuda":
-        raise ValueError(f"unsupported device {grid_t.device}")
-    n_tiles = grid_t.shape[0]
-    n_lines = nu.shape[0]
-    for x, dt in ((grid_t, torch.float32), (centers, torch.float32),
-                  (starts, torch.int32), (n_chunks, torch.int32),
-                  (nu, torch.float32), (amp, torch.float32),
-                  (igd, torch.float32), (y, torch.float32)):
-        if x.device != grid_t.device or x.dtype != dt \
-                or not x.is_contiguous():
+    args = (grid_b, centers, item_block, item_lo, item_hi, block_item0, nu,
+            amp, igd, y)
+    if grid_b.device.type == "cpu":
+        return voigt_tiles_plain(*args, cutoff, n_grid)
+    if grid_b.device.type != "cuda":
+        raise ValueError(f"unsupported device {grid_b.device}")
+    for v, dt in zip(args, (torch.float32,) * 2 + (torch.int32,) * 4
+                     + (torch.float32,) * 4):
+        if v.device != grid_b.device or v.dtype != dt \
+                or not v.is_contiguous():
             raise ValueError(f"voigt_tiles: expected contiguous {dt} on "
-                             f"{grid_t.device}, got {x.dtype} on {x.device}")
-    if grid_t.shape != (n_tiles, TILE) or centers.shape != (n_tiles,) \
-            or starts.shape != (n_tiles,) or n_chunks.shape != (n_tiles,) \
-            or any(v.shape != (n_lines,) for v in (amp, igd, y)):
+                             f"{grid_b.device}, got {v.dtype} on {v.device}")
+    n_blocks, n_items = grid_b.shape[0], item_block.shape[0]
+    n_layers = nu.shape[0]
+    if grid_b.shape != (n_blocks, BLOCK) or centers.shape != (n_blocks,) \
+            or block_item0.shape != (n_blocks + 1,) \
+            or any(v.shape != (n_items,) for v in (item_lo, item_hi)) \
+            or nu.dim() != 2 \
+            or any(v.shape != nu.shape for v in (amp, igd, y)) \
+            or not 0 <= n_grid <= n_blocks * BLOCK:
         raise ValueError("voigt_tiles: inconsistent shapes")
-    out = torch.empty_like(grid_t)
+    if n_layers > MAX_LAYERS:
+        raise ValueError(f"voigt_tiles takes at most {MAX_LAYERS} layers")
+    if n_layers == 0 or n_grid == 0:
+        return torch.zeros((n_layers, n_grid), device=grid_b.device)
     from vsmartmom_torch.cuda import build
-    err = build.lib().vsm_voigt(
-        grid_t.data_ptr(), centers.data_ptr(), starts.data_ptr(),
-        n_chunks.data_ptr(), nu.data_ptr(), amp.data_ptr(), igd.data_ptr(),
-        y.data_ptr(), n_lines, float(cutoff), out.data_ptr(), n_tiles,
-        torch.cuda.current_stream(grid_t.device).cuda_stream)
+    err, out = _launch(*args, cutoff, n_grid,
+                       torch.cuda.current_stream(grid_b.device).cuda_stream)
     build.check(err, "voigt launch")
     global launches
     launches += 1
@@ -182,12 +239,13 @@ def voigt_tiles(grid_t, centers, starts, n_chunks, nu, amp, igd, y,
 
 
 class VoigtPlan:
-    """Reusable tiling/bucketing plan for one (grid, line-list) pair.
+    """Reusable blocking plan for one (grid, line-list) pair.
 
-    Host work (sorting, tiling, per-tile line ranges) happens once in f64;
-    each ``run`` ships the per-(p, T) line-parameter vectors and calls
-    ``voigt_tiles`` once. Line ranges come from the unshifted line
-    positions with a ``shift_margin`` [cm^-1] slack for pressure shifts.
+    Host work (sorting, point blocks, per-block line ranges and their items)
+    happens once in f64; each ``run`` ships the line-parameter vectors of
+    one (p, T) or of a stack of layers and calls ``voigt_tiles`` once. Line
+    ranges come from the unshifted line positions with a ``shift_margin``
+    [cm^-1] slack for pressure shifts.
     """
 
     def __init__(self, grid, nu_lines, wing_cutoff, shift_margin=0.5,
@@ -201,57 +259,81 @@ class VoigtPlan:
         self.order = torch.as_tensor(order.astype(np.int64),
                                      device=self.device)
         self.wing_cutoff = float(wing_cutoff)
+        self.n_l = len(nu64)
 
-        self.n_tiles = (self.n_grid + TILE - 1) // TILE
-        pad_g = self.n_tiles * TILE - self.n_grid
+        self.n_blocks = -(-self.n_grid // BLOCK)
         g_rel = grid64 - self.nu0
-        grid_p = np.concatenate([g_rel, np.full(pad_g, g_rel[-1] + 1e6)])
-        tiles = grid_p.reshape(self.n_tiles, TILE)
-        # centre each tile on its REAL points only (a padded last tile
-        # would otherwise shift the centre by ~1e6 and destroy f32
+        pad_g = self.n_blocks * BLOCK - self.n_grid
+        blocks = np.concatenate([g_rel, np.full(pad_g, g_rel[-1] + 1e6)]) \
+            .reshape(self.n_blocks, BLOCK)
+        # offsets from the centre of the block's TILE-point tile, as the
+        # TPU kernel rounds them, on its REAL points only (a padded last
+        # tile would otherwise shift the centre by ~1e6 and destroy f32
         # precision for its real points)
-        hi_real = np.array([grid_p[min((t + 1) * TILE, self.n_grid) - 1]
-                            for t in range(self.n_tiles)])
-        centers = 0.5 * (tiles[:, 0] + hi_real)
-        self.grid_t = torch.as_tensor(
-            (tiles - centers[:, None]).astype(np.float32), device=self.device)
+        ends = np.minimum(BLOCK * np.arange(1, self.n_blocks + 1),
+                          self.n_grid)
+        hi_real = g_rel[ends - 1]
+        t0 = np.arange(self.n_blocks) * BLOCK // TILE * TILE
+        centers = 0.5 * (g_rel[t0] + g_rel[np.minimum(t0 + TILE,
+                                                      self.n_grid) - 1])
+        self.grid_b = torch.as_tensor(
+            (blocks - centers[:, None]).astype(np.float32),
+            device=self.device)
         self.centers = torch.as_tensor(centers.astype(np.float32),
                                        device=self.device)
 
+        # each block's [first, last) sorted lines, split into items of at
+        # most SPLIT lines (at least one item a block, so every block is
+        # written)
         pad = wing_cutoff + shift_margin
-        lo = tiles.min(axis=1) - pad
-        hi = hi_real + pad
-        first = np.searchsorted(nu64, lo, side="left")
-        last = np.searchsorted(nu64, hi, side="right")
-        start_row = (first // CHUNK).astype(np.int32)
-        n_ck = np.maximum(
-            -(-(last - start_row * CHUNK) // CHUNK), 0).astype(np.int32)
-        self.n_l = len(nu64)
-        self.starts = torch.as_tensor(start_row, device=self.device)
-        self.n_chunks = torch.as_tensor(n_ck, device=self.device)
+        self.first = np.searchsorted(nu64, blocks[:, 0] - pad, side="left")
+        self.last = np.maximum(
+            np.searchsorted(nu64, hi_real + pad, side="right"), self.first)
+        length = self.last - self.first
+        n_split = np.maximum(1, -(-length // SPLIT))
+        item0 = np.concatenate([[0], np.cumsum(n_split)])
+        blk = np.repeat(np.arange(self.n_blocks), n_split)
+        k = np.arange(len(blk)) - item0[blk]
+        lo = self.first[blk] + k * length[blk] // n_split[blk]
+        hi = self.first[blk] + (k + 1) * length[blk] // n_split[blk]
+        self.n_items = len(blk)
+
+        def i32(v):
+            return torch.as_tensor(np.asarray(v, np.int32),
+                                   device=self.device)
+        self.item_block, self.item_lo, self.item_hi = i32(blk), i32(lo), \
+            i32(hi)
+        self.block_item0 = i32(item0)
 
     def line_inputs(self, nu_s, strength, gamma_d, y):
-        """Sorted f32 kernel inputs (nu band-centred, amp, igd, y) for
-        pressure-shifted positions nu_s (host f64: the band-centring
-        subtraction happens in f64 before the f32 cast) and per-line
-        strength / Doppler HWHM / y in the original line order."""
+        """Sorted f32 kernel inputs (nu band-centred, amp, igd, y), each
+        (layers, n_lines), for pressure-shifted positions nu_s (host f64:
+        the band-centring subtraction happens in f64 before the f32 cast)
+        and per-line strength / Doppler HWHM / y in the original line order,
+        each (n_lines,) for one (p, T) or (layers, n_lines)."""
         dev = self.device
-        nu_rel = torch.as_tensor(
-            (np.asarray(nu_s, np.float64) - self.nu0).astype(np.float32),
-            device=dev)
-        s = torch.as_tensor(np.asarray(strength), dtype=torch.float32,
-                            device=dev)[self.order]
-        gd = torch.as_tensor(np.asarray(gamma_d), dtype=torch.float32,
-                             device=dev)[self.order]
-        amp = torch.clamp_min(s * _SQRT_LN2_DIV_SQRT_PI / gd, 1e-45)
-        igd = _SQRT_LN2 / gd
-        yv = torch.as_tensor(np.asarray(y), dtype=torch.float32,
-                             device=dev)[self.order]
-        return nu_rel[self.order], amp, igd, yv
+
+        def sort(v):
+            v = torch.as_tensor(np.atleast_2d(v), dtype=torch.float32,
+                                device=dev)
+            return torch.index_select(v, 1, self.order)
+        nu_rel = sort((np.asarray(nu_s, np.float64) - self.nu0)
+                      .astype(np.float32))
+        gd = sort(gamma_d)
+        amp = torch.clamp_min(sort(strength) * _SQRT_LN2_DIV_SQRT_PI / gd,
+                              1e-45)
+        return nu_rel, amp, _SQRT_LN2 / gd, sort(y)
+
+    def call_args(self, nu, amp, igd, y):
+        """The arguments of ``voigt_tiles`` for these line inputs."""
+        return (self.grid_b, self.centers, self.item_block, self.item_lo,
+                self.item_hi, self.block_item0, nu, amp, igd, y,
+                self.wing_cutoff, self.n_grid)
 
     def run(self, nu_s, strength, gamma_d, y):
-        """sigma(grid) (n_grid,) f32 tensor on the plan's device."""
-        nu, amp, igd, yv = self.line_inputs(nu_s, strength, gamma_d, y)
-        out = voigt_tiles(self.grid_t, self.centers, self.starts,
-                          self.n_chunks, nu, amp, igd, yv, self.wing_cutoff)
-        return out.reshape(-1)[:self.n_grid]
+        """sigma(grid) as an f32 tensor on the plan's device: (n_grid,) for
+        line parameters of one (p, T), each (n_lines,); (layers, n_grid)
+        for a stack of layers, each (layers, n_lines), in one launch."""
+        out = voigt_tiles(*self.call_args(
+            *self.line_inputs(nu_s, strength, gamma_d, y)))
+        return out[0] if np.ndim(nu_s) == 1 else out

@@ -53,7 +53,7 @@ def union_us(intervals):
 #: name fragments of the port's own kernels (csrc/)
 PORT_KERNELS = ("layer_step_kernel", "layer_step_dev_kernel",
                 "doubling_kernel", "layer_scan_kernel", "lanes_team_kernel",
-                "lanes_wide_kernel", "voigt_kernel")
+                "lanes_wide_kernel", "voigt_kernel", "voigt_reduce_kernel")
 
 
 def report(phase, wall_s, prof, card, top):

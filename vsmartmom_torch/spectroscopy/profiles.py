@@ -22,7 +22,8 @@ from vsmartmom_torch.spectroscopy.hitran import (HitranEmptyError,
                                                  read_hitran,
                                                  read_linelist_npz)
 from vsmartmom_torch.spectroscopy.voigt import (
-    compute_absorption_cross_section, make_hitran_model, make_voigt_plan)
+    compute_absorption_cross_section, line_parameters, make_hitran_model,
+    make_voigt_plan)
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
 #: HITRAN molecule numbers for the name-keyed line-list lookup
@@ -84,8 +85,8 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
 
     ref: atmo_prof.jl:427-449. Mutates tau_abs (nSpec, nZ) in place.
 
-    engine: 'dense' (f64 sweep — the HAPI-gate numerics), 'kernel' (the f32
-    tiled Voigt kernel, one tiling plan shared by the layer loop), or
+    engine: 'dense' (f64 sweep — the HAPI-gate numerics, layer by layer),
+    'kernel' (the f32 tiled Voigt kernel: every layer in one launch), or
     'auto' (kernel on CUDA, dense on the CPU).
     """
     device = resolve_device(device)
@@ -126,13 +127,17 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
                               cef=absorption_params.cef, vmr=0.0)
     if engine == "auto":
         engine = "kernel" if device.type == "cuda" else "dense"
-    plan = (make_voigt_plan(model, grid, device=device)
-            if engine == "kernel" else None)
-
+    if engine == "kernel":
+        # every layer in one launch, one copy to the host
+        plan = make_voigt_plan(model, grid, device=device)
+        sigma = plan.run(*line_parameters(model, profile.p_full,
+                                          profile.T)).cpu().numpy()
+        tau_abs += sigma.T * profile.vcd_dry * vmr_arr
+        return tau_abs
     for iz in range(n_z):
         sigma = compute_absorption_cross_section(
             model, grid, float(profile.p_full[iz]), float(profile.T[iz]),
-            device=device, engine=engine, plan=plan)
+            device=device, engine=engine)
         tau_abs[:, iz] += (sigma.cpu().numpy() * profile.vcd_dry[iz]
                            * vmr_arr[iz])
     return tau_abs

@@ -160,9 +160,11 @@ def _xsec_dense(grid, nu, sw, elower, gamma_air, gamma_self, n_air,
 
 def line_parameters(model: HitranModel, pressure, temperature):
     """Per-line (nu_shifted, strength(T), gamma_d, y) as host f64 arrays —
-    the inputs of the tiled Voigt kernel path."""
+    the inputs of the tiled Voigt kernel path: (n_lines,) each for one
+    (p, T), (layers, n_lines) each for (layers,) arrays of p and T."""
     ht = model.hitran
-    p, T = float(pressure), float(temperature)
+    p = np.asarray(pressure, np.float64)[..., None]
+    T = np.asarray(temperature, np.float64)[..., None]
     nu_s = ht.nu + p / P_REF * ht.delta_air
     gamma_l = ((ht.gamma_air * (1.0 - model.vmr)
                 + ht.gamma_self * model.vmr)
@@ -170,10 +172,11 @@ def line_parameters(model: HitranModel, pressure, temperature):
     gamma_d = ((SQRT_2LN2 / C_LIGHT) * np.sqrt(K_BOLTZ / MASS_MOL)
                * np.sqrt(T) * ht.nu / np.sqrt(model._weights))
     y = SQRT_LN2 * gamma_l / gamma_d
-    pairs = {(int(m), int(i)) for m, i in zip(ht.mol, ht.iso)}
-    qratio_map = {mi: tips.qoft_ratio(*mi, T) for mi in pairs}
-    qratio = np.array([qratio_map[(int(m), int(i))]
-                       for m, i in zip(ht.mol, ht.iso)])
+    pairs = sorted({(int(m), int(i)) for m, i in zip(ht.mol, ht.iso)})
+    q_pairs = np.array([[tips.qoft_ratio(*mi, float(t)) for mi in pairs]
+                        for t in T.reshape(-1)]).reshape(T.shape[:-1]
+                                                         + (len(pairs),))
+    qratio = q_pairs[..., model._pair_idx]
     s_corr = (qratio
               * np.exp(C2 * ht.elower * (1.0 / T_REF - 1.0 / T))
               * np.expm1(-C2 * ht.nu / T) / np.expm1(-C2 * ht.nu / T_REF))
