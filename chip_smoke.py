@@ -67,6 +67,21 @@ Run from the repository root:  python3 chip_smoke.py
    kernel_scan and kernel_lanes engines on a 34-layer heterogeneous Stokes-I
    profile, each engaged and within 6e-3 of the torch engine; ok must be
    true.
+12. (h) The reference's 3-band configuration (tests/data/ref_yaml/
+   3BandParameters.yaml with float_type Float32: O2 A-band, weak and strong
+   CO2, 29 944 points on one concatenated axis, Stokes_IQU N = 30, 34
+   layers, 3 moments, merged spectral albedo): the model build with the
+   launch counts reset just before (one Voigt launch per band and molecule
+   with lines: 3) and rt_run(model, i_band=[0, 1, 2]) under auto (102
+   layer-step launches and nothing else), its stage spans, then
+   kernel_scan, kernel_dev and kernel_lanes with launch counts, each
+   within 1e-3 of the float64 torch engine; the concatenated run against
+   the three per-band runs at its schedules (float32 within 1e-5, float64
+   within 1e-10); an RPV surface on every band through auto within 1e-3 of
+   float64; the layer step, the split-form step, the layer scan and the
+   lanes step at this shape, every launch within 1e-5 of its plain version
+   (the compared launches counted) and timed, and each Voigt launch of the
+   build within 2e-5 of max sigma, with their bounds.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
@@ -79,10 +94,11 @@ launch counts, errors, times and bounds, then the result line
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.
 
-voigt_times() times the Voigt kernel alone at the flagship and the HAPI-grid
-CO2 shapes through entry points that every design of that kernel has kept,
-so a copy of this script beside an older tree of the repository times that
-tree's design: python3 -c 'import chip_smoke; chip_smoke.voigt_times()'.
+kernel_times() times the Voigt kernel alone at the flagship and the
+HAPI-grid CO2 shapes and the layer-scan kernel at the headline shape through
+entry points that every design of those kernels has kept, so a copy of this
+script beside an older tree of the repository times that tree's design:
+python3 -c 'import chip_smoke; chip_smoke.kernel_times()'.
 """
 import json
 import os
@@ -230,6 +246,21 @@ def voigt_geometry(vk, grid, nu, cutoff, n_layers):
             f"in window, workspace {mb:.1f} MB")
 
 
+def has_lines(mol, grid, cutoff):
+    """Whether the line list of molecule ``mol`` has lines within
+    ``cutoff`` of ``grid`` (the Voigt kernel engine launches once for each
+    such molecule of a band)."""
+    from vsmartmom_torch.spectroscopy.hitran import HitranEmptyError
+    from vsmartmom_torch.spectroscopy.profiles import (hitran_artifact,
+                                                       read_linelist)
+    try:
+        read_linelist(hitran_artifact(mol), mol, float(np.min(grid)) - cutoff,
+                      float(np.max(grid)) + cutoff)
+    except HitranEmptyError:
+        return False
+    return True
+
+
 def card_name():
     """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
@@ -257,13 +288,43 @@ def setup():
     return torch
 
 
-def voigt_times():
-    """The Voigt kernel of the package beside this script at both shapes of
-    voigt_shapes, over the flagship profile's 34 layers, every call held
-    against the plain version: one JSON line per shape."""
+def headline_shape():
+    """The headline IQUV shape of the bench.py harness (bench.py:50-111):
+    N = 44 streams, 20 000 points, 10 layers of scattering tau 0.05 with
+    absorption uniform on [0, 0.5) from seed 0, Rayleigh, albedo 0.15.
+    Returns (pol, quad, band, surface); views at 0 and 30 degrees."""
+    from vsmartmom_torch.core.rt_run import BandRTInputs
+    from vsmartmom_torch.scattering.phase import (Polarization,
+                                                  get_greek_rayleigh)
+    from vsmartmom_torch.util.quadrature import rt_set_streams
+    pol = Polarization.from_name("Stokes_IQUV")
+    quad = rt_set_streams("GaussQuadFullSphere", 15, 45.0, [0.0, 30.0],
+                          pol.n)
+    nz, ns = 10, 20_000
+    rng = np.random.default_rng(0)
+    tau_scat = np.full((nz, ns), 0.05)
+    tau = tau_scat + rng.uniform(0.0, 0.5, size=(nz, ns))
+    band = BandRTInputs(tau=tau, omega=tau_scat / tau,
+                        zw=np.ones((nz, 1, ns)),
+                        greeks=[get_greek_rayleigh(0.0)])
+    return pol, quad, band, {"type": "LambertianSurfaceScalar",
+                             "albedo": 0.15}
+
+
+def kernel_times(shapes=("flagship", "co2_hapi", "headline")):
+    """Kernels of the package beside this script alone, every launch held
+    against its plain version, one JSON line per shape: the Voigt kernel at
+    the shapes of voigt_shapes (over the flagship profile's 34 layers) and
+    the layer-scan kernel at the headline shape (one bucket of 10 layers:
+    one launch a moment through rt_run_band's kernel_scan engine). It uses
+    only entry points that every design of these kernels kept, so a copy of
+    this script beside an older tree times that tree's design:
+    python3 -c 'import chip_smoke; chip_smoke.kernel_times()'."""
     torch = setup()
     import vsmartmom_torch as vt
     from vsmartmom_torch.core.atmosphere import compute_atmos_profile_fields
+    from vsmartmom_torch.core.rt_run import rt_run_band
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
     from vsmartmom_torch.cuda import voigt_kernel as vk
     from vsmartmom_torch.spectroscopy.profiles import \
         compute_absorption_profile
@@ -273,18 +334,41 @@ def voigt_times():
                                            ap.vmr)
     card = card_name()
     for name, mol, grid, vmr in voigt_shapes(params):
+        if name not in shapes:
+            continue
         stats, _ = voigt_compared(torch, vk, compute_absorption_profile, mol,
                                   grid, vmr, ap, profile,
                                   torch.device("cuda:0"))
         check(stats.rel <= 2e-5, f"{name}: Voigt kernel vs plain "
               f"{stats.rel:.3e} of max sigma > 2e-5")
         print(json.dumps({
-            "shape": name, "layers": profile.n_layers,
+            "shape": name, "kernel": "voigt", "layers": profile.n_layers,
             "launches": stats.calls, "ms_per_launch": stats.mean_ms()[0],
             "ms_per_layer": float(np.sum(stats.ms)) / profile.n_layers,
             "plain_ms_per_layer": float(np.sum(stats.plain_ms))
             / profile.n_layers, "max_rel_err": stats.rel, "card": card}),
             flush=True)
+    if "headline" not in shapes:
+        return
+    pol, quad, band, surf = headline_shape()
+    stats = KernelStats()
+    real = scn.fused_layer_scan
+    scn.fused_layer_scan = compare_hook(
+        torch, stats, real, scn.fused_layer_scan_plain,
+        lambda *a, **kw: (0, 0), reps=(5, 1))
+    try:
+        rt_run_band(pol, quad, band, [0.0, 30.0], [0.0, 0.0], 3, surf,
+                    dtype=torch.float32, device="cuda:0", solver="schulz",
+                    engine="kernel_scan")
+    finally:
+        scn.fused_layer_scan = real
+    check(stats.calls == 3 and stats.rel < 1e-5, f"scan: {stats.calls} "
+          f"launches, {stats.rel:.3e} of max from the plain version")
+    ms, plain_ms = stats.mean_ms()
+    print(json.dumps({"shape": "headline", "kernel": "layer_scan",
+                      "launches": stats.calls, "ms_per_launch": ms,
+                      "plain_ms": plain_ms, "max_rel_err": stats.rel,
+                      "card": card}), flush=True)
 
 
 #: the team kernels (mangled names hold these): no local memory allowed, and
@@ -421,6 +505,220 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
     return out, wide_ms
 
 
+#: the reference's OCO-2-style configuration (tests/data/ref_yaml): O2
+#: A-band, weak and strong CO2 on one concatenated spectral axis
+THREE_BAND_YAML = os.path.join("tests", "data", "ref_yaml",
+                               "3BandParameters.yaml")
+#: an RPV surface for every band (the concatenated-BRDF branch)
+THREE_BAND_RPV = {"type": "rpvSurfaceScalar", "rho0": 0.1, "rho_c": 0.6,
+                  "k": 0.7, "theta": -0.1}
+
+
+def three_band_phase(torch, dev, tag, reset_counts, counts, works):
+    """12. (h) The reference's 3-band configuration at full width in
+    Float32: model build (Voigt launches per band and molecule with lines)
+    and rt_run(model, i_band=[0, 1, 2]) under auto, kernel_scan, kernel_dev
+    and kernel_lanes, each held against the float64 torch engine; the
+    concatenated run against per-band runs at its schedules; an RPV surface
+    on every band; rows 1, 3, 5 and 6 at this shape, every launch held
+    against its plain version and timed with CUDA events (works maps each
+    engine to the function that counts a launch's work)."""
+    import vsmartmom_torch as vt
+    import vsmartmom_torch.core.rt_run as rtr
+    from vsmartmom_torch.core.api import (_concat_surface, band_spec_lim,
+                                          concat_band_inputs)
+    from vsmartmom_torch.cuda import lanes_kernel as lnk
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
+    from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
+    from vsmartmom_torch.cuda import layer_step_kernel as lsk
+    from vsmartmom_torch.cuda import voigt_kernel as vk
+    from vsmartmom_torch.spectroscopy.profiles import \
+        compute_absorption_profile
+    from vsmartmom_torch.util import timing
+
+    params = vt.parameters_from_yaml(os.path.join(HERE, THREE_BAND_YAML))
+    params.float_type = "Float32"
+    ap = params.absorption_params
+    bands = list(range(len(params.spec_bands)))
+
+    voigt_calls = [(ib, mol) for ib in bands for mol in ap.molecules[ib]
+                   if has_lines(mol, params.spec_bands[ib], ap.wing_cutoff)]
+
+    # the main path: build and one run, launches counted
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = vt.model_from_parameters(params, device=dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_voigt = vk.launches
+    t0 = time.perf_counter()
+    R, T = vt.rt_run(model, i_band=bands, device=dev)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    c = counts()
+    n_spec = sum(len(b) for b in params.spec_bands)
+    n_z, max_m = model.profile.n_layers, params.max_m
+    n = len(model.quad_points.qp_mu_n)
+    band = concat_band_inputs(model, bands)
+    print(f"3-band: nSpec={n_spec} ({[len(b) for b in params.spec_bands]}),"
+          f" nZ={n_z}, max_m={max_m}, N={n}, K={band.zw.shape[1]}; build "
+          f"{t_build:.3f} s; launches: voigt {n_voigt}, rt_run {c} {tag}")
+    check(n_voigt == len(voigt_calls), f"3-band: {n_voigt} Voigt launches, "
+          f"expected one per band and molecule with lines: {voigt_calls}")
+    check(c["kernel"] == max_m * n_z and sum(c.values()) == c["kernel"]
+          + n_voigt, f"3-band auto: launches {c}, expected {max_m * n_z} "
+          f"layer steps and nothing else")
+    check(R.shape == (1, 3, n_spec) and T.shape == R.shape,
+          f"3-band R/T shape {R.shape}/{T.shape}")
+    check(np.isfinite(R).all() and np.isfinite(T).all(),
+          "3-band: non-finite R/T")
+    check(np.all(R[0, 0] > 0) and np.all(R[0, 0] < 1),
+          "3-band: I outside (0, 1)")
+
+    def steady(**kw):
+        best = np.inf
+        for _ in range(2):
+            t0 = time.perf_counter()
+            vt.rt_run(model, i_band=bands, device=dev, **kw)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    t_auto = steady()
+    timing.reset_timer()
+    timing.enable_timer()
+    try:
+        vt.rt_run(model, i_band=bands, device=dev)
+    finally:
+        timing.enable_timer(False)
+    report = timing.timer_report().replace("\n", " | ")
+    print(f"3-band auto: rt_run first {t_first:.3f} s, steady {t_auto:.3f} "
+          f"s = {n_spec / t_auto:.1f} points/s; spans (synchronised): "
+          f"{report} {tag}")
+
+    # the float64 torch engine at the same Newton-Schulz schedules
+    t0 = time.perf_counter()
+    R64, T64 = vt.rt_run(model, i_band=bands, dtype=torch.float64,
+                         device=dev, engine="torch")
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t0
+    rel_r, rel_t = rel_err(R, R64), rel_err(T, T64)
+    print(f"3-band auto vs float64 torch engine ({t64:.2f} s): max|dR|/max R"
+          f" = {rel_r:.3e}, max|dT|/max T = {rel_t:.3e} {tag}")
+    check(rel_r < 1e-3 and rel_t < 1e-3, "3-band auto R/T off the float64 "
+          "reference by >= 1e-3")
+
+    min_mu = float(np.min(model.quad_points.qp_mu))
+    sched = rtr.build_layer_schedules(band.tau, band.omega, min_mu, "schulz")
+    n_scan = max_m * len(rtr.schedule_buckets(
+        rtr._per_layer_schedules(n_z, "schulz", *sched)))
+    for engine, expected in (("kernel_scan", n_scan),
+                             ("kernel_dev", max_m * n_z),
+                             ("kernel_lanes", max_m * n_z)):
+        reset_counts()
+        Re, Te = vt.rt_run(model, i_band=bands, device=dev, engine=engine)
+        torch.cuda.synchronize()
+        ce = counts()
+        check(ce[engine] == expected and sum(ce.values()) == expected,
+              f"3-band {engine}: launches {ce}, expected {expected}")
+        rel_re, rel_te = rel_err(Re, R64), rel_err(Te, T64)
+        print(f"3-band {engine}: {ce[engine]} launches, steady "
+              f"{steady(engine=engine):.3f} s; vs float64 max|dR|/max R = "
+              f"{rel_re:.3e}, max|dT|/max T = {rel_te:.3e} {tag}")
+        check(rel_re < 1e-3 and rel_te < 1e-3, f"3-band {engine} R/T off "
+              f"the float64 reference by >= 1e-3")
+        del Re, Te
+
+    # per-band runs at the concatenated run's schedules: a band's own
+    # doubling counts would discretize it differently
+    real_schedules = rtr.build_layer_schedules
+    rtr.build_layer_schedules = lambda *a, **kw: sched
+    surface = _concat_surface(model, bands)
+    worst32 = worst64 = 0.0
+    try:
+        for ib, sl in zip(bands, band_spec_lim(model, bands)):
+            Rb, Tb = vt.rt_run(model, i_band=ib, device=dev)
+            worst32 = max(worst32, rel_err(R[..., sl], Rb),
+                          rel_err(T[..., sl], Tb))
+            Rb, Tb = vt.rt_run(model, i_band=ib, dtype=torch.float64,
+                               device=dev, engine="torch")
+            worst64 = max(worst64, rel_err(R64[..., sl], Rb),
+                          rel_err(T64[..., sl], Tb))
+    finally:
+        rtr.build_layer_schedules = real_schedules
+    print(f"3-band concatenated vs per-band runs ({surface['type']}): "
+          f"float32 auto {worst32:.3e}, float64 torch {worst64:.3e} (max "
+          f"|d|/max per band and field) {tag}")
+    check(worst32 < 1e-5 and worst64 < 1e-10, "3-band concatenated run "
+          "differs from the per-band runs")
+
+    # an RPV surface on every band: one run over the concatenated axis
+    params.surfaces = [dict(THREE_BAND_RPV) for _ in bands]
+    check(_concat_surface(model, bands) == THREE_BAND_RPV,
+          "identical RPV surfaces did not merge")
+    reset_counts()
+    Rr, Tr = vt.rt_run(model, i_band=bands, device=dev)
+    torch.cuda.synchronize()
+    cr = counts()
+    Rr64, Tr64 = vt.rt_run(model, i_band=bands, dtype=torch.float64,
+                           device=dev, engine="torch")
+    rel_rr, rel_tr = rel_err(Rr, Rr64), rel_err(Tr, Tr64)
+    print(f"3-band RPV auto: launches {cr}; vs float64 max|dR|/max R = "
+          f"{rel_rr:.3e}, max|dT|/max T = {rel_tr:.3e}; nadir I / the "
+          f"Lambertian run's: {float(np.median(Rr[0, 0] / R[0, 0])):.4f} "
+          f"(median) {tag}")
+    check(cr["kernel"] == max_m * n_z and sum(cr.values()) == cr["kernel"],
+          f"3-band RPV auto: launches {cr}")
+    check(np.isfinite(Rr).all() and rel_rr < 1e-3 and rel_tr < 1e-3,
+          "3-band RPV R/T off the float64 reference by >= 1e-3")
+    del Rr, Tr, Rr64, Tr64, R64, T64
+
+    # rows 1, 3, 5, 6 and 2 at this shape, every launch held against its
+    # plain version and timed with CUDA events
+    for engine, mod, fname, plain, expected in (
+            ("kernel", lsk, "fused_layer_step", lsk.fused_layer_step_plain,
+             max_m * n_z),
+            ("kernel_dev", ldk, "fused_layer_step_dev",
+             ldk.fused_layer_step_dev_plain, max_m * n_z),
+            ("kernel_scan", scn, "fused_layer_scan",
+             scn.fused_layer_scan_plain, n_scan),
+            ("kernel_lanes", lnk, "fused_layer_step_lanes",
+             lnk.lanes_layer_step_plain, max_m * n_z)):
+        st = KernelStats()
+        real = getattr(mod, fname)
+        setattr(mod, fname, compare_hook(torch, st, real, plain,
+                                         works[engine], reps=(2, 1)))
+        try:
+            vt.rt_run(model, i_band=bands, device=dev, engine=engine)
+        finally:
+            setattr(mod, fname, real)
+        check(st.calls == expected, f"3-band {fname}: {st.calls} compared "
+              f"launches, expected {expected}")
+        check(st.rel < 1e-5, f"3-band {fname} vs plain: {st.rel:.3e} >= "
+              f"1e-5")
+        ms, plain_ms = st.mean_ms()
+        bound, by = st.bound()
+        print(f"3-band {fname} (N={n}, S={n_spec}): {st.calls} launches, "
+              f"max|diff| vs plain {st.abs:.3e} ({st.rel:.3e} of max); "
+              f"kernel {ms:.3f} ms per launch (min {min(st.ms):.3f}, max "
+              f"{max(st.ms):.3f}), plain {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms ({by}) per launch {tag}")
+    for ib, mol in voigt_calls:
+        grid = np.asarray(params.spec_bands[ib], np.float64)
+        st, _ = voigt_compared(torch, vk, compute_absorption_profile, mol,
+                               grid, model.profile.vmr[mol], ap,
+                               model.profile, dev)
+        check(st.calls == 1 and st.rel <= 2e-5, f"3-band Voigt band {ib} "
+              f"{mol}: {st.calls} launches, {st.rel:.3e} of max sigma")
+        ms, plain_ms = st.mean_ms()
+        bound, by = st.bound()
+        print(f"3-band voigt (band {ib}, {mol}, {len(grid)} points, {n_z} "
+              f"layers): 1 launch, max|diff| vs plain {st.rel:.3e} of max "
+              f"sigma; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms ({by}) {tag}")
+
+
 def main():
     torch = setup()
 
@@ -437,10 +735,8 @@ def main():
     from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
     from vsmartmom_torch.cuda import layer_step_kernel as lsk
     from vsmartmom_torch.cuda import voigt_kernel as vk
-    from vsmartmom_torch.scattering.phase import (Polarization,
-                                                  get_greek_rayleigh)
+    from vsmartmom_torch.scattering.phase import get_greek_rayleigh
     from vsmartmom_torch.util.quadrature import rt_set_streams
-    from vsmartmom_torch.spectroscopy.hitran import HitranEmptyError
     from vsmartmom_torch.spectroscopy.profiles import (
         compute_absorption_profile, hitran_artifact, read_linelist)
     from vsmartmom_torch.spectroscopy.voigt import (
@@ -516,17 +812,9 @@ def main():
     n_spec = len(grid)
     ap = params.absorption_params
 
-    def has_lines(mol):
-        try:
-            read_linelist(hitran_artifact(mol), mol,
-                          grid.min() - ap.wing_cutoff,
-                          grid.max() + ap.wing_cutoff)
-        except HitranEmptyError:
-            return False
-        return True
-
     # the kernel engine launches once per molecule with lines in the band
-    voigt_mols = [m for m in ap.molecules[0] if has_lines(m)]
+    voigt_mols = [m for m in ap.molecules[0]
+                  if has_lines(m, grid, ap.wing_cutoff)]
 
     reset_counts()
     torch.cuda.synchronize()
@@ -839,17 +1127,8 @@ def main():
     del model, band
 
     # ---- 6. (b), 10. (f) the headline IQUV shape through the kernel engines
-    pol_h = Polarization.from_name("Stokes_IQUV")
-    quad_h = rt_set_streams("GaussQuadFullSphere", 15, 45.0, [0.0, 30.0],
-                            pol_h.n)
-    n_h, nz_h, ns_h, m_h = len(quad_h.qp_mu_n), 10, 20_000, 3
-    rng = np.random.default_rng(0)
-    tau_scat = np.full((nz_h, ns_h), 0.05)
-    tau_h = tau_scat + rng.uniform(0.0, 0.5, size=(nz_h, ns_h))
-    band_h = BandRTInputs(tau=tau_h, omega=tau_scat / tau_h,
-                          zw=np.ones((nz_h, 1, ns_h)),
-                          greeks=[get_greek_rayleigh(0.0)])
-    surf_h = {"type": "LambertianSurfaceScalar", "albedo": 0.15}
+    pol_h, quad_h, band_h, surf_h = headline_shape()
+    (nz_h, ns_h), n_h, m_h = band_h.tau.shape, len(quad_h.qp_mu_n), 3
 
     def run_h(engine, dtype=torch.float32):
         return rt_run_band(pol_h, quad_h, band_h, [0.0, 30.0], [0.0, 0.0],
@@ -969,6 +1248,11 @@ def main():
     print(f"check_bucketed ({time.perf_counter() - t0:.1f} s): "
           f"{json.dumps(bucketed)} {tag}")
     check(bucketed["ok"], "the bucketed-engine check failed")
+
+    # ---- 12. (h) the reference's 3-band configuration at full width -------
+    three_band_phase(torch, dev, tag, reset_counts, counts,
+                     {"kernel": step_work, "kernel_dev": dev_step_work,
+                      "kernel_scan": scan_work, "kernel_lanes": lanes_work})
 
     kernels = [
         s_stats.entry("fused_layer_step",

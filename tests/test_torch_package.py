@@ -24,6 +24,12 @@ from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
 from vsmartmom_torch.scattering.phase import Polarization, get_greek_rayleigh
 from vsmartmom_torch.util.quadrature import rt_set_streams
 import vsmartmom_torch.check_bucketed
+import vsmartmom_torch.core.brdf
+import vsmartmom_torch.solar
+import vsmartmom_torch.spectroscopy.absco
+import vsmartmom_torch.spectroscopy.lut
+import vsmartmom_torch.util.show
+import vsmartmom_torch.util.timing
 import vsmartmom_torch.cuda.doubling_kernel
 import vsmartmom_torch.cuda.lanes_kernel
 import vsmartmom_torch.cuda.layer_scan_kernel
@@ -44,6 +50,10 @@ for engine in ("torch_dev", "kernel_dev", "kernel_doubling", "kernel_scan",
                         {"type": "LambertianSurfaceScalar", "albedo": 0.1},
                         device="cpu", solver="schulz", engine=engine)
     assert np.abs(Re - R).max() < 1e-10 * np.abs(R).max(), engine
+Rb, _ = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
+                    {"type": "RossLiSurfaceScalar", "fiso": 0.1, "fvol": 0.0,
+                     "fgeo": 0.0}, device="cpu")
+assert np.abs(Rb - R).max() < 1e-6 * np.abs(R).max()
 assert not any(m == "jax" or m.startswith(("jax.", "vsmartmom."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")

@@ -239,22 +239,8 @@ def test_schedule_builder_errors_propagate():
                     device="cpu")
 
 
-def test_unported_surfaces_raise():
-    quad = rt_set_streams("GaussQuadFullSphere", 8, 30.0, [0.0], 1)
-    pol = Polarization.from_name("Stokes_I")
-    for surf in ({"type": "LambertianSurfaceLegendre",
-                  "legendre_coeff": [0.1]},
-                 {"type": "rpvSurfaceScalar", "rho0": 0.1, "rho_c": 0.1,
-                  "k": 0.7, "theta": -0.1}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt_run_band(pol, quad, _rayleigh_band(0.1), [0.0], [0.0], 1,
-                        surf, device="cpu")
-
-
 def test_rt_run_rejects_unported_runs():
-    """Band concatenation and Raman coupling raise until they are ported."""
+    """Raman coupling raises until it is ported."""
     from vsmartmom_torch.core.api import rt_run
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt_run(None, i_band=[0, 1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt_run(None, rs_type="RRS")

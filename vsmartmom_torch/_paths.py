@@ -14,3 +14,5 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE_PKG = os.path.join(REPO_ROOT, "vsmartmom")
 #: HITRAN-format line lists (``<MOL>.par`` or ``<MOL>.npz``)
 HITRAN_DIR = os.path.join(REPO_ROOT, "data", "hitran")
+#: the Toon GGG2014 merged solar transmission line list (nu, transmission)
+SOLAR_FILE = os.path.join(REPO_ROOT, "data", "solar", "solar.out")

@@ -204,6 +204,10 @@ class RTParameters:
     absorption_params: Optional[AbsorptionParameters]
     scattering_params: Optional[ScatteringParameters]
 
+    def __repr__(self):          # ref: show_utils.jl Base.show overload
+        from vsmartmom_torch.util.show import describe_parameters
+        return describe_parameters(self)
+
 
 _REQUIRED = [
     ("radiative_transfer", "spec_bands"),

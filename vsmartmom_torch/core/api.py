@@ -5,9 +5,12 @@ ref: src/CoreRT/rt_run.jl:19-230 and
 """
 from __future__ import annotations
 
+from typing import Sequence, Union
+
 import numpy as np
 import torch
 
+from vsmartmom_torch.core.brdf import legendre_spectral_albedo
 from vsmartmom_torch.core.model import RTModel
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
 from vsmartmom_torch.util.device import DEFAULT_DEVICE
@@ -51,30 +54,122 @@ def build_band_inputs(model: RTModel, i_band: int,
     return BandRTInputs(tau=tau_total, omega=omega, zw=zw, greeks=greeks)
 
 
-def rt_run(model: RTModel, i_band: int = 0, dtype=None, rs_type=None,
-           device=DEFAULT_DEVICE, engine: str = "auto"):
-    """Run the elastic forward RT simulation for band ``i_band`` on
+def band_spec_lim(model: RTModel, bands: Sequence[int]):
+    """Index ranges of each band on the concatenated spectral axis.
+
+    ref: the reference's bandSpecLim bookkeeping (rt_run.jl:66-74,
+    types.jl:665-670). Returns a list of ``slice`` objects.
+    """
+    lims, lo = [], 0
+    for ib in bands:
+        n = len(model.params.spec_bands[ib])
+        lims.append(slice(lo, lo + n))
+        lo += n
+    return lims
+
+
+def concat_band_inputs(model: RTModel, bands: Sequence[int]) -> BandRTInputs:
+    """Concatenate several bands onto ONE spectral axis.
+
+    ref: the reference's ``*`` band-concatenation operator on
+    CoreScatteringOpticalProperties (types.jl:665-687) + bandSpecLim.
+    Aerosol optics are wavelength-dependent, so each band contributes its
+    own Z components (K = 1 Rayleigh + the aerosols of every band); their
+    mixing-weight rows are zero outside the band's spectral range, which
+    keeps the on-device Z assembly exact.
+    """
+    parts = [build_band_inputs(model, ib) for ib in bands]
+    n_z = parts[0].tau.shape[0]
+    n_specs = [p.tau.shape[1] for p in parts]
+
+    tau = np.concatenate([p.tau for p in parts], axis=1)
+    omega = np.concatenate([p.omega for p in parts], axis=1)
+
+    # shared Rayleigh row + per-band aerosol component rows
+    greeks = [parts[0].greeks[0]]
+    k_tot = 1 + sum(len(p.greeks) - 1 for p in parts)
+    zw = np.zeros((n_z, k_tot, sum(n_specs)))
+    k = 1
+    lo = 0
+    for p, n_s in zip(parts, n_specs):
+        zw[:, 0, lo:lo + n_s] = p.zw[:, 0, :]
+        n_aer = len(p.greeks) - 1
+        zw[:, k:k + n_aer, lo:lo + n_s] = p.zw[:, 1:, :]
+        greeks.extend(p.greeks[1:])
+        k += n_aer
+        lo += n_s
+    return BandRTInputs(tau=tau, omega=omega, zw=zw, greeks=greeks)
+
+
+def _band_surface(model: RTModel, ib: int):
+    """Band ``ib``'s surface; the last one is reused when fewer surfaces
+    are given than bands (the reference's VS configurations do this)."""
+    surfaces = model.params.surfaces
+    return surfaces[min(ib, len(surfaces) - 1)]
+
+
+def _concat_surface(model: RTModel, bands: Sequence[int]):
+    """Surface for the band-concatenated run: per-band Lambertian surfaces
+    merge into one spectral-albedo vector; identical BRDF surfaces across
+    every band pass through unchanged (their Fourier rho matrices are
+    spectrally constant, so the concatenated axis is transparent to them).
+    Returns None when bands mix BRDF types or parameters (per-band runs).
+    """
+    per_band = [_band_surface(model, ib) for ib in bands]
+    if any(s["type"] in ("rpvSurfaceScalar", "RossLiSurfaceScalar")
+           for s in per_band):
+        if all(s == per_band[0] for s in per_band[1:]):
+            return per_band[0]
+        return None
+    chunks = []
+    for ib, s in zip(bands, per_band):
+        n_s = len(model.params.spec_bands[ib])
+        if s["type"] == "LambertianSurfaceScalar":
+            chunks.append(np.full(n_s, float(s["albedo"])))
+        elif s["type"] == "LambertianSurfaceSpectrum":
+            chunks.append(np.asarray(s["albedo"], np.float64))
+        elif s["type"] == "LambertianSurfaceLegendre":
+            chunks.append(legendre_spectral_albedo(s["legendre_coeff"], n_s))
+        else:
+            return None
+    return {"type": "LambertianSurfaceSpectrum",
+            "albedo": np.concatenate(chunks)}
+
+
+def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
+           dtype=None, rs_type=None, device=DEFAULT_DEVICE,
+           engine: str = "auto"):
+    """Run the elastic forward RT simulation for band(s) ``i_band`` on
     ``device`` ("cuda" unless the caller asks for "cpu"); returns (R_SFI,
     T_SFI) of shape (n_vza, n_stokes, nSpec).
 
+    Several bands are concatenated along the spectral axis (ref: bandSpecLim
+    bookkeeping in rt_run.jl:66-74; band_spec_lim gives each band's slice):
+    when every band's surface merges (_concat_surface), one rt_run_band runs
+    over the concatenated axis, otherwise one per band.
     ``dtype`` defaults to the parameters' float_type. ``engine`` is passed
-    to rt_run_band ("auto" or one of core.rt_run.ENGINES). Band concatenation
-    (several bands in one run) and inelastic (Raman) ``rs_type`` are not
-    ported yet.
+    to rt_run_band ("auto" or one of core.rt_run.ENGINES). Inelastic
+    (Raman) ``rs_type`` is not ported yet.
     """
     if rs_type is not None and rs_type != "noRS":
         raise NotImplementedError(
             "Raman coupling is not ported yet (ROADMAP queue 1, item 7)")
-    if not isinstance(i_band, int):
-        raise NotImplementedError(
-            "band concatenation is not ported yet (ROADMAP queue 1, item 5)")
     if dtype is None:
         dtype = (torch.float32 if model.params.float_type == "Float32"
                  else torch.float64)
-    surfaces = model.params.surfaces
-    # reuse the last surface when fewer are given than bands
-    surface = surfaces[min(i_band, len(surfaces) - 1)]
-    return rt_run_band(model.pol, model.quad_points,
-                       build_band_inputs(model, i_band), model.obs_geom.vza,
-                       model.obs_geom.vaz, model.params.max_m, surface,
-                       dtype=dtype, device=device, engine=engine)
+    bands = [i_band] if isinstance(i_band, int) else list(i_band)
+
+    def run(band, surface):
+        return rt_run_band(model.pol, model.quad_points, band,
+                           model.obs_geom.vza, model.obs_geom.vaz,
+                           model.params.max_m, surface, dtype=dtype,
+                           device=device, engine=engine)
+
+    if len(bands) > 1:
+        surface = _concat_surface(model, bands)
+        if surface is not None:
+            return run(concat_band_inputs(model, bands), surface)
+    outs = [run(build_band_inputs(model, ib), _band_surface(model, ib))
+            for ib in bands]
+    return tuple(np.concatenate([o[i] for o in outs], axis=-1)
+                 for i in range(2))

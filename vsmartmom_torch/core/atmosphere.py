@@ -74,9 +74,11 @@ def compute_atmos_profile_fields(T, p_half, q, vmr, g0=9.807) -> AtmosphericProf
 def reduce_profile(n: int, profile: AtmosphericProfile) -> AtmosphericProfile:
     """Re-bin the profile to n near-equidistant pressure layers.
 
-    ref: atmo_prof.jl:137-195
+    ref: atmo_prof.jl:137-195. Raises ValueError where n is not below the
+    layer count or a bin holds no layer (the JAX package asserts both).
     """
-    assert n < profile.n_layers, "can only reduce the profile"
+    if n >= profile.n_layers:
+        raise ValueError("can only reduce the profile")
     a = np.linspace(0.0, profile.p_half.max(), n + 1)
 
     T = np.zeros(n)
@@ -90,7 +92,10 @@ def reduce_profile(n: int, profile: AtmosphericProfile) -> AtmosphericProfile:
     indices = []
     for i in range(n):
         ind = np.where((a[i] < profile.p_full) & (profile.p_full <= a[i + 1]))[0]
-        assert len(ind) > 0, "Profile reduction has an empty layer"
+        if len(ind) == 0:
+            raise ValueError(
+                f"Profile reduction has an empty layer ({a[i]:.2f}-"
+                f"{a[i + 1]:.2f} hPa)")
         indices.append(ind)
         p_full[i] = profile.p_full[ind].mean()
         T[i] = profile.T[ind].mean()

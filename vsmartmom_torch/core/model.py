@@ -26,6 +26,7 @@ from vsmartmom_torch.scattering.nai2 import AerosolOptics
 from vsmartmom_torch.scattering.phase import (GreekCoefs, Polarization,
                                               get_greek_rayleigh)
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
+from vsmartmom_torch.util.logging import logger
 from vsmartmom_torch.util.quadrature import QuadPoints, rt_set_streams
 
 
@@ -57,12 +58,20 @@ class RTModel:
     profile: AtmosphericProfile
     pol: Polarization
 
+    def __repr__(self):          # ref: show_utils.jl Base.show overload
+        from vsmartmom_torch.util.show import describe_model
+        return describe_model(self)
+
 
 def model_from_parameters(params: RTParameters,
                           device=DEFAULT_DEVICE) -> RTModel:
     """Build the model: streams, profile, Rayleigh, line-by-line
     absorption (on ``device``: "cuda" unless the caller asks for "cpu") and
-    the δ-BGE-truncated NAI2 aerosols."""
+    the δ-BGE-truncated NAI2 aerosols.
+
+    YAML ``LUTfiles`` are parsed and not used, as in the JAX package
+    (vsmartmom/core/model.py:80-87): absorption is line by line, and one
+    warning names the ignored files."""
     device = resolve_device(device)
     n_bands = len(params.spec_bands)
     n_aer = (0 if params.scattering_params is None
@@ -81,6 +90,12 @@ def model_from_parameters(params: RTParameters,
 
     greek_rayleigh = get_greek_rayleigh(params.depol)
 
+    if params.absorption_params is not None \
+            and params.absorption_params.luts:
+        logger.warning(
+            "absorption LUTfiles are ignored (line-by-line absorption "
+            "instead): %s", params.absorption_params.luts)
+
     tau_rayl = []
     tau_abs = []
     for i_band, band in enumerate(params.spec_bands):
@@ -92,12 +107,6 @@ def model_from_parameters(params: RTParameters,
             from vsmartmom_torch.spectroscopy.profiles import \
                 compute_absorption_profile
             ap = params.absorption_params
-            if ap.luts:
-                # the JAX package parses LUTfiles and ignores them; the port
-                # refuses them until the LUT path is ported
-                raise NotImplementedError(
-                    "absorption LUTfiles are not ported yet "
-                    "(spectroscopy/lut.py, ROADMAP queue 1, item 5)")
             for mol in ap.molecules[i_band]:
                 compute_absorption_profile(
                     ta, mol, ap, band, profile.vmr[mol], profile,

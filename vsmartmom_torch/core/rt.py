@@ -229,6 +229,21 @@ def exp_small(x):
     return 1.0 + torch.expm1(x)
 
 
+#: expm1 argument above which exp_difference drops its subtracted term
+#: (below e^-80 of the other): float32 expm1 overflows beyond 88.7
+EXP_DIFF_CUT = 80.0
+
+
+def exp_difference(e_b, e_a, arg):
+    """e^-b - e^-a from e_b = e^-b, e_a = e^-a and arg = a - b (one
+    subtraction of exact node values): e_a expm1(arg), or e_b where arg >
+    EXP_DIFF_CUT. There e_a is negligible, and in float32 the product
+    would be 0 * inf (e^-a underflows where expm1(arg) overflows): an
+    optically thick elemental slab seen at a grazing stream, e.g. an O2
+    A-band line core (dtau 3.4) at mu = 0.0199."""
+    return torch.where(arg > EXP_DIFF_CUT, e_b, e_a * torch.expm1(arg))
+
+
 def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
               i0_vec, i_mu0_n, n_stokes, mu0_node, split=False):
     """Single-scattering initialization of an elemental layer.
@@ -271,8 +286,8 @@ def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
     # e^{-dt/mu_i} - e^{-dt/mu_j} = e^{-dt/mu_j} expm1(dt/mu_j - dt/mu_i),
     # the expm1 argument as ONE subtraction of exact node values.
     denom = torch.where(same_mu, 1.0, mu_i - mu_j)
-    exp_diff = (exp_small(-dt / mu_j)
-                * torch.expm1(dt * (mu_i - mu_j) / (mu_i * mu_j)))
+    exp_diff = exp_difference(exp_i, exp_small(-dt / mu_j),
+                              dt * (mu_i - mu_j) / (mu_i * mu_j))
     t_off = om * z_pp * (mu_j / denom) * wct2[None, None, :] * exp_diff
     if split:
         # diffuse deviation only: the selects of t_pp below, minus diag(g)
@@ -304,9 +319,9 @@ def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
     # with mu0 (the mu_i - mu0 division would produce inf * 0 = NaN)
     same0 = in_block[None, :] | (mu_iv == mu0_node)
     denom0 = torch.where(same0, 1.0, mu_iv - mu0_node)
-    exp_diff0 = (exp_small(-dt_v / mu0_node)
-                 * torch.expm1(dt_v * (mu_iv - mu0_node)
-                               / (mu_iv * mu0_node)))
+    exp_diff0 = exp_difference(exp_iv, exp_small(-dt_v / mu0_node),
+                               dt_v * (mu_iv - mu0_node)
+                               / (mu_iv * mu0_node))
     j_p = torch.where(same0, (dt_v / mu_iv) * exp_iv,
                       (mu0_node / denom0) * exp_diff0)
     j_p = wct02 * omega[:, None] * z_pp_i0 * j_p

@@ -43,17 +43,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vsmartmom_torch.core.rt import (bmv, dev_to_full, elemental_flipped,
+from vsmartmom_torch.core.brdf import (brdf_fourier_matrix,
+                                       legendre_spectral_albedo)
+from vsmartmom_torch.core.rt import (LayerRT, bmv, dev_to_full,
+                                     elemental_flipped,
                                      elemental_flipped_dev, interaction,
                                      interaction_dev, make_added_layer,
                                      make_added_layer_dev, make_rsolve,
                                      ns_doubling_schedule,
                                      ns_interaction_iters, vacuum_layer,
                                      vacuum_layer_dev)
-from vsmartmom_torch.core.surface import lambertian_surface_layer
+from vsmartmom_torch.core.surface import (brdf_surface_layer,
+                                          lambertian_surface_layer)
 from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 from vsmartmom_torch.util.quadrature import QuadPoints, nearest_point
+from vsmartmom_torch.util.timing import timeit
 
 #: largest stream count N the fused layer-step kernel takes (its per-point
 #: shared-memory arena at N = 63 is 188 KB of the 227 KB a block may use)
@@ -98,9 +103,12 @@ def schedule_buckets(layer_schedules):
 def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                   albedo, spectral_albedo, mu0, mu0_node, min_qp_mu,
                   *, i_mu0_n, n_stokes, is_m0, solver, layer_schedules,
-                  engine):
+                  engine, rho_brdf=None):
     """One Fourier moment: layer scan + surface. Returns the composite
     layer and the surface-leaving source vector (hdr).
+
+    ``rho_brdf``: the BRDF surface's (N, N) Fourier matrix of this moment,
+    or None for a Lambertian surface (``albedo``, ``spectral_albedo``).
 
     ``layer_schedules``: one (ndoubl, ns_schedule, ni) entry per layer;
     ndoubl None derives each layer's doubling count from its optical depth,
@@ -208,9 +216,13 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     elif engine == "kernel_lanes":
         comp = from_lanes(comp)
 
-    surf = lambertian_surface_layer(
-        albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1], mu0,
-        is_m0, spectral_albedo=spectral_albedo)
+    if rho_brdf is not None:
+        surf = brdf_surface_layer(rho_brdf, n_spec, qp, wt, i0_vec,
+                                  tau_sum_all[-1], mu0)
+    else:
+        surf = lambertian_surface_layer(
+            albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1], mu0,
+            is_m0, spectral_albedo=spectral_albedo)
     comp = interaction(comp, surf, eye, rsolve=rsolve)
 
     # Surface-leaving radiance for hemispheric (HDRF/BHR) outputs: upwelling
@@ -331,16 +343,21 @@ def select_engine(engine: str, device: torch.device, dtype, n: int,
 def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                 vza, vaz, max_m: int, surface, dtype=torch.float64,
                 device=DEFAULT_DEVICE, solver: Optional[str] = None,
-                return_hdr: bool = False,
+                return_hdr: bool = False, return_composite: bool = False,
                 engine: str = "auto", sfi: bool = True):
     """Run the full Fourier-moment loop for one band; azimuthally synthesize.
 
-    surface: dict like {"type": "LambertianSurfaceScalar", "albedo": 0.1}
-    (or "LambertianSurfaceSpectrum" with an (nSpec,) albedo).
+    surface: dict like {"type": "LambertianSurfaceScalar", "albedo": 0.1};
+    also "LambertianSurfaceSpectrum" (an (nSpec,) albedo),
+    "LambertianSurfaceLegendre" (a Legendre expansion of the albedo over
+    the band), "rpvSurfaceScalar" and "RossLiSurfaceScalar" (BRDFs, one
+    (N, N) Fourier matrix per moment, core/brdf.py).
     Returns (R_SFI, T_SFI) of shape (n_vza, n_stokes, nSpec); with
     ``return_hdr`` also (hdr, bhr_uw, bhr_dw): the hemispheric-directional
     surface-leaving radiance per VZA plus the bi-hemispheric up/downwelling
-    fluxes at the surface (ref: rt_run.jl:187-226 RAMI outputs).
+    fluxes at the surface (ref: rt_run.jl:187-226 RAMI outputs); with
+    ``return_composite`` last the list of each moment's composite layer
+    (a LayerRT of host numpy arrays).
     ``device``: "cuda" (default) or "cpu"; a CUDA device without CUDA
     raises.
     ``solver``: "lu" (default on the CPU) or "schulz" (default on CUDA).
@@ -376,15 +393,16 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
 
     albedo = 0.0
     spectral_albedo = None
+    is_brdf = False
     if surface["type"] == "LambertianSurfaceScalar":
         albedo = float(surface["albedo"])
     elif surface["type"] == "LambertianSurfaceSpectrum":
         spectral_albedo = to_dev(surface["albedo"])
-    elif surface["type"] in ("LambertianSurfaceLegendre", "rpvSurfaceScalar",
-                             "RossLiSurfaceScalar"):
-        raise NotImplementedError(
-            f"surface {surface['type']!r} is not ported yet "
-            f"(core/brdf.py, ROADMAP queue 1, item 6)")
+    elif surface["type"] == "LambertianSurfaceLegendre":
+        spectral_albedo = to_dev(
+            legendre_spectral_albedo(surface["legendre_coeff"], n_spec))
+    elif surface["type"] in ("rpvSurfaceScalar", "RossLiSurfaceScalar"):
+        is_brdf = True
     else:
         raise NotImplementedError(surface["type"])
 
@@ -424,36 +442,51 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
         d_d, i0_d = to_dev(d_vec), to_dev(i0_vec)
         albedo_d, mu0_d, mu0_node_d, min_mu_d = (
             to_dev(v) for v in (albedo, quad.mu0, mu0_node, min_qp_mu))
+        comps = []
         for m in range(max_m):
-            z_pp_list, z_mp_list = [], []
-            for gc in band.greeks:
-                zpp, zmp = compute_Z_moments(pol, quad.qp_mu, gc, m)
-                z_pp_list.append(zpp)
-                z_mp_list.append(zmp)
-            comp, hdr_j_m_dev = _fourier_step(
-                tau_d, omega_d, zw_d, to_dev(np.stack(z_pp_list)),
-                to_dev(np.stack(z_mp_list)), qp_d, wt_d, d_d, i0_d,
-                albedo_d, spectral_albedo, mu0_d, mu0_node_d, min_mu_d,
-                i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
-                is_m0=(m == 0), solver=solver, layer_schedules=schedules,
-                engine=engine)
+            with timeit("Z moments", device):
+                z_pp_list, z_mp_list = [], []
+                for gc in band.greeks:
+                    zpp, zmp = compute_Z_moments(pol, quad.qp_mu, gc, m)
+                    z_pp_list.append(zpp)
+                    z_mp_list.append(zmp)
+                z_pp_c = to_dev(np.stack(z_pp_list))
+                z_mp_c = to_dev(np.stack(z_mp_list))
+
+            # brdf_fourier_matrix carries the (2/pi) integral factor common
+            # to every moment (the reference splits it as ff * 2 between
+            # reflectance() and create_surface_layer!, same total)
+            rho_brdf = (to_dev(brdf_fourier_matrix(surface, quad.qp_mu, m,
+                                                   n_stokes))
+                        if is_brdf else None)
+
+            with timeit("fourier step (layer scan + surface)", device):
+                comp, hdr_j_m_dev = _fourier_step(
+                    tau_d, omega_d, zw_d, z_pp_c, z_mp_c, qp_d, wt_d, d_d,
+                    i0_d, albedo_d, spectral_albedo, mu0_d, mu0_node_d,
+                    min_mu_d, i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
+                    is_m0=(m == 0), solver=solver, layer_schedules=schedules,
+                    engine=engine, rho_brdf=rho_brdf)
+            if return_composite:
+                comps.append(LayerRT(*(x.cpu().numpy() for x in comp)))
 
             # --- azimuthal synthesis (ref: tools/postprocessing_vza.jl:9-60)
-            if sfi:
-                j_m = comp.j_m.cpu().numpy()     # (nSpec, N)
-                j_p = comp.j_p.cpu().numpy()
-            else:
-                # operator columns at the mu0 node applied to the discretized
-                # delta beam I0/(w0 mu0); the operators carry the quadrature
-                # weight on the incoming column, so the beam node's weight
-                # divides out
-                sl0 = slice(quad.i_mu0_n, quad.i_mu0_n + n_stokes)
-                i0_blk = np.asarray(pol.i0, np.float64)
-                w0 = float(quad.wt_mu_n[quad.i_mu0_n])
-                r_cols = comp.r_mp[:, :, sl0].cpu().numpy()
-                t_cols = comp.t_pp[:, :, sl0].cpu().numpy()
-                j_m = (r_cols @ i0_blk) / w0                # (nSpec, N)
-                j_p = (t_cols @ i0_blk) / w0
+            with timeit("postprocessing (device fetch)", device):
+                if sfi:
+                    j_m = comp.j_m.cpu().numpy()     # (nSpec, N)
+                    j_p = comp.j_p.cpu().numpy()
+                else:
+                    # operator columns at the mu0 node applied to the
+                    # discretized delta beam I0/(w0 mu0); the operators
+                    # carry the quadrature weight on the incoming column,
+                    # so the beam node's weight divides out
+                    sl0 = slice(quad.i_mu0_n, quad.i_mu0_n + n_stokes)
+                    i0_blk = np.asarray(pol.i0, np.float64)
+                    w0 = float(quad.wt_mu_n[quad.i_mu0_n])
+                    r_cols = comp.r_mp[:, :, sl0].cpu().numpy()
+                    t_cols = comp.t_pp[:, :, sl0].cpu().numpy()
+                    j_m = (r_cols @ i0_blk) / w0            # (nSpec, N)
+                    j_p = (t_cols @ i0_blk) / w0
             hdr_j_m = hdr_j_m_dev.cpu().numpy() if return_hdr else None
             weight = 0.5 if m == 0 else 1.0
             for i in range(len(vza)):
@@ -484,4 +517,6 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     out = [R_SFI, T_SFI]
     if return_hdr:
         out += [hdr, bhr_uw, bhr_dw]
+    if return_composite:
+        out.append(comps)
     return tuple(out)

@@ -1,7 +1,8 @@
 """Lower-boundary (surface) layers as LayerRT slabs.
 
 ref: src/CoreRT/Surfaces/lambertian_surface.jl (Lambertian scalar /
-spectral albedo). BRDF surfaces are not ported yet.
+spectral albedo), Surfaces/rpv_surface.jl (a BRDF's Fourier moment, whose
+matrices core/brdf.py builds).
 """
 from __future__ import annotations
 
@@ -49,5 +50,30 @@ def lambertian_surface_layer(albedo, n_spec, n_stokes, qp, wt, i0_vec,
     j_m = mu0 * r_i0 * atten
 
     r_mp = (r_surf_pre * (qp * wt)[None, None, :]).expand(n_spec, n, n)
+    return LayerRT(r_mp=r_mp, r_pm=zero_m, t_pp=eye, t_mm=eye,
+                   j_p=j_p, j_m=j_m)
+
+
+def brdf_surface_layer(rho_pre, n_spec, qp, wt, i0_vec, tau_sum, mu0
+                       ) -> LayerRT:
+    """Generic BRDF surface as an added layer, from the pre-weight Fourier
+    reflection matrix rho_pre (N, N) of the current moment m (a tensor of
+    ``qp``'s dtype and device).
+
+    r^-+ = rho_pre diag(qp wt); the sources use the unweighted matrix at
+    the solar node (ref: Surfaces/rpv_surface.jl create_surface_layer!:
+    28-64). Unlike a Lambertian's, a BRDF's moments m > 0 are generally
+    nonzero.
+    """
+    n = qp.shape[0]
+    dtype, device = qp.dtype, qp.device
+    eye = torch.eye(n, dtype=dtype, device=device).expand(n_spec, n, n)
+    zero_m = torch.zeros((n_spec, n, n), dtype=dtype, device=device)
+    atten = torch.exp(-tau_sum / mu0)[:, None]
+
+    j_p = i0_vec.expand(n_spec, n) * atten
+    j_m = mu0 * (rho_pre @ i0_vec)[None, :] * atten
+
+    r_mp = (rho_pre * (qp * wt)[None, :]).expand(n_spec, n, n)
     return LayerRT(r_mp=r_mp, r_pm=zero_m, t_pp=eye, t_mm=eye,
                    j_p=j_p, j_m=j_m)

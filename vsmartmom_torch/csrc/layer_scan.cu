@@ -74,6 +74,16 @@ struct ScanArgs {
   float mu0, mu0_node, wct02, inv_scale;
 };
 
+// e^-b - e^-a from e_b, e_a and arg = a - b, as core/rt.py:exp_difference:
+// beyond arg = 80 e_a is negligible and e_a * expm1f(arg) would be 0 * inf.
+// expm1f runs on every element (its argument clamped to the cut), so the
+// select adds no branch to the element loop.
+__device__ __forceinline__ float exp_difference(float e_b, float e_a,
+                                                float arg) {
+  const float d = e_a * expm1f(fminf(arg, 80.f));
+  return arg > 80.f ? e_b : d;
+}
+
 // Z mixtures of layer z into A (z_pp) and M0 (z_mp), the elemental layer in
 // flipped space into R, T (the current slot), JP, JM. Returns the layer's
 // e^(-dtau/mu0), synchronised.
@@ -118,8 +128,9 @@ elemental_phase(const Team<C>& tm, float* ar, const Arena& o, int p, int z,
                                                       * w_j))
                  : 0.f;
     } else {
-      const float exp_diff = (1.f + expm1f(-dt / mu_j))
-                             * expm1f(dt * (mu_i - mu_j) / (mu_i * mu_j));
+      const float exp_diff = exp_difference(
+          exp_i, 1.f + expm1f(-dt / mu_j),
+          dt * (mu_i - mu_j) / (mu_i * mu_j));
       t = om * zpp * (mu_j / (mu_i - mu_j)) * w_j * exp_diff;
     }
     R[i * ld + j] = d[i] * r;
@@ -139,8 +150,9 @@ elemental_phase(const Team<C>& tm, float* ar, const Arena& o, int p, int z,
     if (same0) {
       jp = (dt / mu_i) * (1.f + expm1f(-dt / mu_i));
     } else {
-      const float exp_diff0 = (1.f + expm1f(-dt / mu0n))
-                              * expm1f(dt * (mu_i - mu0n) / (mu_i * mu0n));
+      const float exp_diff0 = exp_difference(
+          1.f + expm1f(-dt / mu_i), 1.f + expm1f(-dt / mu0n),
+          dt * (mu_i - mu0n) / (mu_i * mu0n));
       jp = (mu0n / (mu_i - mu0n)) * exp_diff0;
     }
     jp = a.wct02 * om * zpp_i0 * jp;

@@ -22,8 +22,8 @@ from vsmartmom_torch.spectroscopy.hitran import (HitranEmptyError,
                                                  read_hitran,
                                                  read_linelist_npz)
 from vsmartmom_torch.spectroscopy.voigt import (
-    compute_absorption_cross_section, line_parameters, make_hitran_model,
-    make_voigt_plan)
+    check_kernel_model, compute_absorption_cross_section, kernel_computes,
+    line_parameters, make_hitran_model, make_voigt_plan)
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
 #: HITRAN molecule numbers for the name-keyed line-list lookup
@@ -76,6 +76,24 @@ def read_linelist(path: str, molecule: str, nu_min: float = 0.0,
     return read_hitran(path, nu_min=nu_min, nu_max=nu_max)
 
 
+def select_voigt_engine(engine: str, device: torch.device, model) -> str:
+    """Resolve ``engine`` ("auto", "kernel" or "dense") for ``model``.
+
+    "auto" takes the Voigt kernel on CUDA for a model whose line shape it
+    computes (the default CEF's Voigt profile, voigt.kernel_computes) and
+    the dense engine otherwise, so every CEF computes what it names.
+    "kernel" with another CEF or broadening raises ValueError.
+    """
+    if engine == "auto":
+        return ("kernel" if device.type == "cuda" and kernel_computes(model)
+                else "dense")
+    if engine == "kernel":
+        check_kernel_model(model)
+    elif engine != "dense":
+        raise ValueError(f"unknown engine {engine!r}")
+    return engine
+
+
 def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
                                absorption_params, grid, vmr, profile,
                                lut_path: Optional[str] = None,
@@ -85,9 +103,11 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
 
     ref: atmo_prof.jl:427-449. Mutates tau_abs (nSpec, nZ) in place.
 
+    ``lut_path``: an InterpolationModel npz (spectroscopy.lut) to
+    interpolate sigma from, on the host, in place of the line list.
     engine: 'dense' (f64 sweep — the HAPI-gate numerics, layer by layer),
     'kernel' (the f32 tiled Voigt kernel: every layer in one launch), or
-    'auto' (kernel on CUDA, dense on the CPU).
+    'auto' (see select_voigt_engine).
     """
     device = resolve_device(device)
     n_z = profile.n_layers
@@ -99,9 +119,14 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
         raise ValueError(
             "Length of VMR array has to match profile size or be uniform")
     if lut_path is not None:
-        raise NotImplementedError(
-            "interpolation LUTs are not ported yet (spectroscopy/lut.py, "
-            "ROADMAP queue 1, item 5)")
+        # scipy's interpolators load only for a table
+        from vsmartmom_torch.spectroscopy.lut import load_interpolation_model
+        lut = load_interpolation_model(lut_path)
+        for iz in range(n_z):
+            tau_abs[:, iz] += (lut(grid, float(profile.p_full[iz]),
+                                   float(profile.T[iz]))
+                               * profile.vcd_dry[iz] * vmr_arr[iz])
+        return tau_abs
 
     lo = float(np.min(grid)) - absorption_params.wing_cutoff
     hi = float(np.max(grid)) + absorption_params.wing_cutoff
@@ -125,8 +150,7 @@ def compute_absorption_profile(tau_abs: np.ndarray, molecule: str,
     model = make_hitran_model(ht, absorption_params.broadening,
                               wing_cutoff=absorption_params.wing_cutoff,
                               cef=absorption_params.cef, vmr=0.0)
-    if engine == "auto":
-        engine = "kernel" if device.type == "cuda" else "dense"
+    engine = select_voigt_engine(engine, device, model)
     if engine == "kernel":
         # every layer in one launch, one copy to the host
         plan = make_voigt_plan(model, grid, device=device)

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from vsmartmom_torch.spectroscopy import tips
-from vsmartmom_torch.spectroscopy.cef import CEF_REGISTRY
+from vsmartmom_torch.spectroscopy.cef import CEF_REGISTRY, KERNEL_CEF
 from vsmartmom_torch.spectroscopy.hitran import HitranTable
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
@@ -184,6 +184,21 @@ def line_parameters(model: HitranModel, pressure, temperature):
     return nu_s, s, gamma_d, y
 
 
+def kernel_computes(model: HitranModel) -> bool:
+    """Whether the Voigt kernel computes this model's line shape: it
+    evaluates the Voigt profile with the reference's default CEF only."""
+    return model.broadening == "Voigt" and model.cef == KERNEL_CEF
+
+
+def check_kernel_model(model: HitranModel):
+    """Raise ValueError where the Voigt kernel would compute another line
+    shape than ``model`` asks for."""
+    if not kernel_computes(model):
+        raise ValueError(
+            f"the Voigt kernel computes {KERNEL_CEF} Voigt profiles only, "
+            f"not {model.broadening} with {model.cef}: use engine='dense'")
+
+
 def make_voigt_plan(model: HitranModel, grid, device=DEFAULT_DEVICE):
     """Tiling plan for repeated (p, T) evaluations of this model on a fixed
     grid (see cuda.voigt_kernel.VoigtPlan)."""
@@ -201,19 +216,19 @@ def compute_absorption_cross_section(model: HitranModel, grid, pressure,
 
     engine='dense' (default): f64 sweep (the HAPI-gate path).
     engine='kernel': f32 tiled Voigt kernel (pass a cached ``plan`` from
-    make_voigt_plan to reuse the host tiling across (p, T) calls).
+    make_voigt_plan to reuse the host tiling across (p, T) calls); raises
+    ValueError for a model whose line shape the kernel does not compute
+    (kernel_computes).
     ref: compute_absorption_cross_section.jl:19-130
     """
     device = resolve_device(device)
     if engine == "kernel":
+        check_kernel_model(model)
         if plan is None:
             plan = make_voigt_plan(model, grid, device=device)
         return plan.run(*line_parameters(model, pressure, temperature))
     if engine != "dense":
         raise ValueError(f"unknown engine {engine!r}")
-    if model.cef not in CEF_REGISTRY:
-        raise NotImplementedError(
-            f"CEF {model.cef!r} is not ported yet (ROADMAP queue 1, item 5)")
     grid = np.asarray(grid, dtype=np.float64)
     ht = model.hitran
 
