@@ -82,6 +82,26 @@ Run from the repository root:  python3 chip_smoke.py
    lanes step at this shape, every launch within 1e-5 of its plain version
    (the compared launches counted) and timed, and each Voigt launch of the
    build within 2e-5 of max sigma, with their bounds.
+13. (i) The Raman path (vsmartmom_torch/core/rt_raman.py: torch ops and
+   torch.matmul, no kernel of its own; no TPU kernel on its path either):
+   (a) tests/data/ref_yaml/O2Parameters.yaml as written (Float64, 6 837
+   points, Stokes_IQU N = 15, 5 layers, 3 moments, 172 Raman shift rows):
+   the model build with the launch counts reset just before (one Voigt
+   launch, O2) and rt_run(model, rs_type="RRS"), which launches no layer
+   kernel; shapes (4, 3, 6 837), finite, ieR nonzero, I of R + ieR
+   positive; first and steady seconds, points/s and peak device memory;
+   the build's Voigt launch held against its plain version (2e-5 of max
+   sigma) and timed, with its bound; (b) the same run in float32, R, T,
+   ieR and ieT each within 1e-4 of their max in (a); (e) the file's elastic
+   run in float32 through kernel_scan, where the 60 deg view merges with
+   the Gauss node 0.5 (the scan kernel's merged-node branch): launches
+   counted, every launch within 1e-5 of its plain version (the compared
+   launches counted) and timed, R/T within 1e-3 of the float64 torch
+   engine; (c) tests/test_raman.py's band (88 points, 2 layers) in float64
+   on the card within 1e-10 of the port's CPU run, the energy check at
+   band centre (rel 2e-3) and the Ring filling-in (core / continuum >
+   1.2) on the card; (d) the bench.py raman_rrs shape (2 048 points, 10
+   layers, Stokes_I) in float32, first and steady seconds and points/s.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
@@ -719,6 +739,256 @@ def three_band_phase(torch, dev, tag, reset_counts, counts, works):
               f"{bound:.4f} ms ({by}) {tag}")
 
 
+O2_YAML = os.path.join("tests", "data", "ref_yaml", "O2Parameters.yaml")
+
+
+def ring_band(tau_abs_center, device):
+    """tests/test_raman.py's RRS band (88 points at 6 cm^-1, 2 Rayleigh
+    layers of tau 0.15, an absorption line of peak tau_abs_center at the
+    centre) under GaussQuadFullSphere l_trunc 8, Stokes_I, sza 45, nadir,
+    black surface, 2 moments. Returns (R_cab, ieR) of the Raman run and
+    R_full of the full-Rayleigh elastic run, float64 on ``device``."""
+    import torch
+    from vsmartmom_torch.core.rt_raman import rt_run_band_rrs
+    from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+    from vsmartmom_torch.inelastic import make_rrs
+    from vsmartmom_torch.scattering.phase import (Polarization,
+                                                  get_greek_rayleigh)
+    from vsmartmom_torch.util.quadrature import rt_set_streams
+    pol = Polarization.from_name("Stokes_I")
+    quad = rt_set_streams("GaussQuadFullSphere", 8, 45.0, [0.0], pol.n)
+    surf = {"type": "LambertianSurfaceScalar", "albedo": 0.0}
+    grid = np.arange(12740.0, 13268.0, 6.0)
+    n_spec = len(grid)
+    rrs = make_rrs(grid, T=250.0)
+    tau_rayl = np.full((2, n_spec), 0.15)
+    tau = tau_rayl + tau_abs_center * np.exp(
+        -0.5 * (np.arange(n_spec) - n_spec // 2) ** 2)[None, :]
+    greeks = [get_greek_rayleigh(rrs.depol_rayl)]
+    cab = BandRTInputs(tau=tau, omega=tau_rayl * rrs.omega_cabannes / tau,
+                       zw=np.ones((2, 1, n_spec)), greeks=greeks)
+    full = BandRTInputs(tau=tau, omega=tau_rayl / tau,
+                        zw=np.ones((2, 1, n_spec)), greeks=greeks)
+    out = rt_run_band_rrs(pol, quad, cab, rrs, tau_rayl / tau, [0.0], [0.0],
+                          2, surf, dtype=torch.float64, device=device)
+    R_full, _ = rt_run_band(pol, quad, full, [0.0], [0.0], 2, surf,
+                            dtype=torch.float64, device=device)
+    return out, R_full
+
+
+def bench_raman_shape():
+    """The raman_rrs shape of bench.py:223-268: 2 048 points at 0.25
+    cm^-1 from 12 700 cm^-1, RRS at 250 K, 10 layers of Rayleigh tau 0.04
+    with an absorption line at 12 950 cm^-1 (peak 0.3 x uniform[0, 1) per
+    layer, seed 0), Stokes_I, GaussQuadFullSphere l_trunc 8, sza 45, vza
+    30, albedo 0.05, 3 moments. Returns the rt_run_band_rrs arguments."""
+    from vsmartmom_torch.core.rt_run import BandRTInputs
+    from vsmartmom_torch.inelastic import make_rrs
+    from vsmartmom_torch.scattering.phase import (Polarization,
+                                                  get_greek_rayleigh)
+    from vsmartmom_torch.util.quadrature import rt_set_streams
+    n_spec, n_z = 2048, 10
+    grid = 12700.0 + 0.25 * np.arange(n_spec)
+    rrs = make_rrs(grid, T=250.0)
+    pol = Polarization.from_name("Stokes_I")
+    quad = rt_set_streams("GaussQuadFullSphere", 8, 45.0, [0.0], pol.n)
+    rng = np.random.default_rng(0)
+    tau_rayl = np.full((n_z, n_spec), 0.04)
+    tau = tau_rayl + 0.3 * rng.random((n_z, 1)) * np.exp(
+        -0.5 * ((grid - 12950.0) / 2.0) ** 2)[None, :]
+    band = BandRTInputs(tau=tau, omega=tau_rayl * rrs.omega_cabannes / tau,
+                        zw=np.ones((n_z, 1, n_spec)),
+                        greeks=[get_greek_rayleigh(rrs.depol_rayl)])
+    return (pol, quad, band, rrs, tau_rayl / tau, [30.0], [0.0], 3,
+            {"type": "LambertianSurfaceScalar", "albedo": 0.05})
+
+
+def raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
+                n_buckets):
+    """13. The Raman path (core/rt_raman.py: torch ops, no kernel of its
+    own). (a) O2Parameters.yaml as written (Float64) at full width:
+    model_from_parameters on the card (one Voigt launch, O2) and
+    rt_run(model, rs_type="RRS") with the launch counts reset just before
+    (no layer kernel may launch), first and steady seconds and peak device
+    memory, and the build's Voigt launch held against its plain version
+    (2e-5 of max sigma) and timed; (b) the same in float32 within 1e-4 of
+    (a) per field (the float64-limit forms of ie_elemental; the JAX forms
+    gave 7.5e-4 in ieR and 3.7e-3 in ieT); (e) the file's elastic run in
+    float32 through kernel_scan, where the 60 deg view merges with the Gauss
+    node 0.5 (the scan kernel's merged-node branch): launches counted,
+    every launch within 1e-5 of its plain version, R/T within 1e-3 of the
+    float64 torch engine (the dropped coupling cost 1.3 % of R); (c)
+    tests/test_raman.py's band on the card in float64 against the port's
+    CPU run (1e-10 of max), its energy check and Ring filling-in; (d) the
+    bench.py raman_rrs shape in float32, first and steady seconds."""
+    import vsmartmom_torch as vt
+    from vsmartmom_torch.core.api import _raman_specs, build_band_inputs
+    from vsmartmom_torch.core.rt import merged_nodes
+    from vsmartmom_torch.core.rt_raman import ie_chunk_rows, rt_run_band_rrs
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
+    from vsmartmom_torch.cuda import voigt_kernel as vk
+    from vsmartmom_torch.spectroscopy.profiles import \
+        compute_absorption_profile
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) full width, Float64 as written
+    params = vt.parameters_from_yaml(os.path.join(HERE, O2_YAML))
+    ap = params.absorption_params
+    grid = np.asarray(params.spec_bands[0], np.float64)
+    n_lines = sum(has_lines(m, grid, ap.wing_cutoff)
+                  for m in ap.molecules[0])
+    reset_counts()
+    model, t_build = timed(lambda: vt.model_from_parameters(params,
+                                                            device=dev))
+    n_voigt = vk.launches
+    torch.cuda.reset_peak_memory_stats()
+    out64, t_first = timed(lambda: vt.rt_run(model, rs_type="RRS",
+                                             device=dev))
+    c = counts()
+    peak64 = torch.cuda.max_memory_allocated()
+    n_spec, n_z = len(grid), model.profile.n_layers
+    n = len(model.quad_points.qp_mu_n)
+    n_r = _raman_specs(model, 0, "RRS")[0].n_raman
+    rows = ie_chunk_rows(n_r, n_spec, n, torch.float64, dev)
+    print(f"Raman O2Parameters.yaml (Float64): nSpec={n_spec}, N={n}, "
+          f"nZ={n_z}, max_m={params.max_m}, nR={n_r} ({rows} rows a "
+          f"chunk), one ie field {n_r * n_spec * n * n * 8 / 1e9:.3f} GB; "
+          f"build {t_build:.3f} s, launches: voigt {n_voigt}, rt_run {c} "
+          f"{tag}")
+    check(n_voigt == n_lines == 1, f"Raman O2 build: {n_voigt} Voigt "
+          f"launches, expected one (O2)")
+    check(sum(c.values()) == n_voigt, f"Raman O2 rt_run launched layer "
+          f"kernels: {c}")
+    R, T, ieR, ieT = out64
+    check(all(x.shape == (4, 3, n_spec) for x in out64),
+          f"Raman O2 shapes {[x.shape for x in out64]}")
+    check(all(np.isfinite(x).all() for x in out64),
+          "Raman O2 float64: non-finite output")
+    check(np.abs(ieR).max() > 0, "Raman O2 float64: ieR is zero")
+    check(np.all(R[:, 0] + ieR[:, 0] > 0), "Raman O2 float64: I of R + "
+          "ieR not positive")
+    _, t_steady = timed(lambda: vt.rt_run(model, rs_type="RRS", device=dev))
+    fill = ieR[:, 0] / R[:, 0]
+    print(f"Raman O2 float64: rt_run first {t_first:.3f} s, steady "
+          f"{t_steady:.3f} s = {n_spec / t_steady:.1f} points/s; peak "
+          f"device memory {peak64 / 2**30:.2f} GiB; ieR/R in I "
+          f"{fill.min():.4e} .. {fill.max():.4e} {tag}")
+    # the build's Voigt launch (0.05 cm^-1, this file's profile) against its
+    # plain version
+    st, _ = voigt_compared(torch, vk, compute_absorption_profile, "O2", grid,
+                           model.profile.vmr["O2"], ap, model.profile, dev)
+    ms, plain_ms = st.mean_ms()
+    bound, by = st.bound()
+    print(f"Raman O2 voigt ({n_spec} points, {n_z} layers): {st.calls} "
+          f"compared launch, max|diff| vs plain {st.abs:.3e} ({st.rel:.3e} "
+          f"of max sigma); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound:.4f} ms ({by}) {tag}")
+    check(st.calls == 1 and st.rel <= 2e-5, f"Raman O2 Voigt: {st.calls} "
+          f"compared launches, {st.rel:.3e} of max sigma > 2e-5")
+
+    # (b) the same in float32
+    torch.cuda.reset_peak_memory_stats()
+    out32, t_first32 = timed(lambda: vt.rt_run(model, rs_type="RRS",
+                                               dtype=torch.float32,
+                                               device=dev))
+    peak32 = torch.cuda.max_memory_allocated()
+    _, t_steady32 = timed(lambda: vt.rt_run(model, rs_type="RRS",
+                                            dtype=torch.float32,
+                                            device=dev))
+    errs = [rel_err(a, b) for a, b in zip(out32, out64)]
+    print(f"Raman O2 float32: rt_run first {t_first32:.3f} s, steady "
+          f"{t_steady32:.3f} s = {n_spec / t_steady32:.1f} points/s; peak "
+          f"device memory {peak32 / 2**30:.2f} GiB; vs float64 max|d|/max "
+          f"R {errs[0]:.3e}, T {errs[1]:.3e}, ieR {errs[2]:.3e}, ieT "
+          f"{errs[3]:.3e} {tag}")
+    check(all(np.isfinite(x).all() for x in out32),
+          "Raman O2 float32: non-finite output")
+    check(max(errs) < 1e-4, "Raman O2 float32 R/T/ieR/ieT off float64 by "
+          ">= 1e-4")
+    del out32, out64
+
+    # (e) the elastic run in float32 through kernel_scan: the 60 deg view
+    # merges with the Gauss node 0.5, which the scan kernel's elemental
+    # couples as torch's elemental does
+    qp32 = torch.as_tensor(model.quad_points.qp_mu_n, dtype=torch.float32)
+    n_merged = int(merged_nodes(qp32[:, None] == qp32[None, :],
+                                model.pol.n).sum())
+    check(n_merged > 0, "O2 elastic float32: no merged quadrature nodes")
+    expected = params.max_m * n_buckets(build_band_inputs(model, 0),
+                                        model.quad_points)
+    reset_counts()
+    (Re, Te), t_scan = timed(lambda: vt.rt_run(
+        model, dtype=torch.float32, device=dev, engine="kernel_scan"))
+    c = counts()
+    check(c["kernel_scan"] == expected and sum(c.values()) == expected,
+          f"O2 elastic kernel_scan: launches {c}, expected {expected}")
+    R64, T64 = vt.rt_run(model, dtype=torch.float64, device=dev,
+                         engine="torch")
+    rel_r, rel_t = rel_err(Re, R64), rel_err(Te, T64)
+    st = KernelStats()
+    real = scn.fused_layer_scan
+    scn.fused_layer_scan = compare_hook(torch, st, real,
+                                        scn.fused_layer_scan_plain,
+                                        scan_work, reps=(2, 1))
+    try:
+        vt.rt_run(model, dtype=torch.float32, device=dev,
+                  engine="kernel_scan")
+    finally:
+        scn.fused_layer_scan = real
+    ms, plain_ms = st.mean_ms()
+    bound, by = st.bound()
+    print(f"O2 elastic float32 kernel_scan ({n_merged} merged-node entries "
+          f"of N={n}): {c['kernel_scan']} launches, run {t_scan:.3f} s; vs "
+          f"float64 torch max|dR|/max R = {rel_r:.3e}, max|dT|/max T = "
+          f"{rel_t:.3e}; {st.calls} compared launches, max|diff| vs plain "
+          f"{st.abs:.3e} ({st.rel:.3e} of max); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}) per launch {tag}")
+    check(st.calls == expected and st.rel < 1e-5, f"O2 elastic "
+          f"fused_layer_scan: {st.calls} compared launches (expected "
+          f"{expected}), {st.rel:.3e} of max from the plain version")
+    check(np.isfinite(Re).all() and rel_r < 1e-3 and rel_t < 1e-3,
+          "O2 elastic kernel_scan R/T off float64 by >= 1e-3")
+    del Re, Te, R64, T64, model
+
+    # (c) the card against the CPU, energy and Ring on the card
+    (card, r_full), t_card = timed(lambda: ring_band(0.0, dev))
+    (cpu, _), _ = timed(lambda: ring_band(0.0, "cpu"))
+    card_cpu = max(rel_err(a, b) for a, b in zip(card, cpu))
+    R_cab, _, ie_cab, _ = card
+    mid = R_cab.shape[-1] // 2
+    energy = (R_cab[0, 0, mid] + ie_cab[0, 0, mid]) / r_full[0, 0, mid] - 1
+    (ring, _), _ = timed(lambda: ring_band(2.0, dev))
+    fill = ring[2][0, 0] / ring[0][0, 0]
+    print(f"Raman test band (88 points): card vs CPU float64 "
+          f"max|d|/max {card_cpu:.3e}; energy at band centre "
+          f"(R_cab + ieR) / R_full - 1 = {energy:.3e}; Ring filling-in core "
+          f"/ continuum {fill[mid] / fill[2]:.3f} ({t_card:.2f} s) {tag}")
+    check(card_cpu < 1e-10, "Raman test band: card differs from the CPU")
+    check(abs(energy) < 2e-3, "Raman test band: energy check off 2e-3")
+    check(fill[mid] > 1.2 * fill[2], "Raman test band: no Ring filling-in")
+
+    # (d) the bench.py raman_rrs shape in float32
+    args = bench_raman_shape()
+    torch.cuda.reset_peak_memory_stats()
+    out, t_first = timed(lambda: rt_run_band_rrs(*args, dtype=torch.float32,
+                                                 device=dev))
+    _, t_steady = timed(lambda: rt_run_band_rrs(*args, dtype=torch.float32,
+                                                device=dev))
+    check(np.isfinite(out[2]).all() and np.abs(out[2]).max() > 0,
+          "Raman bench shape: ieR non-finite or zero")
+    print(f"Raman bench raman_rrs shape (float32, nSpec=2048, nZ=10, N="
+          f"{len(args[1].qp_mu_n)}, nR={args[3].n_raman}): first "
+          f"{t_first:.3f} s, steady {t_steady:.3f} s = "
+          f"{2048 / t_steady:.1f} points/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+
+
 def main():
     torch = setup()
 
@@ -1253,6 +1523,10 @@ def main():
     three_band_phase(torch, dev, tag, reset_counts, counts,
                      {"kernel": step_work, "kernel_dev": dev_step_work,
                       "kernel_scan": scan_work, "kernel_lanes": lanes_work})
+
+    # ---- 13. (i) the Raman path --------------------------------------------
+    raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
+                n_buckets)
 
     kernels = [
         s_stats.entry("fused_layer_step",

@@ -25,6 +25,9 @@ from vsmartmom_torch.scattering.phase import Polarization, get_greek_rayleigh
 from vsmartmom_torch.util.quadrature import rt_set_streams
 import vsmartmom_torch.check_bucketed
 import vsmartmom_torch.core.brdf
+import vsmartmom_torch.core.rt_raman
+import vsmartmom_torch.inelastic
+import vsmartmom_torch.ring_effect_demo
 import vsmartmom_torch.solar
 import vsmartmom_torch.spectroscopy.absco
 import vsmartmom_torch.spectroscopy.lut
@@ -54,6 +57,19 @@ Rb, _ = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
                     {"type": "RossLiSurfaceScalar", "fiso": 0.1, "fvol": 0.0,
                      "fgeo": 0.0}, device="cpu")
 assert np.abs(Rb - R).max() < 1e-6 * np.abs(R).max()
+from vsmartmom_torch.core.rt_raman import rt_run_band_rrs
+from vsmartmom_torch.inelastic import make_rrs
+grid = np.arange(12740.0, 13268.0, 24.0)
+band_r = BandRTInputs(tau=np.full((1, len(grid)), 0.2),
+                      omega=np.ones((1, len(grid))),
+                      zw=np.ones((1, 1, len(grid))),
+                      greeks=[get_greek_rayleigh(0.03)])
+out = rt_run_band_rrs(pol, quad, band_r, make_rrs(grid),
+                      np.ones((1, len(grid))), [0.0], [0.0], 2,
+                      {"type": "LambertianSurfaceScalar", "albedo": 0.1},
+                      device="cpu")
+assert len(out) == 4 and all(np.isfinite(x).all() for x in out)
+assert out[2][0, 0, len(grid) // 2] > 0
 assert not any(m == "jax" or m.startswith(("jax.", "vsmartmom."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")

@@ -240,7 +240,28 @@ def test_schedule_builder_errors_propagate():
 
 
 def test_rt_run_rejects_unported_runs():
-    """Raman coupling raises until it is ported."""
+    """rt_run refuses what the Raman path does not run: an unknown
+    rs_type, an engine other than auto with Raman, and (rt_run_band_rrs)
+    a surface other than LambertianSurfaceScalar; each before any work."""
     from vsmartmom_torch.core.api import rt_run
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt_run(None, rs_type="RRS")
+    from vsmartmom_torch.core.rt_raman import rt_run_band_rrs
+    from vsmartmom_torch.inelastic import make_rrs
+    with pytest.raises(ValueError, match="unknown rs_type"):
+        rt_run(None, rs_type="RRS_plus")
+    for engine in ("kernel", "torch", "kernel_scan"):
+        with pytest.raises(ValueError, match="engine"):
+            rt_run(None, rs_type="RRS", engine=engine)
+    grid = np.arange(12740.0, 13268.0, 24.0)
+    band = BandRTInputs(tau=np.full((1, len(grid)), 0.1),
+                        omega=np.ones((1, len(grid))),
+                        zw=np.ones((1, 1, len(grid))),
+                        greeks=[get_greek_rayleigh(0.03)])
+    for surf in ({"type": "RossLiSurfaceScalar", "fiso": 0.1, "fvol": 0.0,
+                  "fgeo": 0.0},
+                 {"type": "LambertianSurfaceSpectrum",
+                  "albedo": np.full(len(grid), 0.1)}):
+        with pytest.raises(ValueError, match="LambertianSurfaceScalar"):
+            rt_run_band_rrs(POL, rt_set_streams("GaussQuadFullSphere", 6,
+                                                30.0, [0.0], 4),
+                            band, make_rrs(grid), np.ones((1, len(grid))),
+                            [0.0], [0.0], 1, surf, device="cpu")

@@ -1,10 +1,14 @@
 """vsmartmom_torch: the PyTorch/CUDA port of vsmartmom.
 
 Polarized doubling-adding radiative transfer with HITRAN line-by-line
-absorption and Mie/NAI2 aerosols, batched over the hyperspectral axis. Host
-set-up is numpy; device work is torch on an explicit ``device``; the two
-hot kernels (the fused layer step and the tiled Voigt line sum) are CUDA C++
-for Hopper (``csrc/``), built at first use.
+absorption and Mie/NAI2 aerosols, batched over the hyperspectral axis, and
+its first-order Raman (inelastic) coupling: ``rt_run(model, rs_type=...)``
+with rotational (RRS), vibrational (VS) and concatenated-band specs
+(``inelastic/``, ``core/rt_raman.py``). Host set-up is numpy; device work
+is torch on an explicit ``device``; the hot kernels of the elastic path
+(the layer step in its forms, the layer scan and the tiled Voigt line sum)
+are CUDA C++ for Hopper (``csrc/``), built at first use. The Raman path
+is torch ops.
 
 Public API (mirrors the JAX package):
   parameters_from_yaml, default_parameters, model_from_parameters, rt_run

@@ -12,7 +12,9 @@ import torch
 
 from vsmartmom_torch.core.brdf import legendre_spectral_albedo
 from vsmartmom_torch.core.model import RTModel
+from vsmartmom_torch.core.rt_raman import rt_run_band_rrs
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+from vsmartmom_torch.inelastic import make_rrs_profile, make_vs
 from vsmartmom_torch.util.device import DEFAULT_DEVICE
 
 
@@ -136,24 +138,63 @@ def _concat_surface(model: RTModel, bands: Sequence[int]):
             "albedo": np.concatenate(chunks)}
 
 
+#: string rs_type values of rt_run besides None / "noRS" (elastic)
+RS_TYPES = ("RRS", "VS_0to1", "VS_1to0")
+
+
+def _raman_specs(model: RTModel, ib: int, rs_type):
+    """Inelastic coupling specs of band ``ib`` for ``rs_type``."""
+    if not isinstance(rs_type, str):
+        return list(rs_type) if isinstance(rs_type, (list, tuple)) \
+            else [rs_type]
+    grid = np.asarray(model.params.spec_bands[ib], np.float64)
+    if rs_type == "RRS":
+        # per-layer temperature weights (ref: raman_atmo_prop.jl builds
+        # Raman properties from each layer's T)
+        return [make_rrs_profile(grid, model.profile.T)]
+    return make_vs(grid, T=float(np.mean(model.profile.T)),
+                   direction=rs_type[3:])
+
+
 def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
            dtype=None, rs_type=None, device=DEFAULT_DEVICE,
            engine: str = "auto"):
-    """Run the elastic forward RT simulation for band(s) ``i_band`` on
-    ``device`` ("cuda" unless the caller asks for "cpu"); returns (R_SFI,
-    T_SFI) of shape (n_vza, n_stokes, nSpec).
+    """Run the forward RT simulation for band(s) ``i_band`` on ``device``
+    ("cuda" unless the caller asks for "cpu").
 
-    Several bands are concatenated along the spectral axis (ref: bandSpecLim
-    bookkeeping in rt_run.jl:66-74; band_spec_lim gives each band's slice):
-    when every band's surface merges (_concat_surface), one rt_run_band runs
-    over the concatenated axis, otherwise one per band.
-    ``dtype`` defaults to the parameters' float_type. ``engine`` is passed
-    to rt_run_band ("auto" or one of core.rt_run.ENGINES). Inelastic
-    (Raman) ``rs_type`` is not ported yet.
+    ``rs_type`` selects inelastic (Raman) coupling, mirroring the
+    reference's rt_run(RS_type, model, iBand) dispatch (ref:
+    rt_run.jl:19-41):
+      None or "noRS"         — elastic only; returns (R_SFI, T_SFI)
+      "RRS"                  — rotational Raman with each layer's
+                               temperature, built for each band's grid
+      "VS_0to1" / "VS_1to0"  — vibrational Raman groups on each band's grid
+                               at the profile's mean temperature
+      an inelastic spec / list of specs (RRS / AbsoluteRaman) — used as-is
+    With Raman, returns (R_SFI, T_SFI, ieR_SFI, ieT_SFI): the elastic
+    (Cabannes) radiances plus first-order Raman corrections
+    (core/rt_raman.py), one run per band.
+
+    Shapes (n_vza, n_stokes, nSpec). Several elastic bands are concatenated
+    along the spectral axis (ref: bandSpecLim bookkeeping in
+    rt_run.jl:66-74; band_spec_lim gives each band's slice): when every
+    band's surface merges (_concat_surface), one rt_run_band runs over the
+    concatenated axis, otherwise one per band; Raman outputs are
+    concatenated per band. ``dtype`` defaults to the parameters'
+    float_type. ``engine`` is passed to rt_run_band ("auto" or one of
+    core.rt_run.ENGINES); the Raman path has one engine, torch ops, and
+    raises ValueError for any other than "auto".
     """
-    if rs_type is not None and rs_type != "noRS":
-        raise NotImplementedError(
-            "Raman coupling is not ported yet (ROADMAP queue 1, item 7)")
+    elastic_only = rs_type is None or rs_type == "noRS"
+    if not elastic_only:
+        if isinstance(rs_type, str) and rs_type not in RS_TYPES:
+            raise ValueError(f"unknown rs_type {rs_type!r}: expected "
+                             f"None, 'noRS', one of {RS_TYPES} or "
+                             f"coupling specs")
+        if engine != "auto":
+            raise ValueError(f"engine {engine!r} with rs_type {rs_type!r}: "
+                             f"the Raman path runs torch ops only (engine "
+                             f"'auto')")
     if dtype is None:
         dtype = (torch.float32 if model.params.float_type == "Float32"
                  else torch.float64)
@@ -165,11 +206,26 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
                            model.params.max_m, surface, dtype=dtype,
                            device=device, engine=engine)
 
-    if len(bands) > 1:
-        surface = _concat_surface(model, bands)
-        if surface is not None:
-            return run(concat_band_inputs(model, bands), surface)
-    outs = [run(build_band_inputs(model, ib), _band_surface(model, ib))
-            for ib in bands]
+    def run_raman(ib):
+        specs = _raman_specs(model, ib, rs_type)
+        cab = min((getattr(s, "omega_cabannes", 1.0) for s in specs),
+                  default=1.0)
+        band = build_band_inputs(model, ib, omega_cabannes=cab)
+        # Raman source strength: full Rayleigh fraction of the layer
+        f_rayl = model.tau_rayl[ib].T / np.maximum(band.tau, 1e-300)
+        return rt_run_band_rrs(
+            model.pol, model.quad_points, band, specs, f_rayl,
+            model.obs_geom.vza, model.obs_geom.vaz, model.params.max_m,
+            _band_surface(model, ib), dtype=dtype, device=device)
+
+    if not elastic_only:
+        outs = [run_raman(ib) for ib in bands]
+    else:
+        if len(bands) > 1:
+            surface = _concat_surface(model, bands)
+            if surface is not None:
+                return run(concat_band_inputs(model, bands), surface)
+        outs = [run(build_band_inputs(model, ib), _band_surface(model, ib))
+                for ib in bands]
     return tuple(np.concatenate([o[i] for o in outs], axis=-1)
-                 for i in range(2))
+                 for i in range(len(outs[0])))

@@ -126,7 +126,8 @@ def make_rsolve(solver: str = "lu", schulz_iters: int = 4):
     'lu'     — batched LU solve.
     'schulz' — Newton-Schulz iteration, pure batched matmuls.
                M_0 = 2I - A (= I + B); residual after k iterations is
-               B^(2^(k+1)): 4 iterations leave B^32.
+               B^(2^(k+1)): 4 iterations leave B^32. Its
+               ``materialize_m(a)`` returns M ~= A^{-1} itself.
     """
     if solver == "lu":
         return rsolve_lu
@@ -150,6 +151,11 @@ def make_rsolve(solver: str = "lu", schulz_iters: int = 4):
         return bmm(left, bmm(_schulz_m(a), x))
 
     rsolve_schulz.apply = _schulz_apply
+    # the approximate inverse M(A) is pointwise in the spectral batch, so a
+    # caller that needs the same solve at gathered spectral indices (the
+    # Raman shift rows, core/rt_raman.py) builds M once and gathers it:
+    # M(gather(A)) == gather(M(A)) exactly
+    rsolve_schulz.materialize_m = _schulz_m
     return rsolve_schulz
 
 
@@ -244,6 +250,13 @@ def exp_difference(e_b, e_a, arg):
     return torch.where(arg > EXP_DIFF_CUT, e_b, e_a * torch.expm1(arg))
 
 
+def merged_nodes(same_mu, n_stokes):
+    """(N, N) mask of entries that join two distinct quadrature nodes at
+    one mu (entries i, j of node i // n_stokes and j // n_stokes)."""
+    node = torch.arange(same_mu.shape[0], device=same_mu.device) // n_stokes
+    return same_mu & (node[:, None] != node[None, :])
+
+
 def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
               i0_vec, i_mu0_n, n_stokes, mu0_node, split=False):
     """Single-scattering initialization of an elemental layer.
@@ -289,15 +302,24 @@ def elemental(dtau, omega, z_pp, z_mp, qp, wct2, wct02, tau_sum,
     exp_diff = exp_difference(exp_i, exp_small(-dt / mu_j),
                               dt * (mu_i - mu_j) / (mu_i * mu_j))
     t_off = om * z_pp * (mu_j / denom) * wct2[None, None, :] * exp_diff
+    # Two distinct nodes at one mu take the diagonal's scattered part, the
+    # limit of t_off: after the host's exact deduplication that happens
+    # only in float32, where a view 1 ulp from a quadrature node (vza =
+    # 60 deg on the Gauss node 0.5) merges with it. The Stokes components
+    # of one node keep no off-diagonal term.
+    merged = merged_nodes(same_mu, n_stokes)
     if split:
         # diffuse deviation only: the selects of t_pp below, minus diag(g)
         e_pp = torch.where(same_mu[None, :, :],
-                           torch.where(eye[None, :, :], e_diag, 0.0),
+                           torch.where((eye | merged)[None, :, :], e_diag,
+                                       0.0),
                            t_off)
         e_pp = torch.where(col_mask[None, None, :], e_pp, 0.0)
     else:
         t_pp = torch.where(same_mu[None, :, :],
-                           torch.where(eye[None, :, :], t_diag, 0.0),
+                           torch.where(eye[None, :, :], t_diag,
+                                       torch.where(merged[None, :, :],
+                                                   e_diag, 0.0)),
                            t_off)
         # Zero-weight (camera-only) columns transmit the attenuated beam
         # only

@@ -37,6 +37,7 @@ kernel_lanes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -86,6 +87,22 @@ class BandRTInputs:
     omega: np.ndarray
     zw: np.ndarray
     greeks: list
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Float32 matmuls in full float32 (TF32 off) inside the block, the
+    previous settings restored after it: the plain-form algebra fails the
+    accuracy gates with reduced-mantissa products."""
+    prev_precision = torch.get_float32_matmul_precision()
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev_precision)
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
 
 def schedule_buckets(layer_schedules):
@@ -431,11 +448,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     run_banner(pol, quad, n_spec, n_z, max_m, surface, engine, solver,
                dtype, device)
 
-    prev_precision = torch.get_float32_matmul_precision()
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with full_fp32_matmul():
         tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
                                 to_dev(band.zw))
         qp_d, wt_d = to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n)
@@ -510,9 +523,6 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                 direct = i0_vec[i_sol] * np.exp(
                     -np.asarray(band.tau).sum(axis=0) / mu0_node) * mu0_node
                 bhr_dw[:] = j_p[:, ::n_stokes] @ qw + direct
-    finally:
-        torch.set_float32_matmul_precision(prev_precision)
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
     out = [R_SFI, T_SFI]
     if return_hdr:

@@ -124,9 +124,12 @@ elemental_phase(const Team<C>& tm, float* ar, const Arena& o, int p, int z,
       r = 0.f;
       t = i == j ? exp_i : 0.f;
     } else if (mu_i == mu_j) {
-      t = i == j ? __fadd_rn(exp_i, __fmul_rn(exp_i, om * zpp * (dt / mu_i)
-                                                      * w_j))
-                 : 0.f;
+      // two distinct nodes at one mu (a view merged with a quadrature node
+      // in float32) take the diagonal's scattered part, as elemental does;
+      // the Stokes components of one node keep no off-diagonal term
+      const float e = __fmul_rn(exp_i, om * zpp * (dt / mu_i) * w_j);
+      t = i == j ? __fadd_rn(exp_i, e)
+                 : (i / a.n_stokes != j / a.n_stokes ? e : 0.f);
     } else {
       const float exp_diff = exp_difference(
           exp_i, 1.f + expm1f(-dt / mu_j),

@@ -80,6 +80,15 @@ def report(phase, wall_s, prof, card, top):
               f"{name[:90]}")
 
 
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi unavailable"
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="auto",
@@ -92,11 +101,7 @@ def main():
         sys.exit("no CUDA device")
     import vsmartmom_torch as vt
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else "nvidia-smi unavailable"
+    card = card_name()
     dev = torch.device("cuda:0")
     params = vt.default_parameters()
     params.float_type = "Float32"
