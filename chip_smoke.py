@@ -102,6 +102,28 @@ Run from the repository root:  python3 chip_smoke.py
    band centre (rel 2e-3) and the Ring filling-in (core / continuum >
    1.2) on the card; (d) the bench.py raman_rrs shape (2 048 points, 10
    layers, Stokes_I) in float32, first and steady seconds and points/s.
+14. (j) The rest of the elastic scope (core/multisensor.py, core/canopy.py,
+   core/rami.py: torch ops, no kernel of their own; no TPU kernel on their
+   path either): (a) rt_run_ms on the flagship in Float32 (22 669 points,
+   34 layers, N = 15) at sensor levels [0, 12, 24, 34] under the default
+   schulz solver, with the launch counts reset just before the build (one
+   Voigt launch, held against its plain version within 2e-5 of max sigma)
+   and before the run (no layer kernel may launch); first and steady
+   seconds, points/s and peak device memory; the TOA and BOA anchors in
+   float64 with lu against rt_run_band(engine="torch", solver="lu") within
+   1e-9 of max (at BOA with the direct beam added, which T carries at the
+   solar node); float32 within 1e-3 of float64 at every sensor; the
+   interior physics of tests/test_multisensor.py; (b) rt_run_canopy with
+   the flagship's band above the canopy of vsmartmom_torch/canopy_demo.py
+   (LAI 3 in 3 slabs, chi 0.1, leaf ssa 0.25-0.95, soil 0.05, sensor levels
+   0-3): float32 within 1e-3 of float64 per output, the G = 1 reduction
+   against rt_run_band on the 35-layer band at rtol 2e-7 (float64), and
+   float32 black leaves at LAI 20 in one slab and chi = 0.6, each finite
+   and within 1e-3 of float64; (c) run_rami_scenario on a HOM00 Rayleigh
+   scene (band 8a, Lambertian 0.2, sza 30) at run_rami_scenario's defaults (dnu
+   1, 20 layers, l_trunc 40, max_m 20, Float64, 152 views) on a stand-in
+   AFGL profile interpolated from default_parameters' (p, T, q), the card
+   within 1e-10 of the port's CPU run of the same scene and solver.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
@@ -215,7 +237,10 @@ def compare_hook(torch, stats, real, plain, work, reps=(3, 1)):
 
 
 def rel_err(a, b):
-    return float(np.abs(a - b).max() / np.abs(b).max())
+    """max|a - b| / max|b|; 0 where both are exactly 0, inf where only b
+    is."""
+    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+    return err / scale if scale > 0 else (0.0 if err == 0 else np.inf)
 
 
 #: the HAPI gate's grid (tests/test_hapi_gate.py): 40 001 points
@@ -989,6 +1014,287 @@ def raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
 
 
+# ---- 14. the rest of the elastic scope --------------------------------------
+
+#: the multi-sensor levels of phase 14 (a): TOA, two interior, BOA
+MS_LEVELS = [0, 12, 24, 34]
+#: a HOM00 Rayleigh scene of RAMI4ATM for phase 14 (c)
+RAMI_SCENARIO = {
+    "name": "HOM00_RAYLEIGH_LAM", "measures": [{"bands": ["8a"]}],
+    "atmosphere": {"atmosphere_type": "AtmosphereType.RAYLEIGH",
+                   "aerosols": [], "concentrations": {}},
+    "illumination": {"sza": {"value": 30.0}},
+    "surface": {"name": "LAM", "surface_parameters": {"reflectance": [0.2]}},
+}
+
+
+def rtol_ratio(a, b, rtol, atol):
+    """max of |a - b| / (atol + rtol |b|): at most 1 where
+    numpy.testing.assert_allclose(a, b, rtol, atol) passes."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b) / (atol + rtol * np.abs(b))).max())
+
+
+def direct_beam(quad, pol, tau_total, vza):
+    """The direct solar beam at the surface that rt_run_band's T carries
+    at the solar node (the Lambertian surface layer's J^+, moment 0, weight
+    1/2) and a sensor's downwelling does not: (n_vza, n_stokes, nSpec)."""
+    from vsmartmom_torch.util.quadrature import nearest_point
+    mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
+    out = np.zeros((len(vza), pol.n, len(tau_total)))
+    for i, za in enumerate(vza):
+        i_mu = nearest_point(quad.qp_mu, np.cos(np.deg2rad(za)))
+        if pol.n * i_mu == quad.i_mu0_n:
+            out[i] = 0.5 * np.asarray(pol.i0)[:, None] \
+                * np.exp(-tau_total / mu0_node)[None, :]
+    return out
+
+
+def rami_standin_profile(params, dz_km=0.25):
+    """A stand-in for the RAMI4ATM AFGL file, from a parameter set's
+    (p, T, q): levels every dz_km of a 7.6 km scale height from its surface
+    to its top pressure, T and q interpolated in log p from its layers
+    (its own 35 levels leave 50 hPa bins of a 20-layer reduction empty),
+    H2O from q, the other gases constant."""
+    from vsmartmom_torch.core.rami import AFGLProfile
+    p_half = np.asarray(params.p, np.float64)
+    lnp_mid = np.log(0.5 * (p_half[1:] + p_half[:-1]))
+    z_top = 7.6 * np.log(p_half[-1] / p_half[0])
+    z = np.append(np.arange(0.0, z_top, dz_km), z_top)
+    p_lev = p_half[-1] * np.exp(-z / 7.6)
+    T = np.interp(np.log(p_lev), lnp_mid, np.asarray(params.T, np.float64))
+    w = np.interp(np.log(p_lev), lnp_mid,
+                  np.asarray(params.q, np.float64)) / 1000.0
+    ones = np.ones_like(p_lev)
+    vmr = {"H2O": w * 28.9644 / (18.01534 * (1.0 - w) + w * 28.9644),
+           "CO2": 400e-6 * ones, "O3": 0.05e-6 * ones, "N2O": 0.32e-6 * ones,
+           "CO": 0.15e-6 * ones, "CH4": 1.8e-6 * ones, "O2": 0.209 * ones}
+    return AFGLProfile(z_km=z, p_hpa=p_lev, T=T,
+                       n_air=p_lev * 100.0 / (1.380649e-23 * T) * 1e-6,
+                       vmr=vmr)
+
+
+def elastic_scope_phase(torch, dev, tag, reset_counts, counts):
+    """14. The rest of the elastic scope (torch ops, no kernel of its own;
+    no TPU kernel on its path either): (a) rt_run_ms on the flagship in
+    Float32 at sensor levels [0, 12, 24, 34] under the default (schulz)
+    solver, the build's Voigt launch held against its plain version, the
+    TOA/BOA anchors in float64 with lu against rt_run_band(engine="torch",
+    solver="lu") within 1e-9 of max (BOA: the direct beam, which T carries
+    at the solar node, added to the downwelling), float32 within 1e-3 of
+    float64 at every sensor, the interior physics of
+    tests/test_multisensor.py; (b) rt_run_canopy with the flagship's band
+    above the demo's canopy, float32 within 1e-3 of float64 per output, the
+    G = 1 reduction against rt_run_band on the 35-layer band at rtol 2e-7
+    (float64), and two float32 stress scenes (black leaves at LAI 20 in one
+    slab; chi = 0.6) finite and within 1e-3 of float64; (c)
+    run_rami_scenario on a HOM00 Rayleigh scene at run_rami_scenario's defaults
+    on a stand-in AFGL profile, the card (schulz, its default) within 1e-10
+    of the port's CPU run of the same scene (lu, the CPU's default). The
+    launch counts are set to 0 before each part's runs and read after
+    them: none of these drivers may launch a layer kernel."""
+    import tempfile
+
+    import vsmartmom_torch as vt
+    from vsmartmom_torch.canopy_demo import CANOPY
+    from vsmartmom_torch.canopy_demo import SOIL as CANOPY_SOIL
+    from vsmartmom_torch.core.api import build_band_inputs
+    from vsmartmom_torch.core.canopy import (CanopyRTInputs,
+                                             bilambertian_greek,
+                                             rt_run_canopy)
+    from vsmartmom_torch.core.multisensor import rt_run_band_ms, rt_run_ms
+    from vsmartmom_torch.core.rami import (run_rami_scenario,
+                                           write_afgl_profile)
+    from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+    from vsmartmom_torch.cuda import voigt_kernel as vk
+    from vsmartmom_torch.spectroscopy.profiles import \
+        compute_absorption_profile
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    # (a) multi-sensor on the flagship, Float32
+    params = vt.default_parameters()
+    params.float_type = "Float32"
+    ap = params.absorption_params
+    grid = np.asarray(params.spec_bands[0], np.float64)
+    n_lines = sum(has_lines(m, grid, ap.wing_cutoff)
+                  for m in ap.molecules[0])
+    reset_counts()
+    model, t_build = timed(lambda: vt.model_from_parameters(params,
+                                                            device=dev))
+    n_voigt = vk.launches
+    check(n_voigt == n_lines == 1, f"multi-sensor flagship build: "
+          f"{n_voigt} Voigt launches, expected one (O2)")
+    st, _ = voigt_compared(torch, vk, compute_absorption_profile, "O2", grid,
+                           model.profile.vmr["O2"], ap, model.profile, dev)
+    ms, plain_ms = st.mean_ms()
+    bound, by = st.bound()
+    check(st.calls == 1 and st.rel <= 2e-5, f"multi-sensor build Voigt: "
+          f"{st.calls} compared launches, {st.rel:.3e} of max sigma > 2e-5")
+    print(f"multi-sensor flagship build {t_build:.3f} s: voigt {n_voigt} "
+          f"launch, {st.rel:.3e} of max sigma from its plain version; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} "
+          f"ms ({by}) {tag}")
+    quad, pol = model.quad_points, model.pol
+    band = build_band_inputs(model, 0)
+    n_spec, n_z = len(grid), model.profile.n_layers
+    vza, vaz = model.obs_geom.vza, model.obs_geom.vaz
+    surf = params.surfaces[0]
+    check(MS_LEVELS[-1] == n_z, f"flagship has {n_z} layers")
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (uw32, dw32), t_first = timed(lambda: rt_run_ms(model, MS_LEVELS,
+                                                    device=dev))
+    c = counts()
+    check(sum(c.values()) == 0, f"rt_run_ms launched kernels: {c}")
+    peak32 = peak_gib()
+    _, t_steady = timed(lambda: rt_run_ms(model, MS_LEVELS, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    (uw64, dw64), t64 = timed(lambda: rt_run_band_ms(
+        pol, quad, band, vza, vaz, params.max_m, surf, MS_LEVELS,
+        dtype=torch.float64, device=dev, solver="lu"))
+    peak64 = peak_gib()
+    R, T = rt_run_band(pol, quad, band, vza, vaz, params.max_m, surf,
+                       dtype=torch.float64, device=dev, solver="lu",
+                       engine="torch")
+    toa = rel_err(uw64[0], R)
+    boa = rel_err(dw64[-1] + direct_beam(quad, pol, band.tau.sum(axis=0),
+                                         vza), T)
+    e32 = [max(rel_err(uw32[s], uw64[s]), rel_err(dw32[s], dw64[s]))
+           for s in range(len(MS_LEVELS))]
+    print(f"multi-sensor flagship (nSpec={n_spec}, nZ={n_z}, N="
+          f"{len(quad.qp_mu_n)}, levels {MS_LEVELS}): Float32 schulz first "
+          f"{t_first:.3f} s, steady {t_steady:.3f} s = "
+          f"{n_spec / t_steady:.1f} points/s, peak device memory "
+          f"{peak32:.2f} GiB; float64 lu {t64:.3f} s, peak {peak64:.2f} "
+          f"GiB; TOA uw vs rt_run_band R {toa:.3e}, BOA dw + direct beam vs "
+          f"T {boa:.3e} of max; float32 vs float64 by level "
+          f"{['%.3e' % e for e in e32]} {tag}")
+    check(toa < 1e-9 and boa < 1e-9, "multi-sensor TOA/BOA anchors off "
+          "rt_run_band by >= 1e-9 of max")
+    check(all(np.isfinite(x).all() for x in (uw32, dw32, uw64, dw64)),
+          "multi-sensor: non-finite output")
+    check(max(e32) < 1e-3, "multi-sensor float32 off float64 by >= 1e-3")
+    check(np.all(dw64[1, :, 0, :] >= dw64[0, :, 0, :] - 1e-12)
+          and np.all(uw64[:, :, 0, :] > 0), "multi-sensor interior "
+          "physics: downwelling falls toward the surface or upwelling I "
+          "not positive")
+    del uw32, dw32, uw64, dw64, R, T
+
+    # (b) the demo's canopy under the flagship atmosphere
+    ssa = np.linspace(0.25, 0.95, n_spec)
+
+    def canopy_run(dtype, levels=(0, 1, 2, 3), **kw):
+        can = CanopyRTInputs(**{**CANOPY, "ssa": ssa, **kw})
+        return rt_run_canopy(pol, quad, band, can, vza, vaz, params.max_m,
+                             CANOPY_SOIL, dtype=dtype, device=dev,
+                             sensor_levels=list(levels) or None)
+
+    names = ("R", "T", "hdr", "bhr_uw", "bhr_dw", "uw", "dw")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out32, t32 = timed(lambda: canopy_run(torch.float32))
+    peak32 = peak_gib()
+    torch.cuda.reset_peak_memory_stats()
+    out64, t64 = timed(lambda: canopy_run(torch.float64))
+    peak64 = peak_gib()
+    e32 = {k: rel_err(a, b) for k, a, b in zip(names, out32, out64)}
+    print(f"canopy under the flagship (nSpec={n_spec}, 34 + 3 canopy "
+          f"layers, levels 0-3): float32 {t32:.3f} s (peak "
+          f"{peak32:.2f} GiB), float64 {t64:.3f} s (peak {peak64:.2f} "
+          f"GiB); float32 vs float64 "
+          f"{ {k: '%.3e' % v for k, v in e32.items()} } {tag}")
+    check(all(np.isfinite(x).all() for x in out32 + out64),
+          "canopy: non-finite output")
+    check(max(e32.values()) < 1e-3, "canopy float32 off float64 by >= "
+          "1e-3")
+    del out32, out64
+
+    # G = 1: the canopy is a plain layer with the bi-Lambertian phase
+    (g1, t_g1) = timed(lambda: canopy_run(torch.float64, levels=(),
+                                          g_override=1.0, n_layers=1))
+    gc_can, _ = bilambertian_greek(CANOPY["rho_l"], CANOPY["tau_l"])
+    k = band.zw.shape[1]
+    zw2 = np.zeros((n_z + 1, k + 1, n_spec))
+    zw2[:n_z, :k] = band.zw
+    zw2[n_z, k] = 1.0
+    band2 = BandRTInputs(
+        tau=np.vstack([band.tau, np.full((1, n_spec), CANOPY["lai"])]),
+        omega=np.vstack([band.omega, ssa[None, :]]), zw=zw2,
+        greeks=list(band.greeks) + [gc_can])
+    ref = rt_run_band(pol, quad, band2, vza, vaz, params.max_m, CANOPY_SOIL,
+                      dtype=torch.float64, device=dev, solver="lu",
+                      engine="torch", return_hdr=True)
+    ratios = [rtol_ratio(a, b, 2e-7, 1e-12 if i < 3 else 0.0)
+              for i, (a, b) in enumerate(zip(g1, ref))]
+    print(f"canopy G = 1 vs rt_run_band on the 35-layer band (float64): "
+          f"max |d| / (atol + 2e-7 |ref|) per output "
+          f"{['%.3e' % r for r in ratios]} ({t_g1:.3f} s) {tag}")
+    check(max(ratios) <= 1.0, "canopy G = 1 differs from rt_run_band "
+          "beyond rtol 2e-7")
+    del g1, ref
+
+    for label, kw in (("black leaves, LAI 20, one slab",
+                       dict(lai=20.0, n_layers=1, ssa=np.full(n_spec, 1e-9))),
+                      ("chi = 0.6", dict(chi=0.6))):
+        levels = () if kw.get("n_layers") == 1 else (0, 1, 2, 3)
+        a32, t_s = timed(lambda: canopy_run(torch.float32, levels, **kw))
+        a64 = canopy_run(torch.float64, levels, **kw)
+        err = max(rel_err(a, b) for a, b in zip(a32, a64))
+        finite = all(np.isfinite(x).all() for x in a32)
+        print(f"canopy float32 stress, {label}: finite {finite}, vs "
+              f"float64 {err:.3e} of max ({t_s:.3f} s) {tag}")
+        check(finite and err < 1e-3, f"canopy float32 stress ({label}): "
+              f"non-finite or off float64 by >= 1e-3")
+    c = counts()
+    check(sum(c.values()) == 0, f"the canopy runs launched kernels: {c}")
+    del model
+
+    # (c) RAMI, HOM00 Rayleigh at run_rami_scenario's defaults
+    with tempfile.TemporaryDirectory() as data_dir:
+        write_afgl_profile(
+            os.path.join(data_dir, "RAMI4ATM_AFGLUSstandard_ap_v1.0.txt"),
+            rami_standin_profile(vt.default_parameters()))
+        print("RAMI: the AFGL profile is a stand-in, interpolated from "
+              "default_parameters' (p, T, q); the RAMI4ATM files are not "
+              "in the repository")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        card, t_card = timed(lambda: run_rami_scenario(
+            RAMI_SCENARIO, data_dir, device=dev))
+        peak = peak_gib()
+        _, t_steady = timed(lambda: run_rami_scenario(
+            RAMI_SCENARIO, data_dir, device=dev))
+        c = counts()
+        check(sum(c.values()) == 0, f"run_rami_scenario launched kernels: "
+              f"{c}")
+        t0 = time.perf_counter()
+        cpu = run_rami_scenario(RAMI_SCENARIO, data_dir, device="cpu")
+        t_cpu = time.perf_counter() - t0
+    errs = {k: rel_err(card[k], cpu[k]) for k in ("brf", "hdrf", "bhr")}
+    n_rami = len(card["nu"])
+    print(f"RAMI HOM00 Rayleigh, band 8a (nSpec={n_rami}, 20 layers, "
+          f"l_trunc 40, max_m 20, Float64, {len(card['vza'])} views): card "
+          f"first {t_card:.3f} s, steady {t_steady:.3f} s = "
+          f"{n_rami / t_steady:.1f} points/s, peak {peak:.2f} GiB; CPU "
+          f"{t_cpu:.3f} s; card (schulz) vs CPU (lu) "
+          f"{ {k: '%.3e' % v for k, v in errs.items()} }; bhr "
+          f"{card['bhr'].min():.6f} .. {card['bhr'].max():.6f} {tag}")
+    check(all(np.isfinite(card[k]).all() for k in errs),
+          "RAMI: non-finite output")
+    check(max(errs.values()) < 1e-10, "RAMI: the card differs from the "
+          "CPU by >= 1e-10 of max")
+
+
 def main():
     torch = setup()
 
@@ -1527,6 +1833,9 @@ def main():
     # ---- 13. (i) the Raman path --------------------------------------------
     raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
                 n_buckets)
+
+    # ---- 14. (j) the rest of the elastic scope ------------------------------
+    elastic_scope_phase(torch, dev, tag, reset_counts, counts)
 
     kernels = [
         s_stats.entry("fused_layer_step",

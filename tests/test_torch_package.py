@@ -23,11 +23,17 @@ import vsmartmom_torch
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
 from vsmartmom_torch.scattering.phase import Polarization, get_greek_rayleigh
 from vsmartmom_torch.util.quadrature import rt_set_streams
+import vsmartmom_torch.canopy_demo
 import vsmartmom_torch.check_bucketed
 import vsmartmom_torch.core.brdf
+import vsmartmom_torch.core.canopy
+import vsmartmom_torch.core.multisensor
+import vsmartmom_torch.core.rami
 import vsmartmom_torch.core.rt_raman
 import vsmartmom_torch.inelastic
 import vsmartmom_torch.ring_effect_demo
+import vsmartmom_torch.scattering.pcw
+import vsmartmom_torch.scattering.wigner
 import vsmartmom_torch.solar
 import vsmartmom_torch.spectroscopy.absco
 import vsmartmom_torch.spectroscopy.lut
@@ -70,6 +76,19 @@ out = rt_run_band_rrs(pol, quad, band_r, make_rrs(grid),
                       device="cpu")
 assert len(out) == 4 and all(np.isfinite(x).all() for x in out)
 assert out[2][0, 0, len(grid) // 2] > 0
+from vsmartmom_torch.core.multisensor import rt_run_band_ms
+uw, dw = rt_run_band_ms(pol, quad, band, [0.0], [0.0], 2,
+                        {"type": "LambertianSurfaceScalar", "albedo": 0.1},
+                        [0, 1], device="cpu")
+assert np.abs(uw[0] - R).max() < 1e-12 * np.abs(R).max()
+ssa, outs = vsmartmom_torch.canopy_demo.canopy_scene(device="cpu")
+assert len(outs) == 7 and all(np.isfinite(x).all() for x in outs)
+from vsmartmom_torch.scattering.mie import Aerosol
+from vsmartmom_torch.scattering.pcw import \
+    compute_aerosol_optical_properties_pcw
+opt = compute_aerosol_optical_properties_pcw(
+    Aerosol(mu=0.1, sigma=1.5, n_r=1.4, n_i=0.001), 0.55, 1.0, 50)
+assert abs(opt.greek_coefs.beta[0] - 1.0) < 1e-8
 assert not any(m == "jax" or m.startswith(("jax.", "vsmartmom."))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")
@@ -156,3 +175,54 @@ def test_cuda_wrappers_build_nothing_for_cpu_tensors():
     assert build._lib is None
     assert (lsk.launches, vk.launches, ldk.launches, dk.launches,
             scn.launches, lnk.launches) == before
+
+
+def _slice_entry_points(tmp):
+    """The slice's entry points, each called without ``device``."""
+    from vsmartmom_torch.core.canopy import CanopyRTInputs, rt_run_canopy
+    from vsmartmom_torch.core.multisensor import rt_run_band_ms
+    from vsmartmom_torch.core.rami import run_rami_scenario
+    from vsmartmom_torch.core.rt_run import BandRTInputs
+    from vsmartmom_torch.scattering.phase import (Polarization,
+                                                  get_greek_rayleigh)
+    from vsmartmom_torch.util.quadrature import rt_set_streams
+    pol = Polarization.from_name("Stokes_I")
+    quad = rt_set_streams("GaussQuadFullSphere", 4, 30.0, [0.0], pol.n)
+    band = BandRTInputs(tau=np.full((1, 2), 0.1), omega=np.ones((1, 2)),
+                        zw=np.ones((1, 1, 2)),
+                        greeks=[get_greek_rayleigh(0.0)])
+    surf = {"type": "LambertianSurfaceScalar", "albedo": 0.1}
+    scenario = {"measures": [{"bands": ["8a"]}],
+                "atmosphere": {"atmosphere_type": "AtmosphereType.RAYLEIGH"},
+                "illumination": {"sza": {"value": 30.0}},
+                "surface": {"name": "LAM",
+                            "surface_parameters": {"reflectance": [0.2]}}}
+    return {
+        "rt_run_band_ms": lambda: rt_run_band_ms(
+            pol, quad, band, [0.0], [0.0], 1, surf, [0, 1]),
+        "rt_run_canopy": lambda: rt_run_canopy(
+            pol, quad, band, CanopyRTInputs(lai=1.0, rho_l=0.4, tau_l=0.4),
+            [0.0], [0.0], 1, surf),
+        # a data directory with no files: any work before the device
+        # check would raise FileNotFoundError instead
+        "run_rami_scenario": lambda: run_rami_scenario(scenario,
+                                                       str(tmp)),
+    }
+
+
+@pytest.mark.parametrize("name", ["rt_run_band_ms", "rt_run_canopy",
+                                  "run_rami_scenario"])
+def test_slice_entry_points_default_to_cuda(name, tmp_path):
+    """rt_run_band_ms, rt_run_canopy and run_rami_scenario run on the card
+    unless the caller asks for the CPU: on a machine without CUDA a call
+    that names no device raises resolve_device's error before any work."""
+    import inspect
+    from vsmartmom_torch.core import canopy, multisensor, rami
+    fn = {"rt_run_band_ms": multisensor.rt_run_band_ms,
+          "rt_run_canopy": canopy.rt_run_canopy,
+          "run_rami_scenario": rami.run_rami_scenario}[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the call would run")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _slice_entry_points(tmp_path)[name]()

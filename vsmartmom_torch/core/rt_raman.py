@@ -41,11 +41,11 @@ from vsmartmom_torch.core.rt import (EXP_DIFF_CUT, LayerRT, bmm, bmv,
                                      doubling_number, elemental,
                                      make_rsolve, ns_doubling_schedule,
                                      vacuum_layer)
-from vsmartmom_torch.core.rt_run import full_fp32_matmul
+from vsmartmom_torch.core.rt_run import (default_solver, full_fp32_matmul,
+                                         synthesis_weights)
 from vsmartmom_torch.core.surface import lambertian_surface_layer
 from vsmartmom_torch.scattering.phase import compute_Z_moments
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
-from vsmartmom_torch.util.quadrature import nearest_point
 
 
 def bmm_ie(a, b):
@@ -692,24 +692,6 @@ def _chunks(run: _RamanRun):
         yield run.srcs[sl], run.valids[sl], w, run.gids[sl]
 
 
-def _synthesis_weights(quad, vza, vaz, m, n_stokes):
-    """(stream slice, Stokes azimuth weights) per view for moment m
-    (ref: tools/postprocessing_vza.jl:9-60)."""
-    weight = 0.5 if m == 0 else 1.0
-    out = []
-    for za, az in zip(vza, vaz):
-        i_mu = nearest_point(quad.qp_mu, np.cos(np.deg2rad(za)))
-        sl = slice(n_stokes * i_mu, n_stokes * (i_mu + 1))
-        cm = np.cos(np.deg2rad(m * az))
-        sm = np.sin(np.deg2rad(m * az))
-        out.append((sl, weight * np.array([cm, cm, sm, sm][:n_stokes])))
-    return out
-
-
-def _default_solver(device, solver):
-    return solver or ("lu" if device.type == "cpu" else "schulz")
-
-
 def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                     surface, dtype=torch.float64, solver: Optional[str] = None,
                     device=DEFAULT_DEVICE, static_schedules: bool = False):
@@ -731,7 +713,7 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     Matmuls run in full float32 (TF32 off) or float64.
     """
     device = resolve_device(device)
-    solver = _default_solver(device, solver)
+    solver = default_solver(device, solver)
     n_spec = band.tau.shape[1]
     n_stokes = pol.n
     vza = np.asarray(vza, dtype=np.float64)
@@ -767,7 +749,7 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
             j_m, j_p = comp.j_m.cpu().numpy(), comp.j_p.cpu().numpy()
             ie_m, ie_p = ie_m.cpu().numpy(), ie_p.cpu().numpy()
             for i, (sl, cs) in enumerate(
-                    _synthesis_weights(quad, vza, vaz, m, n_stokes)):
+                    synthesis_weights(quad, vza, vaz, m, n_stokes)):
                 R[i] += cs[:, None] * j_m[:, sl].T
                 T[i] += cs[:, None] * j_p[:, sl].T
                 ieR[i] += cs[:, None] * ie_m[:, sl].T
@@ -876,7 +858,7 @@ def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     the surface as in rt_run_band_rrs.
     """
     device = resolve_device(device)
-    solver = _default_solver(device, solver)
+    solver = default_solver(device, solver)
     n_spec = band.tau.shape[1]
     n_stokes = pol.n
     n_z = band.tau.shape[0]
@@ -901,7 +883,7 @@ def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                     acc[:2] + [acc[2] + res[2], acc[3] + res[3]]
             arrs = [a.cpu().numpy() for a in acc]
             for i, (sl, cs) in enumerate(
-                    _synthesis_weights(quad, vza, vaz, m, n_stokes)):
+                    synthesis_weights(quad, vza, vaz, m, n_stokes)):
                 for out, arr in zip(outs, arrs):
                     out[:, i] += (cs[None, :, None]
                                   * arr[:, :, sl].transpose(0, 2, 1))

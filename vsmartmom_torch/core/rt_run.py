@@ -105,6 +105,26 @@ def full_fp32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
 
 
+def default_solver(device: torch.device, solver: Optional[str]) -> str:
+    """``solver``, or the default where it is None: "lu" on the CPU,
+    "schulz" on CUDA."""
+    return solver or ("lu" if device.type == "cpu" else "schulz")
+
+
+def synthesis_weights(quad, vza, vaz, m, n_stokes):
+    """(stream slice, Stokes azimuth weights) per view for moment m
+    (ref: tools/postprocessing_vza.jl:9-60)."""
+    weight = 0.5 if m == 0 else 1.0
+    out = []
+    for za, az in zip(vza, vaz):
+        i_mu = nearest_point(quad.qp_mu, np.cos(np.deg2rad(za)))
+        sl = slice(n_stokes * i_mu, n_stokes * (i_mu + 1))
+        cm = np.cos(np.deg2rad(m * az))
+        sm = np.sin(np.deg2rad(m * az))
+        out.append((sl, weight * np.array([cm, cm, sm, sm][:n_stokes])))
+    return out
+
+
 def schedule_buckets(layer_schedules):
     """Runs of consecutive layers sharing one (ndoubl, NS schedule, ni)
     entry, as (entry, start, count) triples."""
@@ -335,6 +355,25 @@ def _per_layer_schedules(n_z, solver, ndoubl_static, ns_schedule,
              else None),) * n_z
 
 
+def surface_inputs(surface, n_spec: int, to_dev):
+    """(albedo, spectral_albedo, is_brdf) of a surface dict: a Lambertian
+    scalar albedo, or an (nSpec,) albedo on the device (Spectrum, or a
+    Legendre expansion over the band), or a BRDF (rpvSurfaceScalar,
+    RossLiSurfaceScalar: one Fourier matrix per moment, core/brdf.py).
+    Any other type raises NotImplementedError."""
+    kind = surface["type"]
+    if kind == "LambertianSurfaceScalar":
+        return float(surface["albedo"]), None, False
+    if kind == "LambertianSurfaceSpectrum":
+        return 0.0, to_dev(surface["albedo"]), False
+    if kind == "LambertianSurfaceLegendre":
+        return 0.0, to_dev(legendre_spectral_albedo(
+            surface["legendre_coeff"], n_spec)), False
+    if kind in ("rpvSurfaceScalar", "RossLiSurfaceScalar"):
+        return 0.0, None, True
+    raise NotImplementedError(kind)
+
+
 def select_engine(engine: str, device: torch.device, dtype, n: int,
                   static_schulz: bool) -> str:
     """Resolve ``engine`` ("auto" or one of ENGINES).
@@ -390,8 +429,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     reduced-mantissa products.
     """
     device = resolve_device(device)
-    if solver is None:
-        solver = "lu" if device.type == "cpu" else "schulz"
+    solver = default_solver(device, solver)
     n_spec = band.tau.shape[1]
     n_z = band.tau.shape[0]
     n = len(quad.qp_mu_n)
@@ -408,20 +446,8 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     def to_dev(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-    albedo = 0.0
-    spectral_albedo = None
-    is_brdf = False
-    if surface["type"] == "LambertianSurfaceScalar":
-        albedo = float(surface["albedo"])
-    elif surface["type"] == "LambertianSurfaceSpectrum":
-        spectral_albedo = to_dev(surface["albedo"])
-    elif surface["type"] == "LambertianSurfaceLegendre":
-        spectral_albedo = to_dev(
-            legendre_spectral_albedo(surface["legendre_coeff"], n_spec))
-    elif surface["type"] in ("rpvSurfaceScalar", "RossLiSurfaceScalar"):
-        is_brdf = True
-    else:
-        raise NotImplementedError(surface["type"])
+    albedo, spectral_albedo, is_brdf = surface_inputs(surface, n_spec,
+                                                      to_dev)
 
     R_SFI = np.zeros((len(vza), n_stokes, n_spec))
     T_SFI = np.zeros((len(vza), n_stokes, n_spec))
@@ -501,13 +527,8 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                     j_m = (r_cols @ i0_blk) / w0            # (nSpec, N)
                     j_p = (t_cols @ i0_blk) / w0
             hdr_j_m = hdr_j_m_dev.cpu().numpy() if return_hdr else None
-            weight = 0.5 if m == 0 else 1.0
-            for i in range(len(vza)):
-                i_mu = nearest_point(quad.qp_mu, np.cos(np.deg2rad(vza[i])))
-                sl = slice(n_stokes * i_mu, n_stokes * (i_mu + 1))
-                cm = np.cos(np.deg2rad(m * vaz[i]))
-                sm = np.sin(np.deg2rad(m * vaz[i]))
-                big_cs = weight * np.array([cm, cm, sm, sm][:n_stokes])
+            for i, (sl, big_cs) in enumerate(
+                    synthesis_weights(quad, vza, vaz, m, n_stokes)):
                 R_SFI[i] += big_cs[:, None] * j_m[:, sl].T
                 T_SFI[i] += big_cs[:, None] * j_p[:, sl].T
                 if return_hdr:

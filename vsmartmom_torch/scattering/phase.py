@@ -130,13 +130,18 @@ def compute_Z_moments(pol: Polarization, mu: np.ndarray, gc: GreekCoefs,
     shape (n*n_mu, n*n_mu) with the Stokes dimension innermost, matching the
     stokes-expanded quadrature layout of the RT core.
 
-    m is the 0-based Fourier moment.
+    m is the 0-based Fourier moment. A moment at or beyond the expansion's
+    length (m >= gc.l_max: Rayleigh's 3 terms at m >= 3) has no term, and
+    both matrices are zero (the JAX package raises IndexError there).
     """
     mu = np.atleast_1d(np.asarray(mu, dtype=np.float64))
     assert np.all((mu > 0) & (mu <= 1.0)), "mu must be in (0, 1]"
     l_max = gc.l_max
     n_mu = len(mu)
     n = pol.n
+    if m >= l_max:
+        zero = np.zeros((n_mu * n, n_mu * n))
+        return zero, zero.copy()
 
     fact = 0.5 if m == 0 else 1.0
 
