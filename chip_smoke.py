@@ -124,6 +124,28 @@ Run from the repository root:  python3 chip_smoke.py
    1, 20 layers, l_trunc 40, max_m 20, Float64, 152 views) on a stand-in
    AFGL profile interpolated from default_parameters' (p, T, q), the card
    within 1e-10 of the port's CPU run of the same scene and solver.
+15. (k) Forward-mode AD (core/autodiff.py, scattering/mie_ad.py,
+   spectroscopy/voigt.py:absorption_cross_section; rows 1 and 3 are
+   torch.autograd.Functions, kernel primal and plain-version tangent) at
+   the flagship's full width, state (log scattering scale, albedo, log
+   absorption scale) of vsmartmom_torch/retrieval_demo.py: the float64
+   torch engine's torch.func.jacfwd Jacobian on the card against central
+   differences (1e-5 of max); (a) the Jacobian through engine "kernel" in
+   float32 at the static schulz schedules, with the launch counts set to 0
+   just before it (102 row-1 launches and nothing else), within 2e-3 of
+   max of float64, its R within 1e-6 of rt_run_band's on that engine,
+   first and steady seconds, the primal's seconds and peak device memory;
+   (b) the same through "kernel_dev" (102 row-3 launches); (c)
+   Gauss-Newton through "kernel" at full width from the demo's start to
+   its truth within 5e-3 in 6 iterations (612 launches) and the demo on
+   the card; (d) aerosol_optics_with_derivs at the flagship's aerosol (mu
+   1.3, sigma 2.0, n_r 1.3, n_i 1e-8, lambda 0.77, r_max 50, 2 500 radii)
+   in float64: values within 1e-10 of the numpy NAI2 path, derivatives
+   within 1e-5 of max of central differences beyond their rounding; (e)
+   absorption_cross_section(autodiff=True) of the flagship's O2 lines on
+   its grid at the bottom layer's (p, T), within 1e-6 of central
+   differences; (f) torch.func.jvp through rows 2, 4, 5 and 6 raises
+   NotImplementedError and launches nothing.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
@@ -354,6 +376,35 @@ def headline_shape():
                         greeks=[get_greek_rayleigh(0.0)])
     return pol, quad, band, {"type": "LambertianSurfaceScalar",
                              "albedo": 0.15}
+
+
+def launch_counters():
+    """The kernel wrapper modules by engine name, each counting its
+    launches in ``launches``."""
+    from vsmartmom_torch.cuda import (doubling_kernel, lanes_kernel,
+                                      layer_scan_kernel,
+                                      layer_step_dev_kernel,
+                                      layer_step_kernel, voigt_kernel)
+    return {"kernel": layer_step_kernel, "kernel_dev": layer_step_dev_kernel,
+            "kernel_doubling": doubling_kernel, "voigt": voigt_kernel,
+            "kernel_scan": layer_scan_kernel, "kernel_lanes": lanes_kernel}
+
+
+def reset_counts():
+    for mod in launch_counters().values():
+        mod.launches = 0
+
+
+def counts():
+    return {name: mod.launches for name, mod in launch_counters().items()}
+
+
+def ad_only():
+    """Phase 15 (forward-mode AD) alone, on the card:
+    python3 -c 'import chip_smoke; chip_smoke.ad_only()'."""
+    torch = setup()
+    ad_phase(torch, torch.device("cuda:0"), f"[card: {card_name()}]",
+             reset_counts, counts)
 
 
 def kernel_times(shapes=("flagship", "co2_hapi", "headline")):
@@ -1295,6 +1346,294 @@ def elastic_scope_phase(torch, dev, tag, reset_counts, counts):
           "CPU by >= 1e-10 of max")
 
 
+#: central-difference steps of phase 15 (d) in (mu, sigma, n_r, n_i): the
+#: flagship's n_i of 1e-8 leaves Mie resonances a few 1e-8 wide in n_r
+MIE_STEPS = (1e-6, 1e-6, 1e-10, 1e-10)
+
+
+def fd_error(ad, fd, f_scale, step):
+    """(max|ad - fd|, the central difference's rounding 4 eps max|f| /
+    step), both over max|fd|."""
+    scale = float(np.abs(fd).max())
+    floor = 4 * np.finfo(np.float64).eps * f_scale / step
+    return float(np.abs(ad - fd).max()) / scale, floor / scale
+
+
+def ad_phase(torch, dev, tag, reset_counts, counts):
+    """15. Forward-mode AD at the flagship's full width, (a) to (f) of the
+    module docstring. The launch counts are set to 0 just before each
+    Jacobian, Gauss-Newton run and (f), and read just after."""
+    import vsmartmom_torch as vt
+    import vsmartmom_torch.core.rt_run as rtr
+    from vsmartmom_torch.core.api import build_band_inputs
+    from vsmartmom_torch.core.autodiff import gauss_newton
+    from vsmartmom_torch.cuda import voigt_kernel as vk
+    from vsmartmom_torch.retrieval_demo import (X_START, X_TRUE, retrieve,
+                                                state_radiance)
+    from vsmartmom_torch.scattering.mie import Aerosol
+    from vsmartmom_torch.scattering.mie_ad import (
+        aerosol_optics_with_derivs, greek_stack, make_setup)
+    from vsmartmom_torch.scattering.nai2 import \
+        compute_aerosol_optical_properties
+    from vsmartmom_torch.scattering.phase import compute_Z_moments
+    from vsmartmom_torch.spectroscopy.profiles import (hitran_artifact,
+                                                       read_linelist)
+    from vsmartmom_torch.spectroscopy.voigt import (
+        absorption_cross_section, line_parameters, make_hitran_model)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    params = vt.default_parameters()
+    params.float_type = "Float32"
+    model = vt.model_from_parameters(params, device=dev)
+    band = build_band_inputs(model, 0)
+    pol, quad = model.pol, model.quad_points
+    vza, vaz = model.obs_geom.vza, model.obs_geom.vaz
+    surf, max_m = params.surfaces[0], params.max_m
+    n_z, n_spec = band.tau.shape
+    nd, sched, scheds = rtr.build_layer_schedules(
+        band.tau, band.omega, float(np.min(quad.qp_mu)), "schulz")
+    static = dict(ndoubl_static=nd, ns_schedule=sched,
+                  layer_schedules=scheds)
+
+    def radiance(dtype, engine):
+        """f(x) -> R.ravel() at state x (retrieval_demo.state_radiance)
+        and make_radiance_fn's fn, at the band's static schedules."""
+        return state_radiance(pol, quad, band, vza, vaz, max_m, dtype, dev,
+                              engine, "schulz")
+
+    x_a = (0.0, float(surf["albedo"]), 0.0)
+    # the float64 torch engine's Jacobian on the card, and its central
+    # differences
+    f64, _ = radiance(torch.float64, "torch")
+    x64 = torch.tensor(x_a, dtype=torch.float64, device=dev)
+    J64, t_j64 = timed(lambda: torch.func.jacfwd(f64)(x64).cpu().numpy())
+    eps = 1e-6
+    fd = np.stack([((f64(x64 + eps * e) - f64(x64 - eps * e))
+                    / (2 * eps)).cpu().numpy()
+                   for e in torch.eye(3, dtype=torch.float64, device=dev)],
+                  axis=-1)
+    e_fd = [rel_err(J64[:, k], fd[:, k]) for k in range(3)]
+    print(f"AD flagship (nSpec={n_spec}, nZ={n_z}, N={len(quad.qp_mu_n)}, "
+          f"{max_m} moments, {len(vza)} views, state (log scattering "
+          f"scale, albedo, log absorption scale) at {x_a}): float64 torch "
+          f"Jacobian {t_j64:.3f} s, against central differences (step "
+          f"1e-6) {['%.3e' % e for e in e_fd]} of max by column {tag}")
+    check(np.isfinite(J64).all() and np.abs(J64).max() > 0,
+          "AD: float64 Jacobian not finite or zero")
+    check(max(e_fd) < 1e-5, "AD: float64 Jacobian off central differences "
+          "by >= 1e-5 of max")
+
+    # (a), (b): float32 through the two layer-step kernels
+    for engine, mod in (("kernel", "kernel"), ("kernel_dev", "kernel_dev")):
+        f32, fn32 = radiance(torch.float32, engine)
+        direct = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                  for a in (band.tau, band.omega, band.zw)]
+        R_fn = fn32(*direct, float(surf["albedo"])).cpu().numpy()
+        R_band, _ = rtr.rt_run_band(pol, quad, band, vza, vaz, max_m, surf,
+                                    dtype=torch.float32, device=dev,
+                                    solver="schulz", engine=engine)
+        e_r = rel_err(R_fn, R_band)
+        x32 = torch.tensor(x_a, dtype=torch.float32, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        J32, t_first = timed(lambda: torch.func.jacfwd(f32)(x32))
+        c = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t_steady = min(timed(lambda: torch.func.jacfwd(f32)(x32))[1]
+                       for _ in range(2))
+        t_primal = min(timed(lambda: f32(x32))[1] for _ in range(2))
+        J32 = J32.cpu().numpy()
+        e_j = rel_err(J32, J64)
+        print(f"AD ({'a' if engine == 'kernel' else 'b'}) {engine}, "
+              f"float32: R vs rt_run_band {e_r:.3e} of max; jacfwd "
+              f"launches {c}; first {t_first:.3f} s, steady {t_steady:.3f} "
+              f"s per Jacobian (the primal alone {t_primal:.3f} s), peak "
+              f"{peak:.2f} GiB; finite {bool(np.isfinite(J32).all())}; vs "
+              f"float64 {e_j:.3e} of max {tag}")
+        check(e_r < 1e-6, f"AD {engine}: make_radiance_fn R off "
+              f"rt_run_band by >= 1e-6 of max")
+        check(c[mod] == max_m * n_z
+              and sum(c.values()) == c[mod], f"AD {engine}: launches {c}, "
+              f"expected {max_m * n_z} of {mod} and nothing else")
+        check(np.isfinite(J32).all(), f"AD {engine}: non-finite tangent")
+        check(e_j < 2e-3, f"AD {engine}: float32 Jacobian off float64 by "
+              f">= 2e-3 of max")
+        del J32, fn32, f32
+
+    # (c) Gauss-Newton through the kernel at full width
+    f32, _ = radiance(torch.float32, "kernel")
+    truth = torch.tensor(X_TRUE, dtype=torch.float32, device=dev)
+    y = f32(truth)
+    noise = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        y.shape), dtype=torch.float32, device=dev)
+    y = y * (1.0 + 1e-5 * noise)
+    reset_counts()
+    (x_hat, hist), t_gn = timed(lambda: gauss_newton(
+        lambda x: f32(x) - y,
+        torch.tensor(X_START, dtype=torch.float32, device=dev), n_iter=6))
+    c = counts()
+    x_hat = x_hat.cpu().numpy()
+    err = np.abs(x_hat - np.asarray(X_TRUE)).max()
+    print(f"AD (c) Gauss-Newton through kernel, float32, 6 iterations from "
+          f"{X_START}: {x_hat.tolist()} (truth {X_TRUE}, max err "
+          f"{err:.3e}); chi2 {['%.3e' % h for h in hist]}; {t_gn:.3f} s, "
+          f"launches {c} {tag}")
+    check(err < 5e-3, "AD Gauss-Newton missed the truth by >= 5e-3")
+    check(hist[-1] < hist[0], "AD Gauss-Newton: chi2 did not fall")
+    check(c["kernel"] == 6 * max_m * n_z and sum(c.values()) == c["kernel"],
+          f"AD Gauss-Newton launches {c}")
+    reset_counts()
+    (x_t, x_d, hist_d, _), t_demo = timed(lambda: retrieve(dev))
+    c = counts()
+    err_d = np.abs(x_d - x_t).max()
+    print(f"AD (c) retrieval demo on the card (engine kernel, float32): "
+          f"{x_d.tolist()}, max err {err_d:.3e}, {t_demo:.3f} s, launches "
+          f"{c} {tag}")
+    check(err_d < 5e-3 and c["kernel"] > 0, "retrieval demo missed the "
+          "truth by >= 5e-3 or launched no layer step")
+    del f32
+
+    # (d) Mie AD at the flagship's aerosol
+    sp = params.scattering_params
+    a = sp.rt_aerosols[0]
+    theta = (a.mu, a.sigma, a.n_r, a.n_i)
+    torch.cuda.reset_peak_memory_stats()
+    (optics, der), t_mie = timed(lambda: aerosol_optics_with_derivs(
+        *theta, sp.lambda_ref, sp.r_max, sp.nquad_radius, device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = compute_aerosol_optical_properties(
+        Aerosol(*theta), sp.lambda_ref, sp.r_max, sp.nquad_radius)
+    names = ("alpha", "beta", "gamma", "delta", "epsilon", "zeta")
+    e_val = max([float(np.abs(getattr(optics.greek_coefs, nm)
+                              - getattr(ref.greek_coefs, nm)).max())
+                 for nm in names]
+                + [abs(optics.ssa - ref.ssa), abs(optics.k - ref.k)])
+    setup = make_setup(sp.lambda_ref, sp.r_max, sp.nquad_radius)
+    th = torch.tensor(theta, dtype=torch.float64, device=dev)
+    e_der = {}
+    for i, step in enumerate(MIE_STEPS):
+        dv = torch.zeros(4, dtype=torch.float64, device=dev)
+        dv[i] = step
+        hi, lo = greek_stack(setup, th + dv), greek_stack(setup, th - dv)
+        for key, j, v in (("d_greeks", 0, hi[0]), ("d_ssa", 1, hi[1]),
+                          ("d_k", 2, hi[2])):
+            fdv = ((hi[j] - lo[j]) / (2 * step)).cpu().numpy()
+            e_der[(key, i)] = fd_error(der[key][i], fdv,
+                                       float(v.abs().max()), step)
+    shown = {f"{k}/{i}": ("%.3e" % e, "%.1e" % r)
+             for (k, i), (e, r) in e_der.items()}
+    print(f"AD (d) Mie at the flagship's aerosol (mu, sigma, n_r, n_i = "
+          f"{theta}, lambda {sp.lambda_ref}, r_max {sp.r_max}, "
+          f"{sp.nquad_radius} radii, L = {ref.greek_coefs.l_max}), float64: "
+          f"{t_mie:.3f} s, peak {peak:.2f} GiB; values vs numpy NAI2 "
+          f"{e_val:.3e}; derivatives vs central differences (steps "
+          f"{MIE_STEPS}) of max, (difference, rounding) by output and "
+          f"parameter: {shown} {tag}")
+    check(e_val < 1e-10, "AD Mie values off the numpy path by >= 1e-10")
+    check(all(e < 1e-5 + r for e, r in e_der.values()), "AD Mie "
+          "derivatives off central differences by >= 1e-5 of max beyond "
+          "their rounding")
+
+    # (e) cross-section AD of the flagship's O2 lines on its grid
+    ap = params.absorption_params
+    grid = np.asarray(params.spec_bands[0], np.float64)
+    ht = read_linelist(hitran_artifact("O2"), "O2",
+                       grid.min() - ap.wing_cutoff,
+                       grid.max() + ap.wing_cutoff)
+    hm = make_hitran_model(ht, ap.broadening, wing_cutoff=ap.wing_cutoff,
+                           vmr=0.21, cef=ap.cef)
+    p_b, t_b = float(model.profile.p_full[-1]), float(model.profile.T[-1])
+    torch.cuda.reset_peak_memory_stats()
+    (sig, jac), t_x = timed(lambda: absorption_cross_section(
+        hm, grid, p_b, t_b, autodiff=True, device=dev))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    e_x = []
+    for k, h in enumerate((0.1, 0.01)):
+        x = [p_b, t_b]
+        x[k] += h
+        hi = absorption_cross_section(hm, grid, *x, device=dev)
+        x[k] -= 2 * h
+        lo = absorption_cross_section(hm, grid, *x, device=dev)
+        e_x.append(rel_err(jac[:, k].cpu().numpy(),
+                           ((hi - lo) / (2 * h)).cpu().numpy()))
+    print(f"AD (e) O2 cross-section, {len(ht.nu)} lines on {len(grid)} "
+          f"points at (p, T) = ({p_b:.2f} hPa, {t_b:.2f} K), float64: "
+          f"{t_x:.3f} s, peak {peak:.2f} GiB; d/dp, d/dT vs central "
+          f"differences (0.1 hPa, 0.01 K) {['%.3e' % e for e in e_x]} of "
+          f"max {tag}")
+    check(sig.shape == (len(grid),) and np.isfinite(
+        jac.cpu().numpy()).all(), "AD cross-section: bad shape or "
+        "non-finite Jacobian")
+    check(max(e_x) < 1e-6, "AD cross-section Jacobian off central "
+          "differences by >= 1e-6")
+
+    # (f) the kernels without a forward rule raise under torch.func.jvp
+    sl = slice(0, 256)
+    small = rtr.BandRTInputs(tau=band.tau[:, sl], omega=band.omega[:, sl],
+                             zw=band.zw[:, :, sl], greeks=band.greeks)
+    raised = {}
+    reset_counts()
+    for engine in ("kernel_doubling", "kernel_scan", "kernel_lanes"):
+        try:
+            fourier_jvp(torch, rtr, compute_Z_moments, pol, quad, small,
+                        surf, dev, engine, static)
+            raised[engine] = None
+        except NotImplementedError as e:
+            raised[engine] = str(e).split(" has no")[0]
+    plan = vk.VoigtPlan(grid[:1024], hm.hitran.nu, hm.wing_cutoff,
+                        device=dev)
+    nu, amp, igd, yv = plan.line_inputs(*line_parameters(hm, p_b, t_b))
+    try:
+        torch.func.jvp(lambda v: vk.voigt_tiles(*plan.call_args(
+            v, amp, igd, yv)), (nu,), (torch.ones_like(nu),))
+        raised["voigt"] = None
+    except NotImplementedError as e:
+        raised["voigt"] = str(e).split(" has no")[0]
+    c = counts()
+    print(f"AD (f) torch.func.jvp through the kernels without a forward "
+          f"rule: NotImplementedError from {raised}; launches {c} {tag}")
+    check(all(raised.values()), f"AD: a kernel without a forward rule ran "
+          f"under torch.func.jvp: {raised}")
+    check(sum(c.values()) == 0, f"AD (f) launched kernels: {c}")
+
+
+def fourier_jvp(torch, rtr, compute_Z_moments, pol, quad, band, surf, dev,
+                engine, static):
+    """torch.func.jvp of moment 0's Fourier step through ``engine`` with
+    respect to tau, in float32 on ``dev`` (what make_radiance_fn refuses
+    for the engines without a forward rule)."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)
+    n = len(quad.qp_mu_n)
+    i0 = np.zeros(n)
+    i0[quad.i_mu0_n:quad.i_mu0_n + pol.n] = pol.i0
+    zs = [compute_Z_moments(pol, quad.qp_mu, gc, 0) for gc in band.greeks]
+    n_z = band.tau.shape[0]
+    schedules = rtr._per_layer_schedules(
+        n_z, "schulz", static["ndoubl_static"], static["ns_schedule"],
+        static["layer_schedules"])
+
+    def step(tau):
+        comp, _ = rtr._fourier_step(
+            tau, t(band.omega), t(band.zw), t([z[0] for z in zs]),
+            t([z[1] for z in zs]), t(quad.qp_mu_n), t(quad.wt_mu_n),
+            t(np.tile(pol.d, quad.n_quad)), t(i0), t(surf["albedo"]), None,
+            t(quad.mu0), t(quad.qp_mu_n[quad.i_mu0_n]),
+            t(np.min(quad.qp_mu)), i_mu0_n=quad.i_mu0_n, n_stokes=pol.n,
+            is_m0=True, solver="schulz", layer_schedules=schedules,
+            engine=engine)
+        return comp.j_m
+    tau = t(band.tau)
+    return torch.func.jvp(step, (tau,), (torch.ones_like(tau),))
+
+
 def main():
     torch = setup()
 
@@ -1319,15 +1658,6 @@ def main():
         compute_absorption_cross_section, make_hitran_model)
 
     dev = torch.device("cuda:0")
-
-    def reset_counts():
-        lsk.launches = ldk.launches = dk.launches = vk.launches = 0
-        scn.launches = lnk.launches = 0
-
-    def counts():
-        return {"kernel": lsk.launches, "kernel_dev": ldk.launches,
-                "kernel_doubling": dk.launches, "voigt": vk.launches,
-                "kernel_scan": scn.launches, "kernel_lanes": lnk.launches}
 
     def n_buckets(band_, quad_):
         """Schedule buckets of a profile under the schulz solver (a uniform
@@ -1836,6 +2166,9 @@ def main():
 
     # ---- 14. (j) the rest of the elastic scope ------------------------------
     elastic_scope_phase(torch, dev, tag, reset_counts, counts)
+
+    # ---- 15. (k) forward-mode AD --------------------------------------------
+    ad_phase(torch, dev, tag, reset_counts, counts)
 
     kernels = [
         s_stats.entry("fused_layer_step",

@@ -8,7 +8,9 @@ with rotational (RRS), vibrational (VS) and concatenated-band specs
 is torch on an explicit ``device``; the hot kernels of the elastic path
 (the layer step in its forms, the layer scan and the tiled Voigt line sum)
 are CUDA C++ for Hopper (``csrc/``), built at first use. The Raman path
-is torch ops.
+is torch ops. Forward-mode AD goes through ``torch.func``
+(``core/autodiff.py``, ``scattering/mie_ad.py``, the cross-section's
+``autodiff``); the two fused layer-step kernels carry a forward rule.
 
 Public API (mirrors the JAX package):
   parameters_from_yaml, default_parameters, model_from_parameters, rt_run

@@ -219,8 +219,43 @@ def doubling_arena_floats(n: int, ld: int) -> int:
     return 6 * n * ld + 2 * round4(n) + 2 * n * round4(2 * n + 2)
 
 
+#: the kernels with a forward-mode rule (kernel primal, plain-version
+#: tangent), as the JAX package gives its two fused layer steps a
+#: custom_jvp; every other kernel raises under a torch.func transform
+DIFFERENTIABLE = ("fused_layer_step (engine kernel)",
+                  "fused_layer_step_dev (engine kernel_dev)")
+
+
+def check_unwrapped(name: str, xs):
+    """Raise NotImplementedError where an operand is a tensor wrapped by a
+    torch.func transform (jvp, jacfwd, vmap, grad): such a tensor has no
+    storage of its own for a launch to read, and only the kernels of
+    DIFFERENTIABLE have a forward rule."""
+    for x in xs:
+        if torch._C._functorch.is_functorch_wrapped_tensor(x):
+            raise NotImplementedError(
+                f"{name} has no forward rule under a torch.func transform: "
+                f"only {' and '.join(DIFFERENTIABLE)} are differentiable, "
+                f"as in the JAX package")
+
+
+def tangent_of_plain(plain, ctx, tangents):
+    """The ``jvp`` of a kernel's torch.autograd.Function: torch.func.jvp of
+    its plain version at the primals saved by ``setup_context``
+    (``ctx.saved_tensors``, then the static ``ctx.statics``). Tangents
+    that arrive as None are zeros. The JAX package's custom_jvp of its
+    layer steps does the same with their jnp twins."""
+    primals = ctx.saved_tensors
+    tangents = tuple(torch.zeros_like(p) if t is None else t
+                     for p, t in zip(primals, tangents))
+    return torch.func.jvp(lambda *xs: plain(*xs, *ctx.statics), primals,
+                          tangents)[1]
+
+
 def check_operands(name: str, xs, device):
-    """Every operand float32, contiguous, on ``device``, without autograd."""
+    """Every operand float32, contiguous, on ``device``, without autograd,
+    and none wrapped by a torch.func transform (check_unwrapped)."""
+    check_unwrapped(name, xs)
     for x in xs:
         if x.device != device or x.dtype != torch.float32:
             raise ValueError(f"{name} takes float32 tensors on one device, "

@@ -59,7 +59,8 @@ def fused_doubling(r, t, jp, jm, ek, *, ns_schedule):
     (r, t, jp, jm).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32, contiguous, no autograd) or raise.
+    (float32, contiguous, no autograd) or raise; under a torch.func
+    transform they raise NotImplementedError (no forward rule).
     """
     ns_schedule = tuple(int(i) for i in ns_schedule)
     if r.device.type == "cpu":

@@ -201,7 +201,8 @@ def fused_layer_step_lanes(comp_l: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
     composite in lanes layout.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32, contiguous, no autograd) or raise.
+    (float32, contiguous, no autograd) or raise; under a torch.func
+    transform they raise NotImplementedError (no forward rule).
     """
     ns_schedule = tuple(int(i) for i in ns_schedule)
     if r_f.device.type == "cpu":

@@ -132,7 +132,8 @@ def fused_layer_scan(comp_in: LayerRT, tau, omega, zw, tau_sum, z_pp_c,
     composite through these layers.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32, contiguous, no autograd, N <= max_n()) or raise.
+    (float32, contiguous, no autograd, N <= max_n()) or raise; under a
+    torch.func transform they raise NotImplementedError (no forward rule).
     """
     ns_schedule = tuple(int(i) for i in ns_schedule)
     if tau.device.type == "cpu":

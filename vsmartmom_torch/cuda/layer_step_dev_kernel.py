@@ -33,7 +33,9 @@ version's torch ops. The ragged last block is masked in the kernel.
 The plain version (``fused_layer_step_dev_plain``) is the JAX package's
 ``_xla_twin_step_dev`` on the port's torch functions. The wrapper takes it
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
-Forward only.
+Forward mode only: under torch.func.jvp/jacfwd the kernel computes the
+primal and the plain version's jvp the tangent (the JAX package's
+custom_jvp); no backward.
 """
 from __future__ import annotations
 
@@ -107,6 +109,69 @@ def fused_layer_step_dev_plain(comp: LayerRTDev, r_f, g_el, e_el, jp, jm_f,
     return interaction_dev(comp, added, ni=int(ni))
 
 
+def _plain_flat(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m, r_f, g_el, e_el, jp,
+                jm_f, ek, d_vec, ns_schedule, ni):
+    """fused_layer_step_dev_plain on flat tensor arguments, as a tuple."""
+    return tuple(fused_layer_step_dev_plain(
+        LayerRTDev(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m), r_f, g_el, e_el,
+        jp, jm_f, ek, d_vec, ns_schedule=ns_schedule, ni=ni))
+
+
+class _FusedLayerStepDev(torch.autograd.Function):
+    """The split-form layer step with a forward-mode rule, as the JAX
+    package's custom_jvp: kernel primal (the plain version on CPU
+    tensors), tangent torch.func.jvp of the plain version at the same
+    primals. torch.func only, unbatched primals, no backward: see
+    layer_step_kernel._FusedLayerStep."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(*args):
+        if args[7].device.type == "cpu":
+            return _plain_flat(*args)
+        return _launch(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs[:14])
+        ctx.statics = inputs[14:]
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return build.tangent_of_plain(_plain_flat, ctx, tangents[:14])
+
+
+def _launch(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m, r_f, g_el, e_el, jp, jm_f,
+            ek, d_vec, ns_schedule, ni):
+    """One launch of the kernel on CUDA tensors; the new composite as a
+    tuple of its seven fields."""
+    if r_f.device.type != "cuda":
+        raise ValueError(f"unsupported device {r_f.device}")
+    s, n, _ = r_f.shape
+    mats = [r_mp, r_pm, e_pp, e_mm, r_f, e_el]
+    vecs = [g, j_p, j_m, g_el, jp, jm_f]
+    ins = [*mats[:4], *vecs[:3], r_f, g_el, e_el, jp, jm_f, ek, d_vec]
+    build.check_operands("fused_layer_step_dev", ins, r_f.device)
+    if any(m.shape != (s, n, n) for m in mats) \
+            or any(v.shape != (s, n) for v in vecs) \
+            or ek.shape != (s,) or d_vec.shape != (n,):
+        raise ValueError("fused_layer_step_dev: inconsistent shapes")
+    sched = build.schedule_array(ns_schedule)
+    pts, smem, ld, _ = launch_config(n)
+    outs = [torch.empty_like(r_mp) for _ in range(4)] \
+        + [torch.empty_like(j_p) for _ in range(3)]
+    if s == 0:
+        return tuple(outs)
+    err = build.lib().vsm_layer_step_dev(
+        *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
+        s, n, ld, sched, len(ns_schedule), int(ni), pts, smem,
+        torch.cuda.current_stream(r_f.device).cuda_stream)
+    build.check(err, "layer_step_dev launch")
+    global launches
+    launches += 1
+    return tuple(outs)
+
+
 def fused_layer_step_dev(comp: LayerRTDev, r_f, g_el, e_el, jp, jm_f, ek,
                          d_vec, *, ns_schedule, ni: int) -> LayerRTDev:
     """One split-form RT layer step. comp: LayerRTDev of (S, N, N) x 4 and
@@ -117,35 +182,10 @@ def fused_layer_step_dev(comp: LayerRTDev, r_f, g_el, e_el, jp, jm_f, ek,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32, contiguous, no autograd, N <= max_n()) or raise.
+    Differentiable in forward mode under torch.func.jvp/jacfwd (kernel
+    primal, plain-version tangent); ``launches`` counts primal launches
+    only.
     """
     ns_schedule = tuple(int(i) for i in ns_schedule)
-    if r_f.device.type == "cpu":
-        return fused_layer_step_dev_plain(comp, r_f, g_el, e_el, jp, jm_f,
-                                          ek, d_vec,
-                                          ns_schedule=ns_schedule,
-                                          ni=int(ni))
-    if r_f.device.type != "cuda":
-        raise ValueError(f"unsupported device {r_f.device}")
-    s, n, _ = r_f.shape
-    mats = [comp.r_mp, comp.r_pm, comp.e_pp, comp.e_mm, r_f, e_el]
-    vecs = [comp.g, comp.j_p, comp.j_m, g_el, jp, jm_f]
-    ins = [*mats[:4], *vecs[:3], r_f, g_el, e_el, jp, jm_f, ek, d_vec]
-    build.check_operands("fused_layer_step_dev", ins, r_f.device)
-    if any(m.shape != (s, n, n) for m in mats) \
-            or any(v.shape != (s, n) for v in vecs) \
-            or ek.shape != (s,) or d_vec.shape != (n,):
-        raise ValueError("fused_layer_step_dev: inconsistent shapes")
-    sched = build.schedule_array(ns_schedule)
-    pts, smem, ld, _ = launch_config(n)
-    outs = [torch.empty_like(comp.r_mp) for _ in range(4)] \
-        + [torch.empty_like(comp.j_p) for _ in range(3)]
-    if s == 0:
-        return LayerRTDev(*outs)
-    err = build.lib().vsm_layer_step_dev(
-        *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, ld, sched, len(ns_schedule), int(ni), pts, smem,
-        torch.cuda.current_stream(r_f.device).cuda_stream)
-    build.check(err, "layer_step_dev launch")
-    global launches
-    launches += 1
-    return LayerRTDev(*outs)
+    return LayerRTDev(*_FusedLayerStepDev.apply(
+        *comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec, ns_schedule, int(ni)))

@@ -27,7 +27,9 @@ ragged last block is masked in the kernel.
 
 The plain version (``fused_layer_step_plain``) computes the same algebra
 with torch batched matmuls. The wrapper takes it only for CPU tensors; for
-CUDA tensors it launches the kernel or raises. Forward only.
+CUDA tensors it launches the kernel or raises. Forward mode only: under
+torch.func.jvp/jacfwd the kernel computes the primal and the plain
+version's jvp the tangent (the JAX package's custom_jvp); no backward.
 """
 from __future__ import annotations
 
@@ -149,26 +151,50 @@ def fused_layer_step_plain(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
                    j_m=comp.j_m + o1[..., 2 * n])
 
 
-def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
-                     ns_schedule, ni: int) -> LayerRT:
-    """One RT layer step: double the elemental (flipped-space) layer and
-    compose it under the composite. comp: LayerRT of (S, N, N) x 4 and
-    (S, N) x 2; r_f, t: (S, N, N); jp, jm_f: (S, N); ek: (S,); d_vec: (N,).
-    ``ns_schedule``: per-doubling-step NS iteration counts; ``ni``: NS
-    iterations of the interaction solve. Returns the new composite.
+def _plain_flat(r_mp, r_pm, t_pp, t_mm, j_p, j_m, r_f, t, jp, jm_f, ek,
+                d_vec, ns_schedule, ni):
+    """fused_layer_step_plain on flat tensor arguments, as a tuple."""
+    return tuple(fused_layer_step_plain(
+        LayerRT(r_mp, r_pm, t_pp, t_mm, j_p, j_m), r_f, t, jp, jm_f, ek,
+        d_vec, ns_schedule=ns_schedule, ni=ni))
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32, contiguous, no autograd) or raise.
-    """
-    ns_schedule = tuple(int(i) for i in ns_schedule)
-    if r_f.device.type == "cpu":
-        return fused_layer_step_plain(comp, r_f, t, jp, jm_f, ek, d_vec,
-                                      ns_schedule=ns_schedule, ni=int(ni))
+
+class _FusedLayerStep(torch.autograd.Function):
+    """The layer step with a forward-mode rule, as the JAX package's
+    custom_jvp: the primal is the kernel (the plain version on CPU
+    tensors), the tangent torch.func.jvp of the plain version at the same
+    primals. Forward mode through torch.func only (jvp, jacfwd): under
+    torch.autograd.forward_ad the nested torch.func.jvp raises. The vmap
+    rule is generated, so the primal must be unbatched (jacfwd batches
+    only the tangents); vmapping over states reaches the launch with
+    wrapped tensors and raises. No backward: reverse mode is not ported."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(*args):
+        if args[6].device.type == "cpu":
+            return _plain_flat(*args)
+        return _launch(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs[:12])
+        ctx.statics = inputs[12:]
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return build.tangent_of_plain(_plain_flat, ctx, tangents[:12])
+
+
+def _launch(r_mp, r_pm, t_pp, t_mm, j_p, j_m, r_f, t, jp, jm_f, ek, d_vec,
+            ns_schedule, ni):
+    """One launch of the kernel on CUDA tensors; the new composite as a
+    tuple of its six fields."""
     if r_f.device.type != "cuda":
         raise ValueError(f"unsupported device {r_f.device}")
     s, n, _ = r_f.shape
-    mats = [comp.r_mp, comp.r_pm, comp.t_pp, comp.t_mm, r_f, t]
-    vecs = [comp.j_p, comp.j_m, jp, jm_f]
+    mats = [r_mp, r_pm, t_pp, t_mm, r_f, t]
+    vecs = [j_p, j_m, jp, jm_f]
     ins = [*mats[:4], *vecs[:2], r_f, t, jp, jm_f, ek, d_vec]
     build.check_operands("fused_layer_step", ins, r_f.device)
     if any(m.shape != (s, n, n) for m in mats) \
@@ -180,10 +206,10 @@ def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
     if smem > build.MAX_SHARED_BYTES:
         raise ValueError(f"N = {n} needs {smem} bytes of shared memory per "
                          f"block, more than {build.MAX_SHARED_BYTES}")
-    outs = [torch.empty_like(comp.r_mp) for _ in range(4)] \
-        + [torch.empty_like(comp.j_p) for _ in range(2)]
+    outs = [torch.empty_like(r_mp) for _ in range(4)] \
+        + [torch.empty_like(j_p) for _ in range(2)]
     if s == 0:
-        return LayerRT(*outs)
+        return tuple(outs)
     err = build.lib().vsm_layer_step(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
         s, n, ld, sched, len(ns_schedule), int(ni), pts, smem,
@@ -191,4 +217,23 @@ def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
     build.check(err, "layer_step launch")
     global launches
     launches += 1
-    return LayerRT(*outs)
+    return tuple(outs)
+
+
+def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
+                     ns_schedule, ni: int) -> LayerRT:
+    """One RT layer step: double the elemental (flipped-space) layer and
+    compose it under the composite. comp: LayerRT of (S, N, N) x 4 and
+    (S, N) x 2; r_f, t: (S, N, N); jp, jm_f: (S, N); ek: (S,); d_vec: (N,).
+    ``ns_schedule``: per-doubling-step NS iteration counts; ``ni``: NS
+    iterations of the interaction solve. Returns the new composite.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32, contiguous, no autograd) or raise. Differentiable in forward
+    mode under torch.func.jvp/jacfwd (kernel primal, plain-version
+    tangent; see _FusedLayerStep); ``launches`` counts primal launches
+    only.
+    """
+    ns_schedule = tuple(int(i) for i in ns_schedule)
+    return LayerRT(*_FusedLayerStep.apply(*comp, r_f, t, jp, jm_f, ek,
+                                          d_vec, ns_schedule, int(ni)))

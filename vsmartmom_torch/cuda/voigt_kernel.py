@@ -202,7 +202,8 @@ def voigt_tiles(grid_b, centers, item_block, item_lo, item_hi, block_item0,
     Returns (layers, n_grid).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.
+    raise (NotImplementedError under a torch.func transform: no forward
+    rule).
     """
     args = (grid_b, centers, item_block, item_lo, item_hi, block_item0, nu,
             amp, igd, y)
@@ -210,6 +211,8 @@ def voigt_tiles(grid_b, centers, item_block, item_lo, item_hi, block_item0,
         return voigt_tiles_plain(*args, cutoff, n_grid)
     if grid_b.device.type != "cuda":
         raise ValueError(f"unsupported device {grid_b.device}")
+    from vsmartmom_torch.cuda import build
+    build.check_unwrapped("voigt_tiles", args)
     for v, dt in zip(args, (torch.float32,) * 2 + (torch.int32,) * 4
                      + (torch.float32,) * 4):
         if v.device != grid_b.device or v.dtype != dt \
@@ -229,7 +232,6 @@ def voigt_tiles(grid_b, centers, item_block, item_lo, item_hi, block_item0,
         raise ValueError(f"voigt_tiles takes at most {MAX_LAYERS} layers")
     if n_layers == 0 or n_grid == 0:
         return torch.zeros((n_layers, n_grid), device=grid_b.device)
-    from vsmartmom_torch.cuda import build
     err, out = _launch(*args, cutoff, n_grid,
                        torch.cuda.current_stream(grid_b.device).cuda_stream)
     build.check(err, "voigt launch")

@@ -2,12 +2,18 @@
 
 Run from the repository root:
 
-    python3 -m vsmartmom_torch.profile_flagship [--engine E] [--trace DIR]
+    python3 -m vsmartmom_torch.profile_flagship [--engine E] [--jacobian]
+        [--trace DIR]
 
 Builds the Float32 flagship (default_parameters -> model_from_parameters)
 once to warm up, then profiles with ``torch.profiler`` (CPU + CUDA
 activities) one model build and one steady ``rt_run`` through engine E
-(``auto`` by default; any engine ``rt_run`` takes). For each it prints:
+(``auto`` by default; any engine ``rt_run`` takes). With ``--jacobian`` it
+profiles instead one steady radiance and one steady torch.func.jacfwd
+Jacobian of the retrieval demo's state (retrieval_demo.state_radiance:
+log scattering scale, albedo, log absorption scale) through AD engine E
+(``kernel`` for ``auto``) at the band's static schulz schedules. For each
+it prints:
 
 - wall: host seconds around the call, synchronized, profiler on;
 - device busy: the union of the device intervals (kernels, copies, sets)
@@ -89,10 +95,31 @@ def card_name():
         else "nvidia-smi unavailable"
 
 
+def jacobian_phases(model, params, dev, engine):
+    """The radiance and its jacfwd Jacobian at the flagship's state, each
+    run once to warm up."""
+    from vsmartmom_torch.core.api import build_band_inputs
+    from vsmartmom_torch.retrieval_demo import state_radiance
+    engine = "kernel" if engine == "auto" else engine
+    f, _ = state_radiance(model.pol, model.quad_points,
+                          build_band_inputs(model, 0), params.vza,
+                          params.vaz, params.max_m, torch.float32, dev,
+                          engine, "schulz")
+    x = torch.tensor([0.0, params.surfaces[0]["albedo"], 0.0], device=dev)
+    phases = {f"radiance ({engine})": lambda: f(x),
+              f"jacfwd ({engine})": lambda: torch.func.jacfwd(f)(x)}
+    for fn in phases.values():
+        fn()
+    torch.cuda.synchronize()
+    return phases
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="auto",
                     help="rt_run engine (default auto)")
+    ap.add_argument("--jacobian", action="store_true",
+                    help="profile a radiance and its Jacobian instead")
     ap.add_argument("--trace", help="directory for the Chrome traces")
     ap.add_argument("--top", type=int, default=12,
                     help="device kernels listed per phase")
@@ -113,6 +140,8 @@ def main():
                                                               device=dev),
               f"rt_run ({args.engine})":
                   lambda: vt.rt_run(model, device=dev, engine=args.engine)}
+    if args.jacobian:
+        phases = jacobian_phases(model, params, dev, args.engine)
     for phase, fn in phases.items():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

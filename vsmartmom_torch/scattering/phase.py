@@ -2,7 +2,8 @@
 
 Host-side setup math (numpy, float64). The Z matrices are small
 (N_stokes*N_quad squared), computed once per (band, Fourier moment), then used
-by the RT core as constants.
+by the RT core as constants; compute_Z_moments_torch is their differentiable
+torch twin on a Greek-coefficient tensor (the Mie-AD seam).
 
 ref: src/Scattering/compute_Z_matrices.jl:5-84 (compute_Z_moments)
      src/Scattering/mie_helper_functions.jl:237-251 (get_greek_rayleigh)
@@ -13,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from vsmartmom_torch.scattering.legendre import compute_associated_legendre_PRT
 
@@ -169,4 +171,52 @@ def compute_Z_moments(pol: Polarization, mu: np.ndarray, gc: GreekCoefs,
     # Reshape (i, j, a, b) -> (i*a, j*b) block layout
     Zpp = Zpp.transpose(0, 2, 1, 3).reshape(n_mu * n, n_mu * n)
     Zmp = Zmp.transpose(0, 2, 1, 3).reshape(n_mu * n, n_mu * n)
+    return Zpp, Zmp
+
+
+def make_z_cache(pol: Polarization, mu: np.ndarray, l_max: int, m: int):
+    """Static Pi-matrix tables (numpy float64) of compute_Z_moments_torch:
+    the Greek-independent part of the Z assembly for moment m."""
+    mu = np.atleast_1d(np.asarray(mu, dtype=np.float64))
+    P, R, T = compute_associated_legendre_PRT(mu, l_max)
+    Pm, Rm, Tm = compute_associated_legendre_PRT(-mu, l_max)
+    upper = np.arange(pol.n) >= 2
+    sign = np.where(upper[:, None] ^ upper[None, :], -1.0, 1.0)
+    return dict(Pi=_pi_matrices(pol, P, R, T, m),
+                Pim=_pi_matrices(pol, Pm, Rm, Tm, m), sign=sign, m=m,
+                n=pol.n, n_mu=len(mu))
+
+
+def compute_Z_moments_torch(greek_stack, cache):
+    """Differentiable twin of compute_Z_moments: ``greek_stack`` is a
+    (6, L) tensor (alpha, beta, gamma, delta, epsilon, zeta), the Pi tables
+    come from make_z_cache. Z is linear in the Greek coefficients, so this
+    is one einsum each for Z++ and Z-+, the seam through which
+    torch.func.jacfwd carries aerosol-microphysics derivatives into the RT
+    (ref: phase_function_autodiff.jl feeding compute_Z_matrices).
+    """
+    alpha, beta, gamma, delta, eps, zeta = greek_stack
+    n, m, n_mu = cache["n"], cache["m"], cache["n_mu"]
+    lm = greek_stack.shape[1]
+    zero = torch.zeros_like(beta)
+    rows = {1: [[beta]],
+            3: [[beta, gamma, zero], [gamma, alpha, zero],
+                [zero, zero, zeta]],
+            4: [[beta, gamma, zero, zero], [gamma, alpha, zero, zero],
+                [zero, zero, zeta, eps], [zero, zero, -eps, delta]]}[n]
+    B = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    def table(key):
+        return torch.as_tensor(cache[key][m:lm], dtype=greek_stack.dtype,
+                               device=greek_stack.device)
+    Pi = table("Pi")
+    fact = 0.5 if m == 0 else 1.0
+    App = torch.einsum("liab,lbc,ljcd->ijad", Pi, B[m:], Pi)
+    Amp = torch.einsum("liab,lbc,ljcd->ijad", Pi, B[m:], table("Pim"))
+    sign = torch.as_tensor(cache["sign"], dtype=greek_stack.dtype,
+                           device=greek_stack.device)
+    Zpp = 2.0 * fact * App
+    Zmp = 2.0 * fact * Amp * sign[None, None, :, :]
+    Zpp = Zpp.permute(0, 2, 1, 3).reshape(n_mu * n, n_mu * n)
+    Zmp = Zmp.permute(0, 2, 1, 3).reshape(n_mu * n, n_mu * n)
     return Zpp, Zmp

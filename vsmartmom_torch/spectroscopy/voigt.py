@@ -208,28 +208,36 @@ def make_voigt_plan(model: HitranModel, grid, device=DEFAULT_DEVICE):
 
 
 def compute_absorption_cross_section(model: HitranModel, grid, pressure,
-                                     temperature, dtype=torch.float64,
+                                     temperature, wavelength_flag=False,
+                                     dtype=torch.float64,
                                      device=DEFAULT_DEVICE, engine="dense",
                                      plan=None):
     """Cross-section [cm^2/molec] on the given ascending wavenumber grid
-    (cm^-1), as a tensor on ``device``.
+    (cm^-1), or on a wavelength grid (nm) with ``wavelength_flag``, as a
+    tensor on ``device``.
 
-    engine='dense' (default): f64 sweep (the HAPI-gate path).
+    engine='dense' (default): f64 sweep (the HAPI-gate path). ``pressure``
+    and ``temperature`` may be tensors: they enter the sweep as they are,
+    so torch.func.jacfwd/jvp differentiate through it (the TIPS range check
+    reads their value).
     engine='kernel': f32 tiled Voigt kernel (pass a cached ``plan`` from
-    make_voigt_plan to reuse the host tiling across (p, T) calls); raises
-    ValueError for a model whose line shape the kernel does not compute
-    (kernel_computes).
+    make_voigt_plan, on the wavenumber grid, to reuse the host tiling
+    across (p, T) calls); raises ValueError for a model whose line shape
+    the kernel does not compute (kernel_computes).
     ref: compute_absorption_cross_section.jl:19-130
     """
     device = resolve_device(device)
+    grid = np.asarray(grid, dtype=np.float64)
+    if wavelength_flag:
+        grid = np.sort(1e7 / grid)
     if engine == "kernel":
         check_kernel_model(model)
         if plan is None:
             plan = make_voigt_plan(model, grid, device=device)
-        return plan.run(*line_parameters(model, pressure, temperature))
+        res = plan.run(*line_parameters(model, pressure, temperature))
+        return res.flip(-1) if wavelength_flag else res
     if engine != "dense":
         raise ValueError(f"unknown engine {engine!r}")
-    grid = np.asarray(grid, dtype=np.float64)
     ht = model.hitran
 
     # restrict to lines within (grid_min - cutoff, grid_max + cutoff)
@@ -244,10 +252,12 @@ def compute_absorption_cross_section(model: HitranModel, grid, pressure,
         tmin, tmax = tips.tips_t_range(m, i)
         if not (tmin < float(temperature) < tmax):
             raise ValueError(
-                f"TIPS2017: T ({temperature}) must be between {tmin} K "
-                f"and {tmax} K.")
+                f"TIPS2017: T ({float(temperature)}) must be between {tmin} "
+                f"K and {tmax} K.")
 
     def to(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dtype=dtype, device=device)
         return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
 
     res = _xsec_dense(
@@ -258,4 +268,27 @@ def compute_absorption_cross_section(model: HitranModel, grid, pressure,
         to(model._spline_c), to(model._spline_x),
         to(pressure), to(temperature), to(model.vmr), to(model.wing_cutoff),
         cef_name=model.cef, broadening=model.broadening)
-    return res
+    return res.flip(-1) if wavelength_flag else res
+
+
+def absorption_cross_section(model: HitranModel, grid, pressure,
+                             temperature, wavelength_flag=False,
+                             autodiff=False, device=DEFAULT_DEVICE):
+    """User-level wrapper of the dense engine in float64; with
+    ``autodiff=True`` returns (value, d sigma / d(p, T)), the Jacobian of
+    shape (n_grid, 2) by torch.func.jacfwd (ref: autodiff_helper.jl:17-53).
+    """
+    if not autodiff:
+        return compute_absorption_cross_section(
+            model, grid, pressure, temperature, wavelength_flag,
+            device=device)
+
+    def value_and_aux(x):
+        sigma = compute_absorption_cross_section(
+            model, grid, x[0], x[1], wavelength_flag, device=device)
+        return sigma, sigma
+
+    x0 = torch.tensor([pressure, temperature], dtype=torch.float64,
+                      device=resolve_device(device))
+    jac, value = torch.func.jacfwd(value_and_aux, has_aux=True)(x0)
+    return value, jac
