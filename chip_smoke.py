@@ -146,6 +146,27 @@ Run from the repository root:  python3 chip_smoke.py
    its grid at the bottom layer's (p, T), within 1e-6 of central
    differences; (f) torch.func.jvp through rows 2, 4, 5 and 6 raises
    NotImplementedError and launches nothing.
+16. (l) Spectral sharding (parallel/sharding.py, parallel/distributed.py,
+   scaling_bench.py; no kernel of its own: each shard launches row 1, the
+   model build row 2): (a) the flagship in Float32, the build with the
+   launch counts reset just before (one Voigt launch) and
+   rt_run_band_sharded over 4 shards on cuda:0 under auto (4 x 102 row-1
+   launches and nothing else), every launch held against its plain version
+   (1e-5 of max per field), R/T within 1e-6 of max of the unsharded rt_run
+   (bit equality printed), the float64 torch engine sharded against
+   unsharded at rtol 1e-12 (atol 1e-15), steady seconds of both; (b)
+   O2Parameters.yaml as written (Float64) through rt_run_band_rrs_sharded
+   over 4 shards with the Raman halo, R, T, ieR and ieT within rtol 1e-11
+   (atol 1e-16) of phase 13 (a), each shard's halo and redundant share,
+   seconds and peak device memory; (c) two gloo processes (init_multihost,
+   each on cuda:0, started after the kernels are built, each with a 300 s
+   limit) running the flagship in float64 through the torch engine, the
+   gathered R/T within rtol 1e-12 of the single run; (d) python3 -m
+   vsmartmom_torch.scaling_bench: the 1-device row and 4 shards on the card
+   against the same load unsharded (mechanics, not scaling); (e)
+   read_hitran(engine="native") on data/hitran/O2.par and H2O.par (g++
+   build on this machine) field for field against engine="python", with
+   the parse seconds.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
@@ -951,6 +972,9 @@ def raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
           "ieR not positive")
     _, t_steady = timed(lambda: vt.rt_run(model, rs_type="RRS", device=dev))
     fill = ieR[:, 0] / R[:, 0]
+    # phase 16 (b) holds the sharded run against this one
+    unsharded = {"model": model, "out": out64, "t_steady": t_steady,
+                 "peak": peak64}
     print(f"Raman O2 float64: rt_run first {t_first:.3f} s, steady "
           f"{t_steady:.3f} s = {n_spec / t_steady:.1f} points/s; peak "
           f"device memory {peak64 / 2**30:.2f} GiB; ieR/R in I "
@@ -987,7 +1011,7 @@ def raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
           "Raman O2 float32: non-finite output")
     check(max(errs) < 1e-4, "Raman O2 float32 R/T/ieR/ieT off float64 by "
           ">= 1e-4")
-    del out32, out64
+    del out32
 
     # (e) the elastic run in float32 through kernel_scan: the 60 deg view
     # merges with the Gauss node 0.5, which the scan kernel's elemental
@@ -1063,6 +1087,7 @@ def raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
           f"{t_first:.3f} s, steady {t_steady:.3f} s = "
           f"{2048 / t_steady:.1f} points/s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+    return unsharded
 
 
 # ---- 14. the rest of the elastic scope --------------------------------------
@@ -1634,6 +1659,302 @@ def fourier_jvp(torch, rtr, compute_Z_moments, pol, quad, band, surf, dev,
     return torch.func.jvp(step, (tau,), (torch.ones_like(tau),))
 
 
+# ---- 16. spectral sharding on the one card ----------------------------------
+
+#: shards of phase 16 (a) and (b), all on cuda:0
+N_SHARDS = 4
+#: processes of phase 16 (c), both on cuda:0
+N_RANKS = 2
+#: wall-clock limit of each child process of phase 16 (c) and (d)
+CHILD_TIMEOUT = 300
+
+
+def mp_rank(addr, rank, path):
+    """One rank of phase 16 (c): joins the gloo group at ``addr``, runs its
+    slice of the pickled band (``path``.pkl) through
+    rt_run_band_distributed on cuda:0 in float64 with the torch engine, and
+    rank 0 writes the gathered R and T to ``path``.npz:
+    python3 -c 'import chip_smoke; chip_smoke.mp_rank(addr, r, path)'."""
+    import pickle
+    torch = setup()
+    from vsmartmom_torch.parallel import distributed as dist
+    with open(path + ".pkl", "rb") as f:
+        args = pickle.load(f)
+    check(dist.init_multihost(addr, N_RANKS, int(rank)),
+          "init_multihost: not a multi-process run")
+    t0 = time.perf_counter()
+    R, T = dist.rt_run_band_distributed(*args, device="cuda:0",
+                                        dtype=torch.float64, engine="torch")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if dist.rank() == 0:
+        np.savez(path + ".npz", R=R, T=T, seconds=dt)
+    torch.distributed.destroy_process_group()
+
+
+def run_children(cmds, what):
+    """Start every command of ``cmds`` (from the repository root), wait for
+    each within CHILD_TIMEOUT, kill any left; fails unless each exits 0.
+    Returns their standard outputs."""
+    procs = [subprocess.Popen(c, cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    res = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=CHILD_TIMEOUT)
+            res.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: a child process ran past {CHILD_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rc, _, err in res:
+        check(rc == 0, f"{what}: a child process exited {rc}: {err[-3000:]}")
+    return [out for _, out, _ in res]
+
+
+def sharding_only():
+    """Phase 16 (spectral sharding) alone, on the card, with its own
+    unsharded Raman run: python3 -c 'import chip_smoke;
+    chip_smoke.sharding_only()'."""
+    torch = setup()
+    from vsmartmom_torch.cuda import build
+    t0 = time.perf_counter()
+    build.lib()
+    tag = f"[card: {card_name()}]"
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s {tag}")
+    sharding_phase(torch, torch.device("cuda:0"), tag, reset_counts, counts)
+
+
+def sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref=None):
+    """16. Spectral sharding (parallel/sharding.py, parallel/distributed.py,
+    scaling_bench.py, the native HITRAN parser) on the one card. (a) The
+    flagship in Float32 at full width, model build (one Voigt launch) and
+    rt_run_band_sharded over 4 shards on cuda:0 under auto with the launch
+    counts reset just before (4 x 102 row-1 launches, nothing else), every
+    launch held against its plain version (1e-5 of max per field), R/T
+    within 1e-6 of max of the unsharded rt_run, and the float64 torch engine
+    sharded against unsharded at rtol 1e-12; steady seconds of both. (b)
+    O2Parameters.yaml as written (Float64) through rt_run_band_rrs_sharded
+    over 4 shards with the Raman halo, R, T, ieR and ieT within rtol 1e-11
+    of phase 13 (a)'s unsharded run; halo per shard, seconds and peak
+    memory. (c) Two gloo processes on cuda:0, the flagship in float64
+    through the torch engine, the gathered R/T within rtol 1e-12 of the
+    single run. (d) python3 -m vsmartmom_torch.scaling_bench: the 1-device
+    row and 4 shards on the card against the same load unsharded. (e)
+    read_hitran(engine="native") on data/hitran/O2.par and H2O.par, field
+    for field against engine="python", with the parse seconds.
+    ``raman_ref``: phase 13 (a)'s unsharded run ({"model", "out",
+    "t_steady", "peak"}), or None to make it here."""
+    import pickle
+    import shutil
+    import socket
+    import tempfile
+    import vsmartmom_torch as vt
+    from vsmartmom_torch.core.api import (_band_surface, _raman_specs,
+                                          build_band_inputs)
+    from vsmartmom_torch.core.rt_raman import build_coupling
+    from vsmartmom_torch.core.rt_run import rt_run_band
+    from vsmartmom_torch.cuda import layer_step_kernel as lsk
+    from vsmartmom_torch.parallel.sharding import (
+        raman_halo, raman_halo_stats, rt_run_band_rrs_sharded,
+        rt_run_band_sharded, shard_bounds)
+    from vsmartmom_torch.spectroscopy.hitran import read_hitran
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def steady(fn):
+        return min(timed(fn)[1] for _ in range(2))
+
+    devices = [str(dev)] * N_SHARDS
+
+    def step_work(comp, r_f, *args, ns_schedule, ni):
+        s_, n_ = r_f.shape[0], r_f.shape[1]
+        return (s_ * lsk.step_flops(n_, ns_schedule, ni),
+                s_ * lsk.step_bytes(n_))
+
+    # (a) the flagship, Float32, 4 shards on the card under auto
+    params = vt.default_parameters()
+    params.float_type = "Float32"
+    reset_counts()
+    model = vt.model_from_parameters(params, device=dev)
+    c_build = counts()
+    band = build_band_inputs(model, 0)
+    surf = _band_surface(model, 0)
+    args = (model.pol, model.quad_points, band, model.obs_geom.vza,
+            model.obs_geom.vaz, params.max_m, surf)
+    n_z, n_spec = band.tau.shape
+    R1, T1 = vt.rt_run(model, device=dev)
+    reset_counts()
+    Rs, Ts = rt_run_band_sharded(*args, devices=devices,
+                                 dtype=torch.float32, engine="auto")
+    torch.cuda.synchronize()
+    c = counts()
+    expected = N_SHARDS * params.max_m * n_z
+    print(f"sharded flagship (Float32, nSpec={n_spec} in {N_SHARDS} shards "
+          f"of {sorted({hi - lo for lo, hi in shard_bounds(n_spec, N_SHARDS)})}"
+          f" points on {dev}): launches: build {c_build}, sharded run {c} "
+          f"{tag}")
+    check(c_build["voigt"] == 1 and sum(c_build.values()) == 1,
+          f"sharded flagship build: launches {c_build}, expected one Voigt")
+    check(c["kernel"] == expected and sum(c.values()) == expected,
+          f"sharded flagship: launches {c}, expected {expected} row-1 "
+          f"launches and nothing else")
+    st = KernelStats()
+    real = lsk.fused_layer_step
+    lsk.fused_layer_step = compare_hook(torch, st, real,
+                                        lsk.fused_layer_step_plain,
+                                        step_work)
+    try:
+        rt_run_band_sharded(*args, devices=devices, dtype=torch.float32,
+                            engine="auto")
+    finally:
+        lsk.fused_layer_step = real
+    check(st.calls == expected and st.rel < 1e-5, f"sharded flagship: "
+          f"{st.calls} compared launches (expected {expected}), "
+          f"{st.rel:.3e} of max from the plain version")
+    err_r, err_t = rel_err(Rs, R1), rel_err(Ts, T1)
+    bit = bool(np.array_equal(Rs, R1) and np.array_equal(Ts, T1))
+    t_sh = steady(lambda: rt_run_band_sharded(*args, devices=devices,
+                                              dtype=torch.float32))
+    t_un = steady(lambda: vt.rt_run(model, device=dev))
+    ms, plain_ms = st.mean_ms()
+    bound, by = st.bound()
+    print(f"sharded flagship float32: vs unsharded rt_run max|dR|/max R "
+          f"{err_r:.3e}, max|dT|/max T {err_t:.3e}, bit-equal {bit}; "
+          f"{st.calls} compared row-1 launches, max|diff| vs plain "
+          f"{st.abs:.3e} ({st.rel:.3e} of max); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}) per launch "
+          f"(mean); steady sharded {t_sh:.3f} s, unsharded {t_un:.3f} s "
+          f"{tag}")
+    check(err_r < 1e-6 and err_t < 1e-6, "sharded flagship float32 off the "
+          "unsharded run by >= 1e-6 of max")
+    (R64, T64), t64 = timed(lambda: rt_run_band(
+        *args, dtype=torch.float64, device=dev, engine="torch"))
+    (Rs64, Ts64), t64s = timed(lambda: rt_run_band_sharded(
+        *args, devices=devices, dtype=torch.float64, engine="torch"))
+    q64 = max(rtol_ratio(Rs64, R64, 1e-12, 1e-15),
+              rtol_ratio(Ts64, T64, 1e-12, 1e-15))
+    print(f"sharded flagship float64 torch engine: max |d| / (1e-15 + "
+          f"1e-12 |ref|) {q64:.3e} (<= 1); sharded {t64s:.3f} s, unsharded {t64:.3f} s "
+          f"{tag}")
+    check(q64 <= 1.0, "sharded flagship float64 off unsharded beyond rtol "
+          "1e-12")
+
+    # (b) Raman, O2Parameters.yaml as written, 4 shards with the halo
+    if raman_ref is None:
+        rm = vt.model_from_parameters(vt.parameters_from_yaml(
+            os.path.join(HERE, O2_YAML)), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        ref_out = vt.rt_run(rm, rs_type="RRS", device=dev)
+        raman_ref = {"model": rm, "out": ref_out,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "t_steady": timed(lambda: vt.rt_run(
+                         rm, rs_type="RRS", device=dev))[1]}
+    rm = raman_ref["model"]
+    specs = _raman_specs(rm, 0, "RRS")
+    cab = min(getattr(s, "omega_cabannes", 1.0) for s in specs)
+    rband = build_band_inputs(rm, 0, omega_cabannes=cab)
+    f_rayl = rm.tau_rayl[0].T / np.maximum(rband.tau, 1e-300)
+    n_rs = rband.tau.shape[1]
+    bounds = shard_bounds(n_rs, N_SHARDS)
+    coupling = build_coupling(specs, n_rs)
+    halo = raman_halo_stats([raman_halo(coupling, lo, hi)
+                             for lo, hi in bounds], bounds)
+    torch.cuda.reset_peak_memory_stats()
+    rs_out, t_rs = timed(lambda: rt_run_band_rrs_sharded(
+        rm.pol, rm.quad_points, rband, specs, f_rayl, rm.obs_geom.vza,
+        rm.obs_geom.vaz, rm.params.max_m, _band_surface(rm, 0),
+        devices=devices, dtype=torch.float64))
+    peak = torch.cuda.max_memory_allocated()
+    q = [rtol_ratio(a, b, 1e-11, 1e-16)
+         for a, b in zip(rs_out, raman_ref["out"])]
+    errs = [rel_err(a, b) for a, b in zip(rs_out, raman_ref["out"])]
+    print(f"sharded Raman O2Parameters.yaml (Float64, nSpec={n_rs}, "
+          f"nR={coupling[0].shape[0]}, {N_SHARDS} shards): per shard "
+          f"[lo, hi) points halo (left, right) redundant share: "
+          + "; ".join(f"[{h['lo']}, {h['hi']}) {h['points']} {h['halo']} "
+                      f"({h['halo_left']}, {h['halo_right']}) "
+                      f"{h['redundant_share']:.4f}" for h in halo)
+          + f" {tag}")
+    print(f"sharded Raman vs unsharded (phase 13 a): max |d| / (1e-16 + "
+          f"1e-11 |ref|)"
+          f" R {q[0]:.3e}, T {q[1]:.3e}, ieR {q[2]:.3e}, ieT {q[3]:.3e} (<= "
+          f"1); max|d|/max {', '.join(f'{e:.3e}' for e in errs)}; sharded "
+          f"{t_rs:.3f} s, peak {peak / 2**30:.2f} GiB; unsharded "
+          f"{raman_ref['t_steady']:.3f} s, peak "
+          f"{raman_ref['peak'] / 2**30:.2f} GiB {tag}")
+    check(max(q) <= 1.0, "sharded Raman off the unsharded run beyond rtol "
+          "1e-11")
+
+    # (c) two gloo processes on the one card, the flagship in float64
+    tmp = tempfile.mkdtemp(prefix="mp_", dir=os.path.join(HERE, "build"))
+    path = os.path.join(tmp, "flagship")
+    with open(path + ".pkl", "wb") as f:
+        pickle.dump(args, f)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{sk.getsockname()[1]}"
+    t0 = time.perf_counter()
+    run_children([[sys.executable, "-c", f"import chip_smoke; "
+                   f"chip_smoke.mp_rank({addr!r}, {r}, {path!r})"]
+                  for r in range(N_RANKS)], "two-process run")
+    t_mp = time.perf_counter() - t0
+    got = dict(np.load(path + ".npz"))
+    shutil.rmtree(tmp)
+    q_mp = max(rtol_ratio(got["R"], R64, 1e-12, 1e-15),
+               rtol_ratio(got["T"], T64, 1e-12, 1e-15))
+    print(f"two gloo processes on {dev} (flagship float64 torch engine, "
+          f"{n_spec} points, 2 slices): max |d| / (1e-15 + 1e-12 |ref|) "
+          f"{q_mp:.3e} "
+          f"(<= 1); rank 0 run {float(got['seconds']):.3f} s, both "
+          f"processes {t_mp:.1f} s wall {tag}")
+    check(q_mp <= 1.0, "two-process run off the single run beyond rtol "
+          "1e-12")
+
+    # (d) the scaling harness: one card, 4 shards on it
+    out = run_children([[sys.executable, "-m",
+                         "vsmartmom_torch.scaling_bench"]],
+                       "scaling_bench")[0]
+    rec = json.loads(out.strip().splitlines()[-1])
+    print(f"scaling_bench: {json.dumps(rec)} {tag}")
+    po = rec.get("partition_overhead", {})
+    check([r["n_devices"] for r in rec["rows"]] == [1]
+          and rec["rows"][0]["pts_per_s"] > 0
+          and po.get("n_shards") == N_SHARDS
+          and np.isfinite(po.get("overhead_frac", np.nan)),
+          f"scaling_bench record: {rec}")
+
+    # (e) the native HITRAN parser (built with g++ on this machine by the
+    # first model build's read_hitran(engine="auto"))
+    for name in ("O2.par", "H2O.par"):
+        path_par = os.path.join(HERE, "data", "hitran", name)
+        nat, t_first = timed(lambda: read_hitran(path_par, engine="native"))
+        _, t_nat = timed(lambda: read_hitran(path_par, engine="native"))
+        py, t_py = timed(lambda: read_hitran(path_par, engine="python"))
+        for f in ("mol", "iso", "nu", "sw", "a", "gamma_air", "gamma_self",
+                  "elower", "n_air", "delta_air", "gp", "gpp"):
+            check(np.array_equal(getattr(nat, f), getattr(py, f)),
+                  f"native HITRAN parse of {name}: field {f} differs")
+        for f in ("global_upper_quanta", "global_lower_quanta",
+                  "local_upper_quanta", "local_lower_quanta", "ierr",
+                  "iref", "line_mixing_flag"):
+            check(getattr(nat, f) == getattr(py, f),
+                  f"native HITRAN parse of {name}: field {f} differs")
+        print(f"native HITRAN parser, {name} ({len(nat)} lines): field-"
+              f"exact; native {t_nat:.4f} s (first call of this phase "
+              f"{t_first:.4f} s; the model builds above built and used the "
+              f"scanner), python {t_py:.4f} s (host)")
+
+
 def main():
     torch = setup()
 
@@ -2161,14 +2482,17 @@ def main():
                       "kernel_scan": scan_work, "kernel_lanes": lanes_work})
 
     # ---- 13. (i) the Raman path --------------------------------------------
-    raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
-                n_buckets)
+    raman_ref = raman_phase(torch, dev, tag, reset_counts, counts, scan_work,
+                            n_buckets)
 
     # ---- 14. (j) the rest of the elastic scope ------------------------------
     elastic_scope_phase(torch, dev, tag, reset_counts, counts)
 
     # ---- 15. (k) forward-mode AD --------------------------------------------
     ad_phase(torch, dev, tag, reset_counts, counts)
+
+    # ---- 16. (l) spectral sharding on the one card --------------------------
+    sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref)
 
     kernels = [
         s_stats.entry("fused_layer_step",

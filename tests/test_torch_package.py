@@ -45,6 +45,11 @@ import vsmartmom_torch.cuda.layer_scan_kernel
 import vsmartmom_torch.cuda.layer_step_dev_kernel
 import vsmartmom_torch.cuda.layer_step_kernel
 import vsmartmom_torch.cuda.voigt_kernel
+import vsmartmom_torch.native
+import vsmartmom_torch.parallel.distributed
+import vsmartmom_torch.parallel.sharding
+import vsmartmom_torch.scaling_bench
+import vsmartmom_torch.spectroscopy.hitran_native
 pol = Polarization.from_name("Stokes_IQU")
 quad = rt_set_streams("GaussQuadFullSphere", 8, 30.0, [0.0], pol.n)
 band = BandRTInputs(tau=np.full((1, 3), 0.2), omega=np.ones((1, 3)),
@@ -63,6 +68,11 @@ Rb, _ = rt_run_band(pol, quad, band, [0.0], [0.0], 2,
                     {"type": "RossLiSurfaceScalar", "fiso": 0.1, "fvol": 0.0,
                      "fgeo": 0.0}, device="cpu")
 assert np.abs(Rb - R).max() < 1e-6 * np.abs(R).max()
+from vsmartmom_torch.parallel.sharding import rt_run_band_sharded
+Rs, _ = rt_run_band_sharded(pol, quad, band, [0.0], [0.0], 2,
+                            {"type": "LambertianSurfaceScalar",
+                             "albedo": 0.1}, devices=["cpu", "cpu"])
+assert np.abs(Rs - R).max() <= 1e-12 * np.abs(R).max()
 from vsmartmom_torch.core.rt_raman import rt_run_band_rrs
 from vsmartmom_torch.inelastic import make_rrs
 grid = np.arange(12740.0, 13268.0, 24.0)

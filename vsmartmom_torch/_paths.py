@@ -16,3 +16,6 @@ REFERENCE_PKG = os.path.join(REPO_ROOT, "vsmartmom")
 HITRAN_DIR = os.path.join(REPO_ROOT, "data", "hitran")
 #: the Toon GGG2014 merged solar transmission line list (nu, transmission)
 SOLAR_FILE = os.path.join(REPO_ROOT, "data", "solar", "solar.out")
+#: what the port builds at run time: the CUDA kernels' library
+#: (cuda/build.py) and the native host components (native/)
+BUILD_DIR = os.path.join(REPO_ROOT, "build")

@@ -406,16 +406,21 @@ def doubling(r_mp_f, t_pp, j_p, j_m_f, expk, ndoubl: int, eye,
 
 def elemental_flipped(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
                       i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
-                      min_qp_mu, ndoubl_static=None):
+                      min_qp_mu, ndoubl_static=None, tau_scat_max=None):
     """Elemental single-scattering layer in flipped (D-symmetry) space,
     plus the doubling inputs (expk, ndoubl). Shared by make_added_layer and
     the fused layer-step kernel path (cuda/layer_step_kernel.py).
+    ``tau_scat_max``: the layer's maximum of tau * omega over the whole
+    band (a host float), or None to take it over the points given; it sets
+    the doubling count when ``ndoubl_static`` is None.
     ref: src/CoreRT/CoreKernel/rt_kernel.jl:238-275 (init_layer)
     """
     if ndoubl_static is not None:
         ndoubl = int(ndoubl_static)
     else:
-        tau_scat_max = torch.max(tau * omega)
+        tau_scat_max = (torch.max(tau * omega) if tau_scat_max is None
+                        else torch.as_tensor(tau_scat_max, dtype=tau.dtype,
+                                             device=tau.device))
         # elemental step 0.004*min(mu): single-scatter error O((dtau/mu)^2)
         # stays < ~3e-5 of radiance (f64)
         dtau_max = torch.minimum(tau_scat_max, 0.004 * min_qp_mu)
@@ -436,14 +441,14 @@ def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
                      i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
                      min_qp_mu, eye, rsolve=rsolve_lu,
                      ndoubl_static=None, ns_schedule=None,
-                     doubling_engine="torch") -> LayerRT:
+                     doubling_engine="torch", tau_scat_max=None) -> LayerRT:
     """Elemental + doubling for one atmospheric layer -> full added layer.
 
     tau/omega: (nSpec,) per-wavelength optical depth & single-scatter albedo.
     ``ndoubl_static``: host doubling count, or None to derive it from the
     layer's optical depth. ``doubling_engine``: "torch" (batched ops) or
     "kernel" (the doubling-only kernel, cuda/doubling_kernel.py; needs the
-    static NS schedule).
+    static NS schedule). ``tau_scat_max`` as in elemental_flipped.
     ref: src/CoreRT/CoreKernel/rt_kernel.jl:238-275 (init_layer + dispatch)
     """
     if doubling_engine not in ("torch", "kernel"):
@@ -454,7 +459,7 @@ def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
     r_f, t_pp, j_p, jm_f, expk, ndoubl = elemental_flipped(
         tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02, i0_vec, i_mu0_n,
         n_stokes, mu0_node, mu0, d_vec, min_qp_mu,
-        ndoubl_static=ndoubl_static)
+        ndoubl_static=ndoubl_static, tau_scat_max=tau_scat_max)
     if doubling_engine == "kernel":
         if len(ns_schedule) != ndoubl:
             raise ValueError(f"ns_schedule has {len(ns_schedule)} steps, "

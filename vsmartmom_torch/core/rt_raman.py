@@ -325,7 +325,7 @@ def raman_make_added_layer(tau, omega, z_pp, z_mp, z_pp_r, z_mp_r, tau_sum,
                            f_rayl, shifts, w_shifts, gids, qp, wct2, wct02,
                            i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
                            min_qp_mu, eye, rsolve, ndoubl_static=None,
-                           ns_schedule=None):
+                           ns_schedule=None, tau_scat_max=None):
     """One atmospheric layer: elastic + Raman elemental, joint doubling.
 
     ref: rt_kernel.jl:278-343 (RRS path). Returns (LayerRT, IELayer).
@@ -334,14 +334,18 @@ def raman_make_added_layer(tau, omega, z_pp, z_mp, z_pp_r, z_mp_r, tau_sum,
     Raman phase matrix in the (G, N, N) stacks ``z_pp_r``/``z_mp_r``.
     ``ndoubl_static``/``ns_schedule``: host static doubling count and
     per-step NS iteration counts, or None to derive the count from the
-    layer's optical depth.
+    layer's optical depth: its maximum of tau * omega over the points
+    given, or ``tau_scat_max`` (a host float: the maximum over a whole
+    band of which these points are a shard).
     """
     n_spec = tau.shape[0]
     srcs, valids = _as_rows(shifts, n_spec, tau.device)
     if ndoubl_static is not None:
         ndoubl = int(ndoubl_static)
     else:
-        tau_scat_max = torch.max(tau * omega)
+        tau_scat_max = (torch.max(tau * omega) if tau_scat_max is None
+                        else torch.as_tensor(tau_scat_max, dtype=tau.dtype,
+                                             device=tau.device))
         # elemental step 0.004*min(mu), as the elastic engines
         dtau_max = torch.minimum(tau_scat_max, torch.as_tensor(
             0.004 * min_qp_mu, dtype=tau.dtype, device=tau.device))
@@ -477,6 +481,8 @@ class _MomentInputs(NamedTuple):
     n_stokes: int
     is_m0: bool
     solver: str
+    #: (nZ,) host maxima of tau * omega over the whole band, or None
+    tau_scat_max: Optional[np.ndarray] = None
 
 
 def _layer_fn(mi: _MomentInputs, srcs, valids, w_shifts, gids):
@@ -503,7 +509,9 @@ def _layer_fn(mi: _MomentInputs, srcs, valids, w_shifts, gids):
             tau_sum_all[iz], mi.f_rayl[iz], (srcs, valids), w_z, gids,
             mi.qp, wct2, wct02, mi.i0_vec, mi.i_mu0_n, mi.n_stokes,
             mi.mu0_node, mi.mu0, mi.d_vec, mi.min_qp_mu, eye, rsolve,
-            ndoubl_static=nd, ns_schedule=sched)
+            ndoubl_static=nd, ns_schedule=sched,
+            tau_scat_max=(None if mi.tau_scat_max is None
+                          else float(mi.tau_scat_max[iz])))
 
     surf = lambertian_surface_layer(
         mi.albedo, n_spec, mi.n_stokes, mi.qp, mi.wt, mi.i0_vec,
@@ -590,13 +598,17 @@ def build_coupling(specs, n_spec: int):
             np.asarray(gids, np.int32))
 
 
-def _raman_layer_schedules(tau, omega, min_qp_mu):
+def _raman_layer_schedules(tau, omega, min_qp_mu, tau_scat_max=None):
     """Exact (unquantized) per-layer static doubling schedules for the
     Raman scan: nd matches the data-derived doubling count per layer, with
     the per-step NS iteration schedule of ns_doubling_schedule. Returns a
     tuple of (nd, sched, ni=4) 3-tuples, or None where a layer's
-    scattering depth is not finite or no layer scatters."""
-    tau_scat = np.max(np.asarray(tau) * np.asarray(omega), axis=1)
+    scattering depth is not finite or no layer scatters.
+    ``tau_scat_max``: (nZ,) maxima of tau * omega over a whole band, in
+    place of those over ``tau``."""
+    tau_scat = (np.max(np.asarray(tau) * np.asarray(omega), axis=1)
+                if tau_scat_max is None
+                else np.asarray(tau_scat_max, np.float64))
     if not np.all(np.isfinite(tau_scat)) or not np.any(tau_scat > 0):
         return None
     dm = np.minimum(np.maximum(tau_scat, 1e-30), 0.004 * min_qp_mu)
@@ -633,9 +645,10 @@ class _RamanRun(NamedTuple):
 
 
 def _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
-                 solver):
-    """Validate a Raman run's surface and build its coupling rows and
-    per-moment device inputs."""
+                 solver, tau_scat_max=None, coupling=None):
+    """Validate a Raman run's surface and build its coupling rows (or take
+    ``coupling``, prebuilt rows of build_coupling's form) and per-moment
+    device inputs."""
     if surface["type"] != "LambertianSurfaceScalar":
         raise ValueError(
             f"Raman runs take a LambertianSurfaceScalar surface (as the "
@@ -654,7 +667,8 @@ def _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
     mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
     min_qp_mu = float(np.min(quad.qp_mu))
 
-    srcs_np, valids_np, ws_np, gids_np = build_coupling(specs, n_spec)
+    srcs_np, valids_np, ws_np, gids_np = (
+        build_coupling(specs, n_spec) if coupling is None else coupling)
     srcs = torch.as_tensor(srcs_np, device=device).long()
     valids = torch.as_tensor(valids_np, device=device)
     shared = dict(
@@ -663,7 +677,8 @@ def _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
         wt=to_dev(quad.wt_mu_n), d_vec=to_dev(d_vec), i0_vec=to_dev(i0_vec),
         albedo=to_dev(float(surface["albedo"])), mu0=to_dev(quad.mu0),
         mu0_node=to_dev(mu0_node), min_qp_mu=min_qp_mu,
-        i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes, solver=solver)
+        i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes, solver=solver,
+        tau_scat_max=tau_scat_max)
 
     def moment(m):
         z = [compute_Z_moments(pol, quad.qp_mu, gc, m) for gc in band.greeks]
@@ -694,7 +709,8 @@ def _chunks(run: _RamanRun):
 
 def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                     surface, dtype=torch.float64, solver: Optional[str] = None,
-                    device=DEFAULT_DEVICE, static_schedules: bool = False):
+                    device=DEFAULT_DEVICE, static_schedules: bool = False,
+                    tau_scat_max=None, coupling=None):
     """Forward run with Raman coupling (RRS / VS / RVRS / ``_plus`` groups)
     for one band or a concatenated multi-band spectral axis.
 
@@ -711,6 +727,11 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     (_raman_layer_schedules) instead of the solver's fixed count; off by
     default. Surfaces other than LambertianSurfaceScalar raise ValueError.
     Matmuls run in full float32 (TF32 off) or float64.
+    A spectral shard of a band (parallel/sharding.py) passes the whole
+    band's ``tau_scat_max`` ((nZ,) maxima of tau * omega: the doubling
+    counts) and ``coupling`` (the (srcs, valids, ws, gids) rows of
+    build_coupling remapped onto its points, in place of rows built from
+    ``rrs`` on its own grid); None (default) derives both from ``band``.
     """
     device = resolve_device(device)
     solver = default_solver(device, solver)
@@ -724,14 +745,14 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
         if solver != "schulz":
             raise ValueError("static_schedules needs the schulz solver")
         layer_schedules = _raman_layer_schedules(
-            band.tau, band.omega, float(np.min(quad.qp_mu)))
+            band.tau, band.omega, float(np.min(quad.qp_mu)), tau_scat_max)
         if layer_schedules is None:
             raise ValueError("no static schedule for this profile: a "
                              "layer's scattering depth is not finite, or "
                              "no layer scatters")
 
     run = _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
-                       solver)
+                       solver, tau_scat_max, coupling)
     R = np.zeros((len(vza), n_stokes, n_spec))
     T = np.zeros_like(R)
     ieR = np.zeros_like(R)

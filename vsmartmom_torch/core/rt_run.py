@@ -140,7 +140,7 @@ def schedule_buckets(layer_schedules):
 def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                   albedo, spectral_albedo, mu0, mu0_node, min_qp_mu,
                   *, i_mu0_n, n_stokes, is_m0, solver, layer_schedules,
-                  engine, rho_brdf=None):
+                  engine, rho_brdf=None, tau_scat_max=None):
     """One Fourier moment: layer scan + surface. Returns the composite
     layer and the surface-leaving source vector (hdr).
 
@@ -151,6 +151,10 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     ndoubl None derives each layer's doubling count from its optical depth,
     ns_schedule None doubles with ``solver``, ni None solves the
     interaction with ``solver``.
+
+    ``tau_scat_max``: (nZ,) host maximum of tau * omega of each layer over
+    the whole band, or None to take it over the points given; it sets the
+    doubling count of a layer whose ndoubl is None.
     """
     rsolve = make_rsolve(solver)
     dtype, device = tau.dtype, tau.device
@@ -211,6 +215,7 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
         # layer has no NS schedule, as the JAX xla_dev engine does
         exact = solver != "schulz" or sched is None
         for iz in range(start, start + count):
+            tsm = None if tau_scat_max is None else float(tau_scat_max[iz])
             z_pp = torch.einsum("kn,kij->nij", zw[iz], z_pp_c)
             z_mp = torch.einsum("kn,kij->nij", zw[iz], z_mp_c)
             layer = (tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
@@ -218,12 +223,12 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                      d_vec)
             if engine == "kernel":
                 r_f, t, jp, jm_f, ek, _ = elemental_flipped(
-                    *layer, min_qp_mu, ndoubl_static=nd)
+                    *layer, min_qp_mu, ndoubl_static=nd, tau_scat_max=tsm)
                 comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek, d_vec,
                                         ns_schedule=sched, ni=ni)
             elif engine == "kernel_lanes":
                 r_f, t, jp, jm_f, ek, _ = elemental_flipped(
-                    *layer, min_qp_mu, ndoubl_static=nd)
+                    *layer, min_qp_mu, ndoubl_static=nd, tau_scat_max=tsm)
                 comp = fused_layer_step_lanes(
                     comp, to_lanes_m(r_f), to_lanes_m(t), to_lanes_v(jp),
                     to_lanes_v(jm_f), ek, d_vec, ns_schedule=sched, ni=ni)
@@ -246,7 +251,7 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                     *layer, min_qp_mu, eye, rsolve=rsolve, ndoubl_static=nd,
                     ns_schedule=sched,
                     doubling_engine=("kernel" if engine == "kernel_doubling"
-                                     else "torch"))
+                                     else "torch"), tau_scat_max=tsm)
                 comp = interaction(comp, added, eye, rsolve=irs)
     if dev_form:
         comp = dev_to_full(comp)
@@ -274,8 +279,13 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
 _ND_QUANT = 4
 
 
-def build_layer_schedules(tau, omega, min_qp_mu: float, solver: str):
+def build_layer_schedules(tau, omega, min_qp_mu: float, solver: str,
+                          tau_scat_max=None):
     """Host-side static doubling/solver schedules for one band profile.
+
+    ``tau_scat_max``: (nZ,) maximum of tau * omega of each layer over the
+    whole band, in place of the maximum over the points of ``tau`` (a
+    spectral shard's schedules then equal the whole band's).
 
     Returns (ndoubl_static, ns_schedule, layer_schedules):
       - nearly-uniform per-layer doubling counts -> one static count
@@ -294,7 +304,8 @@ def build_layer_schedules(tau, omega, min_qp_mu: float, solver: str):
     """
     if not (isinstance(tau, np.ndarray) and isinstance(omega, np.ndarray)):
         return None, None, None
-    tau_scat = np.max(tau * omega, axis=1)
+    tau_scat = (np.max(tau * omega, axis=1) if tau_scat_max is None
+                else np.asarray(tau_scat_max, np.float64))
     pos = tau_scat > 0
     if not np.any(pos):
         return None, None, None
@@ -400,7 +411,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                 vza, vaz, max_m: int, surface, dtype=torch.float64,
                 device=DEFAULT_DEVICE, solver: Optional[str] = None,
                 return_hdr: bool = False, return_composite: bool = False,
-                engine: str = "auto", sfi: bool = True):
+                engine: str = "auto", sfi: bool = True, tau_scat_max=None):
     """Run the full Fourier-moment loop for one band; azimuthally synthesize.
 
     surface: dict like {"type": "LambertianSurfaceScalar", "albedo": 0.1};
@@ -423,6 +434,11 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     J0-/J0+; False from the R-+/T++ operator columns at the mu0 node (ref:
     postprocessing_vza.jl:30-56), which needs the beam as a real node
     (RadauQuad).
+    ``tau_scat_max``: (nZ,) maximum of tau * omega of each layer over a
+    whole band of which ``band`` is a spectral shard
+    (parallel/sharding.py); it stands in for every maximum the run would
+    take over its own points (doubling counts and static schedules). None
+    (default) takes them over ``band``.
 
     Float32 matmuls run in full float32 for the duration of the call
     (TF32 off): the plain-form algebra fails the accuracy gates with
@@ -456,7 +472,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     bhr_dw = np.zeros(n_spec)
 
     ndoubl_static, ns_schedule, layer_schedules = build_layer_schedules(
-        band.tau, band.omega, min_qp_mu, solver)
+        band.tau, band.omega, min_qp_mu, solver, tau_scat_max)
     engine = select_engine(
         engine, device, dtype, n,
         ns_schedule is not None or layer_schedules is not None)
@@ -466,7 +482,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
         # counts: under the lu solver borrow the schulz builder's buckets
         # (torch_dev then solves each of them exactly)
         _, _, layer_schedules = build_layer_schedules(
-            band.tau, band.omega, min_qp_mu, "schulz")
+            band.tau, band.omega, min_qp_mu, "schulz", tau_scat_max)
     schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
                                       ns_schedule, layer_schedules)
 
@@ -505,7 +521,8 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                     i0_d, albedo_d, spectral_albedo, mu0_d, mu0_node_d,
                     min_mu_d, i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
                     is_m0=(m == 0), solver=solver, layer_schedules=schedules,
-                    engine=engine, rho_brdf=rho_brdf)
+                    engine=engine, rho_brdf=rho_brdf,
+                    tau_scat_max=tau_scat_max)
             if return_composite:
                 comps.append(LayerRT(*(x.cpu().numpy() for x in comp)))
 

@@ -24,11 +24,10 @@ from typing import NamedTuple
 
 import torch
 
-from vsmartmom_torch._paths import REPO_ROOT
+from vsmartmom_torch._paths import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-BUILD_DIR = os.path.join(REPO_ROOT, "build")
 SOURCES = ("layer_step.cu", "layer_step_dev.cu", "layer_scan.cu",
            "lanes.cu", "voigt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -66,12 +66,30 @@ def _parse_num(s: str, kind):
 
 def read_hitran(filepath: str, mol: int = -1, iso: int = -1,
                 nu_min: float = 0.0, nu_max: float = np.inf,
-                min_strength: float = 0.0) -> HitranTable:
-    """Parse a HITRAN .par file with optional molecule/isotope/range filters
-    (pure-Python fixed-width parser).
+                min_strength: float = 0.0,
+                engine: str = "auto") -> HitranTable:
+    """Parse a HITRAN .par file with optional molecule/isotope/range filters.
 
+    engine: "auto" uses the native C++ scanner (vsmartmom_torch/native,
+    spectroscopy/hitran_native.py) when it compiles and falls back to this
+    pure-Python parser otherwise; "native" raises where the scanner fails;
+    "python" forces the Python parser. Both give the same table, field for
+    field.
     ref: src/Absorption/read_hitran.jl:14-68
     """
+    if engine not in ("auto", "native", "python"):
+        raise ValueError(f"unknown HITRAN parser engine {engine!r}")
+    if engine in ("auto", "native"):
+        try:
+            from vsmartmom_torch.spectroscopy.hitran_native import \
+                read_hitran_native
+            return read_hitran_native(filepath, mol, iso, nu_min, nu_max,
+                                      min_strength)
+        except HitranEmptyError:
+            raise
+        except Exception:
+            if engine == "native":
+                raise
     starts = np.cumsum([0] + [w for _, w, _ in _FIELDS])
     cols = {name: [] for name, _, _ in _FIELDS}
 
