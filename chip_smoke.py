@@ -15,8 +15,10 @@ Run from the repository root:  python3 chip_smoke.py
    24, 32, 33, 44, 48, 49, 63, and 64 for the scan and the split-form step)
    at a ragged S = 1 007 on a synthetic slab, the split-form step's fifth
    class at N = 65, 72 and 75, and the lanes step's wide path at N = 72:
-   every field within 1e-5 of its max; times the wide path and its plain
-   version.
+   every field within 1e-5 of its max; rows 1, 3 and 4 also at each
+   reduced mode (phase 17), bit-equal to the plain version at that mode,
+   which differs from the plain version at "highest"; times the wide path
+   and its plain version.
 2. Drives the flagship O2 A-band forward run through the public API at full
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
@@ -167,12 +169,34 @@ Run from the repository root:  python3 chip_smoke.py
    read_hitran(engine="native") on data/hitran/O2.par and H2O.par (g++
    build on this machine) field for field against engine="python", with
    the parse seconds.
+17. (m) The matrix-product precision modes of rows 1, 3 and 4
+   (core/precision.py; the kernels are templates on the mode): (a) the
+   Float32 flagship through rt_run with engine kernel at matmul_precision
+   "high" and "default", kernel_dev at dd_precision "bf16x3" and
+   "default", kernel_doubling at "high" and "default", the launch counts
+   set to 0 just before each run (102 launches of its row and nothing
+   else), every launch bit-equal to its plain version at the same mode
+   (a launch that computed "highest" instead would sit within 1e-5 of
+   max), R against the float64 torch engine, first and steady seconds;
+   (b) rows 1, 3 and 4 at every mode (the highest included) on a
+   synthetic slab at N = 44 and 20 000 points, each against its plain
+   version (bit-equal at the reduced modes, 1e-5 of max at "highest"),
+   with CUDA-event times and bounds; (c) python3 -m vsmartmom_torch.qualify_precision's six tokens
+   (6SV1 and Natraj in float32 at N = 136-140), its lines printed, the
+   kernel deltas of "highest" and the dev tokens below 1e-5 and the dev
+   tokens inside the gates; (d) the bench.py raman_rrs shape at
+   ie_precision "high" and "default" against "highest" (R and T within
+   1e-6, ieR within 1e-2). precision_only() runs the build and this phase
+   alone.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
 (inputs read once, outputs written once) over 3.35 TB/s, from this run's
-shapes and schedules. No single PyTorch call computes any of these kernels'
-functions, so library_ms is null.
+shapes and schedules; at a reduced mode the FLOPs times the mode's bf16
+passes (3 or 1) over 989 TFLOP/s (dense bf16 on the tensor cores), the gap
+a tensor-core kernel would close. No single PyTorch call computes any of
+these kernels' functions, so library_ms is null. The kernels line lists
+each row at each mode that ran (``name[mode]``).
 
 The last two lines of standard output are one JSON object with the kernels'
 launch counts, errors, times and bounds, then the result line
@@ -219,27 +243,35 @@ def cuda_ms(torch, fn, reps):
 
 
 #: H100 SXM peaks at 700 W (NVIDIA data sheet): float32 outside the
-#: tensor cores, and HBM3 bandwidth
+#: tensor cores, dense bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+#: bf16 passes of a product in each mode (core/precision.py)
+MODE_PASSES = {"high": 3, "bf16x3": 3, "default": 1}
 
 
 class KernelStats:
     """One kernel's launches compared with its plain version: the largest
-    errors, the times, and the work (FLOPs, device bytes) they needed."""
+    errors, the times, and the work (FLOPs, device bytes) they needed.
+    ``mode``: the product mode; a reduced mode's operations bound is its
+    product FLOPs times its bf16 passes over the dense bf16 tensor-core
+    peak, "highest"'s its FLOPs over the float32 peak."""
 
-    def __init__(self):
+    def __init__(self, mode="highest"):
         self.rel = self.abs = 0.0
         self.calls = 0
         self.ms, self.plain_ms = [], []
         self.flops = self.nbytes = 0
+        self.mode = mode
 
     def mean_ms(self):
         return float(np.mean(self.ms)), float(np.mean(self.plain_ms))
 
     def bound(self):
         """(least ms per launch, what bounds it) over the compared launches."""
-        t_ops = self.flops / PEAK_F32_FLOPS
+        t_ops = (self.flops / PEAK_F32_FLOPS if self.mode == "highest"
+                 else self.flops * MODE_PASSES[self.mode] / PEAK_BF16_FLOPS)
         t_bytes = self.nbytes / PEAK_BYTES
         return (1e3 * max(t_ops, t_bytes) / self.calls,
                 "operations" if t_ops >= t_bytes else "bytes")
@@ -254,20 +286,30 @@ class KernelStats:
                 "library_ms": None}
 
 
+def field_err(torch, a, b):
+    """(max|a - b|, max finite |b|) of one field: entries equal, or NaN in
+    both, count as no difference; a NaN or infinity in one only as an
+    infinite one."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    diff = torch.nan_to_num(torch.where(same, torch.zeros_like(a),
+                                        (a - b).abs()), nan=float("inf"))
+    scale = torch.where(torch.isfinite(b), b.abs(), torch.zeros_like(b))
+    return float(diff.max()), float(scale.max())
+
+
 def compare_hook(torch, stats, real, plain, work, reps=(3, 1)):
     """A stand-in for a kernel wrapper that launches the kernel, holds every
     output field against the plain version on the same inputs (max|diff| /
-    max of the field), counts the call's work and times both."""
+    max of the field, field_err), counts the call's work and times both."""
     def wrapper(*args, **kw):
         out = real(*args, **kw)
         ref = plain(*args, **kw)
         outs, refs = ((out, ref) if isinstance(out, tuple)
                       else ((out,), (ref,)))
         for a, b in zip(outs, refs):
-            err = float((a - b).abs().max())
+            err, scale = field_err(torch, a, b)
             stats.abs = max(stats.abs, err)
-            stats.rel = max(stats.rel,
-                            err / max(float(b.abs().max()), 1e-30))
+            stats.rel = max(stats.rel, err / max(scale, 1e-30))
         flops, nbytes = work(*args, **kw)
         stats.calls += 1
         stats.flops += flops
@@ -506,15 +548,54 @@ DEV_WIDE_WIDTHS = (65, 72, 75)
 WIDTH_S = 1007
 
 
+def build_phase(tag):
+    """1. Build the kernels and print each one's resource usage; fail on
+    local memory or a stack above MAX_TEAM_STACK bytes in a team kernel
+    (every tile class and product mode), on local memory in the Voigt
+    kernels, or on a kernel missing from the library."""
+    from vsmartmom_torch.cuda import build
+    t0 = time.perf_counter()
+    build.lib()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s {tag}")
+    spills, team_seen, voigt_seen = [], set(), set()
+    fn = None
+    for line in build.resource_usage(build.build()).splitlines():
+        line = line.strip()
+        if line.startswith("Function"):
+            fn = line
+        elif line.startswith("REG:"):
+            print(f"{fn} {line}")
+            local = int(line.split("LOCAL:")[1].split()[0])
+            stack = int(line.split("STACK:")[1].split()[0])
+            team = [k for k in TEAM_KERNELS if k in fn]
+            team_seen.update(team)
+            voigt = [k for k in VOIGT_KERNELS if k in fn]
+            voigt_seen.update(voigt)
+            if (team and (local or stack > MAX_TEAM_STACK)) \
+                    or (voigt and local):
+                spills.append(f"{fn} {line}")
+    check(team_seen == set(TEAM_KERNELS),
+          f"team kernels missing from the library: "
+          f"{set(TEAM_KERNELS) - team_seen}")
+    check(voigt_seen == set(VOIGT_KERNELS),
+          f"Voigt kernels missing from the library: "
+          f"{set(VOIGT_KERNELS) - voigt_seen}")
+    check(not spills, f"local memory, or a stack above {MAX_TEAM_STACK} "
+          f"bytes in a team kernel: {spills}")
+
+
 def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
     """The layer step, doubling, layer scan and lanes step kernels against
     their plain versions at every width of WIDTHS, the lanes step's wide
     path at LANES_WIDE_N, and the split-form step at WIDTHS and
     DEV_WIDE_WIDTHS, at a ragged S (not a multiple of any block's points),
     on a passive random slab (nd = 6; the split form's pre-split) under a
-    composite built by two plain steps. Each field within 1e-5 of its max;
-    returns the largest such error per kernel and N, and the wide path's
-    milliseconds, its plain version's and its bound."""
+    composite built by two plain steps. Each field within 1e-5 of its max.
+    Rows 1, 3 and 4 also at each reduced mode of ROW_MODES, bit-equal to
+    their plain version at that mode, which itself differs from the plain
+    version at "highest". Returns the largest error per kernel (and mode)
+    and N, and the wide path's milliseconds, its plain version's and its
+    bound."""
     from vsmartmom_torch.core.rt import (LayerRTDev, ns_doubling_schedule,
                                          vacuum_layer, vacuum_layer_dev)
     rng = np.random.default_rng(1)
@@ -527,6 +608,20 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
     def worst(got, ref):
         return max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                    for a, b in zip(got, ref))
+
+    def reduced(errs, name, engine, kernel, plain, args, kw):
+        """A row at each reduced mode of ROW_MODES: bit-equal to its plain
+        version at that mode, which is not the plain version at
+        "highest"."""
+        full = plain(*args, **kw, precision="highest")
+        for mode in ROW_MODES[engine][1:]:
+            ref = plain(*args, **kw, precision=mode)
+            e = worst(kernel(*args, **kw, precision=mode), ref)
+            sep = worst(ref, full)
+            check(e == 0.0 and sep > 0.0, f"{name} at {mode} N={n} S={S}: "
+                  f"{e:.3e} of max from its plain version at {mode}, which "
+                  f"is {sep:.3e} of max from the plain version at highest")
+            errs[f"{name}[{mode}]"] = e
 
     for n in sorted({*WIDTHS, LANES_WIDE_N, *DEV_WIDE_WIDTHS}):
         qp = np.linspace(0.1, 1.0, n) if n > 1 else np.array([0.5])
@@ -556,11 +651,16 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
             dcomp = LayerRTDev(*(x.contiguous() for x in
                                  ldk.fused_layer_step_dev_plain(
                                      dcomp, *dev_slab(scale), ek, d,
-                                     ns_schedule=sched, ni=4)))
+                                     ns_schedule=sched, ni=4,
+                                     precision="highest")))
         dargs = (dcomp, *dev_slab(0.8), ek, d)
+        dkw = dict(ns_schedule=sched, ni=ni, precision="highest")
         errs["layer_step_dev"] = worst(
-            ldk.fused_layer_step_dev(*dargs, ns_schedule=sched, ni=ni),
-            ldk.fused_layer_step_dev_plain(*dargs, ns_schedule=sched, ni=ni))
+            ldk.fused_layer_step_dev(*dargs, **dkw),
+            ldk.fused_layer_step_dev_plain(*dargs, **dkw))
+        reduced(errs, "layer_step_dev", "kernel_dev",
+                ldk.fused_layer_step_dev, ldk.fused_layer_step_dev_plain,
+                dargs, dict(ns_schedule=sched, ni=ni))
         del dcomp, dargs
         comp = vacuum_layer(S, n, torch.float32, dev)
         for scale in (1.0, 0.6):
@@ -577,6 +677,12 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
             errs["doubling"] = worst(
                 dk.fused_doubling(*el, ek, ns_schedule=sched),
                 dk.fused_doubling_plain(*el, ek, ns_schedule=sched))
+            reduced(errs, "layer_step", "kernel", lsk.fused_layer_step,
+                    lsk.fused_layer_step_plain, args,
+                    dict(ns_schedule=sched, ni=ni))
+            reduced(errs, "doubling", "kernel_doubling", dk.fused_doubling,
+                    dk.fused_doubling_plain, (*el, ek),
+                    dict(ns_schedule=sched))
         if n <= 63 or n == LANES_WIDE_N:
             largs = (lnk.to_lanes(comp), *(lnk.to_lanes_m(x) for x in el[:2]),
                      *(lnk.to_lanes_v(x) for x in el[2:]), ek, d)
@@ -1776,7 +1882,7 @@ def sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref=None):
 
     devices = [str(dev)] * N_SHARDS
 
-    def step_work(comp, r_f, *args, ns_schedule, ni):
+    def step_work(comp, r_f, *args, ns_schedule, ni, **kw):
         s_, n_ = r_f.shape[0], r_f.shape[1]
         return (s_ * lsk.step_flops(n_, ns_schedule, ni),
                 s_ * lsk.step_bytes(n_))
@@ -1955,6 +2061,262 @@ def sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref=None):
               f"scanner), python {t_py:.4f} s (host)")
 
 
+# ---- 17. matrix-product precision modes -------------------------------------
+
+#: phase 17 (a): (engine, rt_run keyword, mode) of the flagship's runs at
+#: the reduced modes
+PRECISION_RUNS = (("kernel", "matmul_precision", "high"),
+                  ("kernel", "matmul_precision", "default"),
+                  ("kernel_dev", "dd_precision", "bf16x3"),
+                  ("kernel_dev", "dd_precision", "default"),
+                  ("kernel_doubling", "matmul_precision", "high"),
+                  ("kernel_doubling", "matmul_precision", "default"))
+#: phase 17 (b): each row's modes at the headline width
+ROW_MODES = {"kernel": ("highest", "high", "default"),
+             "kernel_dev": ("highest", "bf16x3", "default"),
+             "kernel_doubling": ("highest", "high", "default")}
+#: phase 17 (b): the points of the headline width
+PRECISION_S = 20000
+#: each row's wrapper, source and TPU kernel (the kernels line)
+ROW_SOURCES = {
+    "kernel": ("fused_layer_step", "vsmartmom_torch/csrc/layer_step.cu",
+               "vsmartmom/pallas/layer_step_kernel.py:67"),
+    "kernel_dev": ("fused_layer_step_dev",
+                   "vsmartmom_torch/csrc/layer_step_dev.cu",
+                   "vsmartmom/pallas/layer_step_kernel.py:132"),
+    "kernel_doubling": ("fused_doubling",
+                        "vsmartmom_torch/csrc/layer_step.cu",
+                        "vsmartmom/pallas/doubling_kernel.py:105")}
+
+
+def precision_only(qual_out=None):
+    """Phase 17 (precision modes) alone, after the build and its resource
+    check: python3 -c 'import chip_smoke; chip_smoke.precision_only()'.
+    ``qual_out``: a file the qualification appends its lines to."""
+    torch = setup()
+    tag = f"[card: {card_name()}]"
+    build_phase(tag)
+    kernels = precision_phase(torch, torch.device("cuda:0"), tag, qual_out)
+    print(json.dumps({"kernels": kernels}))
+
+
+def precision_phase(torch, dev, tag, qual_out=None):
+    """17. The matrix-product precision modes (core/precision.py) of rows
+    1, 3 and 4. (a) The Float32 flagship through rt_run at each reduced
+    mode of PRECISION_RUNS, the launch counts set to 0 just before each run
+    and read after it (102 launches of its row and nothing else), every
+    launch bit-equal to its plain version at the same mode, R against the
+    float64 torch engine at the same schedules, first and steady seconds;
+    (b) rows 1, 3 and 4 at every mode of ROW_MODES on a synthetic slab at
+    the headline width (N = 44, 20 000 points, 8 doublings), each against
+    its plain version (bit-equal at the reduced modes, 1e-5 of max at
+    "highest"), CUDA-event times and bounds; (c) the qualification
+    (vsmartmom_torch.qualify_precision, all six tokens): the kernel deltas
+    of "highest" and the dev tokens below 1e-5 and the dev tokens inside
+    the gates; (d) the bench.py raman_rrs shape at ie_precision "high" and
+    "default" against "highest": R and T within 1e-6 (bit equality
+    printed), ieR within 1e-2. Returns the kernels-line entries of (a)."""
+    import vsmartmom_torch as vt
+    from vsmartmom_torch import qualify_precision
+    from vsmartmom_torch.core.api import build_band_inputs
+    from vsmartmom_torch.core.rt import (LayerRT, LayerRTDev, vacuum_layer,
+                                         vacuum_layer_dev)
+    from vsmartmom_torch.core.rt_raman import rt_run_band_rrs
+    from vsmartmom_torch.core.rt_run import rt_run_band
+    from vsmartmom_torch.cuda import doubling_kernel as dk
+    from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
+    from vsmartmom_torch.cuda import layer_step_kernel as lsk
+    t_phase = time.perf_counter()
+
+    def step_work(comp, r_f, *args, ns_schedule, ni, **kw):
+        s_, n_ = r_f.shape[0], r_f.shape[1]
+        return (s_ * lsk.step_flops(n_, ns_schedule, ni),
+                s_ * lsk.step_bytes(n_))
+
+    def dev_step_work(comp, r_f, *args, ns_schedule, ni, **kw):
+        s_, n_ = r_f.shape[0], r_f.shape[1]
+        return (s_ * ldk.step_flops(n_, ns_schedule, ni),
+                s_ * ldk.step_bytes(n_))
+
+    def doubling_work(r, *args, ns_schedule, **kw):
+        s_, n_ = r.shape[0], r.shape[1]
+        return (s_ * lsk.doubling_flops(n_, ns_schedule),
+                s_ * dk.doubling_bytes(n_))
+
+    rows = {"kernel": (lsk, lsk.fused_layer_step_plain, step_work),
+            "kernel_dev": (ldk, ldk.fused_layer_step_dev_plain,
+                           dev_step_work),
+            "kernel_doubling": (dk, dk.fused_doubling_plain, doubling_work)}
+
+    def entry(engine, mode, st, launches):
+        name, source, replaces = ROW_SOURCES[engine]
+        return st.entry(f"{name}[{mode}]", source, replaces, launches)
+
+    # ---- (a) the flagship at each reduced mode ------------------------------
+    params = vt.default_parameters()
+    params.float_type = "Float32"
+    model = vt.model_from_parameters(params, device=dev)
+    n_spec, n_z = len(params.spec_bands[0]), model.profile.n_layers
+    max_m, n_flag = params.max_m, len(model.quad_points.qp_mu_n)
+    R64, _ = rt_run_band(model.pol, model.quad_points,
+                         build_band_inputs(model, 0), model.obs_geom.vza,
+                         model.obs_geom.vaz, max_m, params.surfaces[0],
+                         dtype=torch.float64, device=dev, solver="schulz",
+                         engine="torch")
+    entries = []
+    for engine, key, mode in PRECISION_RUNS:
+        mod, plain, work = rows[engine]
+        name = ROW_SOURCES[engine][0]
+        kw = dict(device=dev, engine=engine, **{key: mode})
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R, _ = vt.rt_run(model, **kw)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        c = counts()
+        check(c[engine] == max_m * n_z and sum(c.values()) == c[engine],
+              f"flagship {engine} at {mode}: launches {c}, expected "
+              f"{max_m * n_z} of {engine} only")
+        t0 = time.perf_counter()
+        vt.rt_run(model, **kw)
+        torch.cuda.synchronize()
+        t_steady = time.perf_counter() - t0
+        st = KernelStats(mode)
+        real = getattr(mod, name)
+        setattr(mod, name, compare_hook(torch, st, real, plain, work))
+        try:
+            vt.rt_run(model, **kw)
+        finally:
+            setattr(mod, name, real)
+        check(st.calls == max_m * n_z, f"flagship {engine} at {mode}: "
+              f"{st.calls} compared launches")
+        check(st.abs == 0.0, f"flagship {engine} at {mode} vs plain: "
+              f"max|diff| {st.abs:.3e} ({st.rel:.3e} of max), not "
+              f"bit-equal")
+        ms, plain_ms = st.mean_ms()
+        bound, by = st.bound()
+        finite = bool(np.isfinite(R).all())
+        print(f"precision (a) flagship {engine} {key}={mode} (N={n_flag}, "
+              f"S={n_spec}): {c[engine]} launches; vs plain at {mode} "
+              f"max|diff| {st.abs:.3e} ({st.rel:.3e} of max, bit-equal "
+              f"{st.abs == 0.0}); kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {bound:.4f} ms ({by}, {MODE_PASSES[mode]} bf16 "
+              f"passes at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s) per launch; "
+              f"R finite {finite}, max|dR|/max R vs float64 "
+              f"{rel_err(R, R64):.3e}; rt_run first {t_first:.3f} s, steady "
+              f"{t_steady:.3f} s {tag}", flush=True)
+        entries.append(entry(engine, mode, st, c[engine]))
+    del model
+
+    # ---- (b) rows 1, 3 and 4 at every mode at the headline width -----------
+    rng = np.random.default_rng(0)
+    S, n, nd = PRECISION_S, 44, 8
+    sched = (0, 0, 1, 1, 2, 3, 4, 4)
+    dtau, mqm = 0.5 / 2 ** nd, 0.2
+
+    def f32(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def slab(scale):
+        r = rng.uniform(0, 1, (S, n, n)) * dtau * scale / (n * mqm)
+        e = rng.uniform(0, 1, (S, n, n)) * dtau / (2 * n * mqm)
+        t = np.eye(n) * np.exp(-dtau / mqm) + e
+        v = [rng.uniform(0, dtau, (S, n)) for _ in range(2)]
+        return f32(r), f32(t), f32(e), f32(v[0]), f32(v[1])
+
+    d44 = f32(np.tile([1.0, 1.0, -1.0, -1.0], n // 4))
+    ek = torch.full((S,), float(np.exp(-dtau / 0.7)), device=dev)
+    g = torch.full((S, n), float(np.exp(-dtau / mqm)), device=dev)
+    comp = vacuum_layer(S, n, torch.float32, dev)
+    dcomp = vacuum_layer_dev(S, n, torch.float32, dev)
+    for scale in (1.0, 0.6):
+        r, t, e, jp, jm = slab(scale)
+        comp = LayerRT(*(x.contiguous() for x in lsk.fused_layer_step_plain(
+            comp, r, t, jp, jm, ek, d44, ns_schedule=sched, ni=4)))
+        dcomp = LayerRTDev(*(x.contiguous() for x in
+                             ldk.fused_layer_step_dev_plain(
+                                 dcomp, r, g, e, jp, jm, ek, d44,
+                                 ns_schedule=sched, ni=4,
+                                 precision="highest")))
+    r, t, e, jp, jm = slab(0.8)
+    calls = {"kernel": ((comp, r, t, jp, jm, ek, d44),
+                        dict(ns_schedule=sched, ni=3)),
+             "kernel_dev": ((dcomp, r, g, e, jp, jm, ek, d44),
+                            dict(ns_schedule=sched, ni=3)),
+             "kernel_doubling": ((r, t, jp, jm, ek),
+                                 dict(ns_schedule=sched))}
+    row_ms = {}
+    for engine, modes in ROW_MODES.items():
+        mod, plain, work = rows[engine]
+        args, kw0 = calls[engine]
+        for mode in modes:
+            kw = dict(kw0, precision=mode)
+            st = KernelStats(mode)
+            real = getattr(mod, ROW_SOURCES[engine][0])
+            compare_hook(torch, st, real, plain, work)(*args, **kw)
+            torch.cuda.synchronize()
+            # the reduced modes bit-equal (a launch that computed
+            # "highest" instead would sit within 1e-5 of max)
+            check(st.abs == 0.0 if mode != "highest" else st.rel < 1e-5,
+                  f"{engine} at {mode}, N={n}: {st.abs:.3e} ({st.rel:.3e} "
+                  f"of max) from the plain version")
+            ms, plain_ms = st.mean_ms()
+            bound, by = st.bound()
+            row_ms[engine, mode] = ms
+            print(f"precision (b) {ROW_SOURCES[engine][0]} at {mode} (N={n}"
+                  f", S={S}, nd={nd}): vs plain {st.abs:.3e} ({st.rel:.3e} "
+                  f"of max, bit-equal {st.abs == 0.0}); kernel {ms:.3f} ms "
+                  f"({ms / row_ms[engine, modes[0]]:.2f}x {modes[0]}), "
+                  f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}) "
+                  f"{tag}", flush=True)
+    del comp, dcomp, calls
+
+    # ---- (c) the qualification ----------------------------------------------
+    t0 = time.perf_counter()
+    reset_counts()
+    recs = {r["precision"]: r for r in qualify_precision.main(
+        qualify_precision.TOKENS, out=qual_out, device=dev)}
+    print(f"precision (c) qualification: {len(recs)} tokens in "
+          f"{time.perf_counter() - t0:.1f} s, launches {counts()} {tag}",
+          flush=True)
+    for tok in ("highest", "dev", "dev_highest", "dev_high"):
+        check(recs[tok]["kernel_vs_torch_delta"] < 1e-5,
+              f"qualification {tok}: kernel vs torch engine "
+              f"{recs[tok]['kernel_vs_torch_delta']:.3e}")
+    for tok in ("dev", "dev_highest", "dev_high"):
+        check(recs[tok]["gates_pass"], f"qualification {tok} off its gates")
+
+    # ---- (d) the Raman bench shape at each ie mode --------------------------
+    args = bench_raman_shape()
+    ref = None
+    for mode in ("highest", "high", "default"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rt_run_band_rrs(*args, dtype=torch.float32, device=dev,
+                              ie_precision=mode)
+        t_run = time.perf_counter() - t0
+        check(all(np.isfinite(x).all() for x in out),
+              f"Raman bench shape at ie_precision {mode}: not finite")
+        if ref is None:
+            ref = out
+            print(f"precision (d) Raman bench shape ({args[2].tau.shape[1]}"
+                  f" points, nR {args[3].n_raman}) at ie_precision highest: "
+                  f"{t_run:.3f} s {tag}", flush=True)
+            continue
+        d_rt = max(rel_err(out[0], ref[0]), rel_err(out[1], ref[1]))
+        bit = all(np.array_equal(a, b) for a, b in zip(out[:2], ref[:2]))
+        d_ie = rel_err(out[2], ref[2])
+        print(f"precision (d) Raman bench shape at ie_precision {mode}: "
+              f"ieR vs highest {d_ie:.3e} of max, ieT "
+              f"{rel_err(out[3], ref[3]):.3e}; R/T vs highest {d_rt:.3e} "
+              f"(bit-equal {bit}); {t_run:.3f} s {tag}", flush=True)
+        check(d_rt < 1e-6 and d_ie < 1e-2, f"Raman at ie_precision {mode}:"
+              f" R/T {d_rt:.3e}, ieR {d_ie:.3e} from highest")
+    print(f"precision phase: {time.perf_counter() - t_phase:.1f} s {tag}")
+    return entries
+
+
 def main():
     torch = setup()
 
@@ -1963,7 +2325,6 @@ def main():
     from vsmartmom_torch.core.rt import LayerRT, vacuum_layer
     import vsmartmom_torch.core.rt_run as rtr
     from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
-    from vsmartmom_torch.cuda import build
     from vsmartmom_torch.check_bucketed import run_check
     from vsmartmom_torch.cuda import doubling_kernel as dk
     from vsmartmom_torch.cuda import lanes_kernel as lnk
@@ -1993,40 +2354,14 @@ def main():
           f"device(s) {tag}")
 
     # ---- 1. build -----------------------------------------------------------
-    t0 = time.perf_counter()
-    build.lib()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s {tag}")
-    spills, team_seen, voigt_seen = [], set(), set()
-    fn = None
-    for line in build.resource_usage(build.build()).splitlines():
-        line = line.strip()
-        if line.startswith("Function"):
-            fn = line
-        elif line.startswith("REG:"):
-            print(f"{fn} {line}")
-            local = int(line.split("LOCAL:")[1].split()[0])
-            stack = int(line.split("STACK:")[1].split()[0])
-            team = [k for k in TEAM_KERNELS if k in fn]
-            team_seen.update(team)
-            voigt = [k for k in VOIGT_KERNELS if k in fn]
-            voigt_seen.update(voigt)
-            if (team and (local or stack > MAX_TEAM_STACK)) \
-                    or (voigt and local):
-                spills.append(f"{fn} {line}")
-    check(team_seen == set(TEAM_KERNELS),
-          f"team kernels missing from the library: "
-          f"{set(TEAM_KERNELS) - team_seen}")
-    check(voigt_seen == set(VOIGT_KERNELS),
-          f"Voigt kernels missing from the library: "
-          f"{set(VOIGT_KERNELS) - voigt_seen}")
-    check(not spills, f"local memory, or a stack above {MAX_TEAM_STACK} "
-          f"bytes in a team kernel: {spills}")
+    build_phase(tag)
 
     # ---- 1b. the team kernels at every width class and its edges -----------
     widths, (wide_ms, wide_plain, wide_bound) = width_class_phase(
         torch, dev, lsk, dk, scn, lnk, ldk, LayerRT)
     print(f"width classes (S = {WIDTH_S}): every launch within 1e-5 of max "
-          f"per field of its plain version; max|diff| / max by N: "
+          f"per field of its plain version, at a reduced mode ([mode]) "
+          f"bit-equal to it; max|diff| / max by N: "
           f"{json.dumps(widths)} {tag}")
     print(f"lanes step, wide path (N = {LANES_WIDE_N}, S = {WIDTH_S}): "
           f"kernel {wide_ms:.3f} ms, plain {wide_plain:.3f} ms, bound "
@@ -2143,17 +2478,17 @@ def main():
           f"{voigt_geometry(vk, grid_c, ct.nu, ap.wing_cutoff, n_z)}")
 
     # ---- 3b. layer-step kernel vs plain version at every layer and moment ---
-    def step_work(comp, r_f, *args, ns_schedule, ni):
+    def step_work(comp, r_f, *args, ns_schedule, ni, **kw):
         s_, n_ = r_f.shape[0], r_f.shape[1]
         return (s_ * lsk.step_flops(n_, ns_schedule, ni),
                 s_ * lsk.step_bytes(n_))
 
-    def dev_step_work(comp, r_f, *args, ns_schedule, ni):
+    def dev_step_work(comp, r_f, *args, ns_schedule, ni, **kw):
         s_, n_ = r_f.shape[0], r_f.shape[1]
         return (s_ * ldk.step_flops(n_, ns_schedule, ni),
                 s_ * ldk.step_bytes(n_))
 
-    def doubling_work(r, *args, ns_schedule):
+    def doubling_work(r, *args, ns_schedule, **kw):
         s_, n_ = r.shape[0], r.shape[1]
         return (s_ * lsk.doubling_flops(n_, ns_schedule),
                 s_ * dk.doubling_bytes(n_))
@@ -2164,7 +2499,7 @@ def main():
         return (s_ * nz_ * scn.scan_flops(n_, ns_schedule, inter_iters, k_),
                 s_ * scn.scan_bytes(n_, nz_, k_))
 
-    def lanes_work(comp_l, r_f, *args, ns_schedule, ni):
+    def lanes_work(comp_l, r_f, *args, ns_schedule, ni, **kw):
         n_, s_ = r_f.shape[0], r_f.shape[2]
         return (s_ * lnk.step_flops(n_, ns_schedule, ni),
                 s_ * lnk.step_bytes(n_))
@@ -2494,6 +2829,9 @@ def main():
     # ---- 16. (l) spectral sharding on the one card --------------------------
     sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref)
 
+    # ---- 17. (m) the precision modes of rows 1, 3 and 4 ---------------------
+    precision_entries = precision_phase(torch, dev, tag)
+
     kernels = [
         s_stats.entry("fused_layer_step",
                       "vsmartmom_torch/csrc/layer_step.cu",
@@ -2516,6 +2854,7 @@ def main():
             "fused_layer_step_lanes", "vsmartmom_torch/csrc/lanes.cu",
             "vsmartmom/pallas/lanes_kernel.py:135",
             f_launches["kernel_lanes"]),
+        *precision_entries,
     ]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -60,11 +60,12 @@ def _case(dev):
         plain = ldk.fused_layer_step_dev_plain
         comp = jrt.vacuum_layer_dev(S, N, jnp.float32)
         kw = dict(precision_name="highest")
+        tkw = dict(precision="highest")
     else:
         jstep, tstep = jax_step, lsk.fused_layer_step
         plain = lsk.fused_layer_step_plain
         comp = jrt.vacuum_layer(S, N, jnp.float32)
-        kw = {}
+        kw = tkw = {}
     for k, scale in enumerate((1.0, 0.6)):
         comp = jstep(comp, *map(j32, _slab(dev, k, scale)), j32(D),
                      ns_schedule=SCHED, ni=4, interpret=True, **kw)
@@ -73,7 +74,7 @@ def _case(dev):
     rng = np.random.default_rng(11)
     tangents = [rng.standard_normal(x.shape).astype(np.float32) * x.std()
                 for x in comp + elem]
-    return jstep, tstep, plain, comp, elem, tangents, kw
+    return jstep, tstep, plain, comp, elem, tangents, kw, tkw
 
 
 def _t(x):
@@ -87,7 +88,7 @@ def _rel(a, b):
 
 @pytest.mark.parametrize("dev", [False, True], ids=["row1", "row3"])
 def test_tangent_matches_jax_custom_jvp(dev):
-    jstep, tstep, plain, comp, elem, tangents, kw = _case(dev)
+    jstep, tstep, plain, comp, elem, tangents, kw, tkw = _case(dev)
     layer = trt.LayerRTDev if dev else trt.LayerRT
     n_c = len(comp)
     d32 = np.asarray(D, np.float32)
@@ -99,7 +100,7 @@ def test_tangent_matches_jax_custom_jvp(dev):
 
     def tfun(*xs):
         return tstep(layer(*xs[:n_c]), *xs[n_c:], _t(d32),
-                     ns_schedule=SCHED, ni=NI)
+                     ns_schedule=SCHED, ni=NI, **tkw)
 
     jp_out, jt_out = jax.jvp(jfun, tuple(map(jnp.asarray, comp + elem)),
                              tuple(map(jnp.asarray, tangents)))
@@ -109,7 +110,7 @@ def test_tangent_matches_jax_custom_jvp(dev):
     # the primal is the plain version bit for bit; nothing launched on
     # CPU tensors
     ref = plain(layer(*map(_t, comp)), *map(_t, elem), _t(d32),
-                ns_schedule=SCHED, ni=NI)
+                ns_schedule=SCHED, ni=NI, **tkw)
     assert lsk.launches == ldk.launches == 0
     for name, a, b in zip(layer._fields, tp_out, ref):
         assert torch.equal(a, b), name
@@ -126,7 +127,7 @@ def test_partial_tangents_and_jacfwd(dev):
     """Inputs outside the transform get zero tangents (the Function's jvp
     receives None or zeros for them), and jacfwd over a scalar equals the
     plain version's jacfwd."""
-    _, tstep, plain, comp, elem, _, _ = _case(dev)
+    _, tstep, plain, comp, elem, _, _, tkw = _case(dev)
     layer = trt.LayerRTDev if dev else trt.LayerRT
     c_t, e_t = list(map(_t, comp)), list(map(_t, elem))
     d32 = _t(np.asarray(D, np.float32))
@@ -135,7 +136,7 @@ def test_partial_tangents_and_jacfwd(dev):
         e = [e_t[0] * x[0]] + e_t[1:]
         c = c_t[:-1] + [c_t[-1] * x[1]]
         return torch.cat([f.reshape(-1) for f in step(
-            layer(*c), *e, d32, ns_schedule=SCHED, ni=NI)])
+            layer(*c), *e, d32, ns_schedule=SCHED, ni=NI, **tkw)])
 
     x0 = torch.tensor([1.1, 0.9])
     calls = []

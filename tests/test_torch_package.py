@@ -28,6 +28,7 @@ import vsmartmom_torch.check_bucketed
 import vsmartmom_torch.core.brdf
 import vsmartmom_torch.core.canopy
 import vsmartmom_torch.core.multisensor
+import vsmartmom_torch.core.precision
 import vsmartmom_torch.core.rami
 import vsmartmom_torch.core.rt_raman
 import vsmartmom_torch.inelastic
@@ -46,6 +47,7 @@ import vsmartmom_torch.cuda.layer_step_dev_kernel
 import vsmartmom_torch.cuda.layer_step_kernel
 import vsmartmom_torch.cuda.voigt_kernel
 import vsmartmom_torch.native
+import vsmartmom_torch.qualify_precision
 import vsmartmom_torch.parallel.distributed
 import vsmartmom_torch.parallel.sharding
 import vsmartmom_torch.scaling_bench
@@ -130,6 +132,69 @@ def test_no_jax_or_reference_imports(path):
         assert mod != "jax" and not mod.startswith("jax."), (path, mod)
         assert mod != "vsmartmom" and not mod.startswith("vsmartmom."), \
             (path, mod)
+
+
+#: top-level definitions of the JAX package (outside pallas/) that the port
+#: does not define, by file, with what takes their place
+JAX_ONLY = {
+    "core/multisensor.py": {
+        # the jitted body of rt_run_band_ms's step; the port runs
+        # _fourier_step_ms eagerly
+        "_fourier_step_ms_body"},
+    "core/rt_run.py": {
+        # the uncached schedules function behind an lru_cache (the port's
+        # build_layer_schedules is the one function), jit signatures, the
+        # Pallas compile watchdog and its fallback dispatch, and the body of
+        # the jitted step (the port's _fourier_step runs eagerly)
+        "_build_layer_schedules", "_arg_sig", "_watchdog_compile",
+        "_call_fourier_step", "_fourier_step_body"},
+    "native/__init__.py": {
+        # a cache directory under the system temp dir; the port builds into
+        # the repository's build/ (_paths.BUILD_DIR)
+        "_build_dir"},
+    "parallel/distributed.py": {
+        # jax.sharding meshes; the port places shards on torch devices
+        "global_spectral_mesh"},
+    "parallel/sharding.py": {"spectral_mesh"},
+    "scattering/mie_ad.py": {
+        # traced JAX twins of the host Mie code; the port's torch functions
+        # differentiate as they stand (mie_ad.greek_stack, _mie_ab)
+        "_mie_ab_jax", "greek_stack_jax"},
+    # its twin here is compute_Z_moments_torch
+    "scattering/phase.py": {"compute_Z_moments_jax"},
+    "spectroscopy/voigt.py": {
+        # the jitted line-sum body of absorption_cross_section
+        "_xsec_kernel"},
+}
+
+
+def _top_level(root):
+    """{file relative to root: names of its top-level functions and
+    classes}."""
+    out = {}
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        out[str(path.relative_to(root))] = {
+            n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    return out
+
+
+def test_every_jax_definition_has_a_counterpart():
+    """Outside pallas/ (whose kernels the port's cuda/ and csrc/ replace)
+    and the JAX-only helpers above, every top-level function and class of
+    the JAX package has a counterpart of the same name in the port."""
+    jax_defs = _top_level(ROOT / "vsmartmom")
+    port_names = set().union(*_top_level(PKG).values())
+    missing = {f: sorted(names - port_names - JAX_ONLY.get(f, set()))
+               for f, names in jax_defs.items()
+               if not f.startswith("pallas/")}
+    assert not any(missing.values()), {f: m for f, m in missing.items()
+                                       if m}
+    # the list names only what the JAX package still defines
+    for f, names in JAX_ONLY.items():
+        assert names <= jax_defs[f], (f, names - jax_defs[f])
+        assert not names & port_names, (f, names & port_names)
 
 
 def test_cuda_wrappers_build_nothing_for_cpu_tensors():

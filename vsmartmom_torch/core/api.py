@@ -158,7 +158,8 @@ def _raman_specs(model: RTModel, ib: int, rs_type):
 
 def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
            dtype=None, rs_type=None, device=DEFAULT_DEVICE,
-           engine: str = "auto"):
+           engine: str = "auto", matmul_precision: str = "highest",
+           dd_precision=None, ie_precision: str = "highest"):
     """Run the forward RT simulation for band(s) ``i_band`` on ``device``
     ("cuda" unless the caller asks for "cpu").
 
@@ -183,7 +184,12 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
     concatenated per band. ``dtype`` defaults to the parameters'
     float_type. ``engine`` is passed to rt_run_band ("auto" or one of
     core.rt_run.ENGINES); the Raman path has one engine, torch ops, and
-    raises ValueError for any other than "auto".
+    raises ValueError for any other than "auto". ``matmul_precision`` and
+    ``dd_precision`` go to rt_run_band (core/precision.py); the Raman path
+    keeps its elastic products in full precision, as the JAX package pins
+    them, and raises ValueError for any other matmul_precision.
+    ``ie_precision``: the Raman ie products' mode (core/rt_raman.py:
+    bmm_ie).
     """
     elastic_only = rs_type is None or rs_type == "noRS"
     if not elastic_only:
@@ -195,6 +201,9 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
             raise ValueError(f"engine {engine!r} with rs_type {rs_type!r}: "
                              f"the Raman path runs torch ops only (engine "
                              f"'auto')")
+        if matmul_precision != "highest" or dd_precision is not None:
+            raise ValueError("the Raman path's elastic products run in full "
+                             "precision: set ie_precision")
     if dtype is None:
         dtype = (torch.float32 if model.params.float_type == "Float32"
                  else torch.float64)
@@ -204,7 +213,9 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
         return rt_run_band(model.pol, model.quad_points, band,
                            model.obs_geom.vza, model.obs_geom.vaz,
                            model.params.max_m, surface, dtype=dtype,
-                           device=device, engine=engine)
+                           device=device, engine=engine,
+                           matmul_precision=matmul_precision,
+                           dd_precision=dd_precision)
 
     def run_raman(ib):
         specs = _raman_specs(model, ib, rs_type)
@@ -216,7 +227,8 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
         return rt_run_band_rrs(
             model.pol, model.quad_points, band, specs, f_rayl,
             model.obs_geom.vza, model.obs_geom.vaz, model.params.max_m,
-            _band_surface(model, ib), dtype=dtype, device=device)
+            _band_surface(model, ib), dtype=dtype, device=device,
+            ie_precision=ie_precision)
 
     if not elastic_only:
         outs = [run_raman(ib) for ib in bands]

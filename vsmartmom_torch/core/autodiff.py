@@ -22,9 +22,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vsmartmom_torch.core import precision
 from vsmartmom_torch.core.rt_run import (_fourier_step, _per_layer_schedules,
-                                         default_solver, full_fp32_matmul,
-                                         synthesis_weights)
+                                         default_solver, synthesis_weights)
 from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 from vsmartmom_torch.util.quadrature import QuadPoints
@@ -40,7 +40,8 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
                      dtype=torch.float64, device=DEFAULT_DEVICE,
                      solver: str | None = None, engine: str = "torch",
                      layer_schedules=None, ndoubl_static=None,
-                     ns_schedule=None):
+                     ns_schedule=None, matmul_precision: str = "highest",
+                     dd_precision=None):
     """Build a differentiable radiance function.
 
     Returns radiance(tau, omega, zw, albedo) -> R of shape (n_vza,
@@ -64,8 +65,14 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
     case. ``solver``: "lu" or "schulz" (default: "lu" on the CPU, "schulz"
     on CUDA).
 
-    The call runs with float32 matmuls in full float32 (TF32 off).
+    ``matmul_precision``/``dd_precision``: the product modes of the
+    kernel and kernel_dev engines' kernels (core/precision.py; dd None
+    resolves as in rt_run_band), and of the plain version whose jvp is
+    their tangent. As in the JAX package, which calls its Fourier step
+    outside the precision context, they reach the kernels only: the torch
+    ops run in full float32 (TF32 off) or float64.
     """
+    dd_precision = precision.resolve_dd(matmul_precision, dd_precision)
     if engine not in AD_ENGINES:
         raise ValueError(
             f"engine {engine!r} has no forward-mode rule: take one of "
@@ -105,13 +112,15 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
         albedo = torch.as_tensor(albedo, dtype=dtype, device=device)
         R = torch.zeros((len(vza), n_stokes, n_spec), dtype=dtype,
                         device=device)
-        with full_fp32_matmul():
+        with precision.matmul_precision("highest"):
             for m in range(max_m):
                 comp, _ = _fourier_step(
                     tau, omega, zw, z_pp[m], z_mp[m], qp, wt, d_vec, i0,
                     albedo, None, mu0, mu0_node, min_mu,
                     i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes, is_m0=(m == 0),
-                    solver=solver, layer_schedules=schedules, engine=engine)
+                    solver=solver, layer_schedules=schedules, engine=engine,
+                    matmul_precision=matmul_precision,
+                    dd_precision=dd_precision)
                 j_m = comp.j_m[:, gather]        # (nSpec, n_vza, n_stokes)
                 R = R + csw[m][:, :, None] * j_m.permute(1, 2, 0)
         return R

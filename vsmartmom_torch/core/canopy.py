@@ -35,13 +35,13 @@ import torch
 from vsmartmom_torch.core.rt import (LayerRT, bmv, doubling,
                                      doubling_number, exp_difference,
                                      interaction, make_added_layer,
-                                     make_rsolve, merged_nodes, rsolve_lu,
-                                     vacuum_layer)
+                                     make_rsolve, merged_nodes, mix_z,
+                                     rsolve_lu, vacuum_layer)
 from vsmartmom_torch.core.brdf import brdf_fourier_matrix
 from vsmartmom_torch.core.multisensor import (interlayer_flux,
                                               segmented_composites)
-from vsmartmom_torch.core.rt_run import (full_fp32_matmul, surface_inputs,
-                                         synthesis_weights)
+from vsmartmom_torch.core.precision import matmul_precision
+from vsmartmom_torch.core.rt_run import surface_inputs, synthesis_weights
 from vsmartmom_torch.core.surface import (brdf_surface_layer,
                                           lambertian_surface_layer)
 from vsmartmom_torch.scattering.phase import GreekCoefs, compute_Z_moments
@@ -306,7 +306,7 @@ def rt_run_canopy(pol, quad, band, canopy: CanopyRTInputs, vza, vaz,
     uw_out = np.zeros((len(sensors), len(vza), n_stokes, n_spec))
     dw_out = np.zeros_like(uw_out)
 
-    with full_fp32_matmul():
+    with matmul_precision("highest"):
         d_vec = to_dev(np.tile(pol.d, n // n_stokes))
         i0_vec = to_dev(i0_vec_np)
         qp = to_dev(quad.qp_mu_n)
@@ -345,8 +345,8 @@ def rt_run_canopy(pol, quad, band, canopy: CanopyRTInputs, vza, vaz,
             zc_mp = to_dev(zc_mp)[None]
 
             def atm_layer(iz):
-                z_pp = torch.einsum("kn,kij->nij", zw_d[iz], z_pp_c)
-                z_mp = torch.einsum("kn,kij->nij", zw_d[iz], z_mp_c)
+                z_pp = mix_z(zw_d[iz], z_pp_c)
+                z_mp = mix_z(zw_d[iz], z_mp_c)
                 return make_added_layer(
                     tau_d[iz], omega_d[iz], z_pp, z_mp, tau_sum_atm[iz], qp,
                     wct2, wct02, i0_vec, quad.i_mu0_n, n_stokes, mu0_node_d,

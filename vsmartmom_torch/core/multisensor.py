@@ -30,10 +30,10 @@ import torch
 from vsmartmom_torch.core.brdf import brdf_fourier_matrix
 from vsmartmom_torch.core.rt import (bmm, bmv, interaction,
                                      make_added_layer, make_rsolve,
-                                     vacuum_layer)
+                                     mix_z, vacuum_layer)
+from vsmartmom_torch.core.precision import matmul_precision
 from vsmartmom_torch.core.rt_run import (BandRTInputs, default_solver,
-                                         full_fp32_matmul, surface_inputs,
-                                         synthesis_weights)
+                                         surface_inputs, synthesis_weights)
 from vsmartmom_torch.core.surface import (brdf_surface_layer,
                                           lambertian_surface_layer)
 from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
@@ -101,8 +101,8 @@ def _fourier_step_ms(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                              torch.cumsum(tau, dim=0)], dim=0)
 
     def layer(iz):
-        z_pp = torch.einsum("kn,kij->nij", zw[iz], z_pp_c)
-        z_mp = torch.einsum("kn,kij->nij", zw[iz], z_mp_c)
+        z_pp = mix_z(zw[iz], z_pp_c)
+        z_mp = mix_z(zw[iz], z_mp_c)
         return make_added_layer(
             tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp, wct2,
             wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
@@ -168,7 +168,7 @@ def rt_run_band_ms(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
 
     uw_out = np.zeros((len(sensor_levels), len(vza), n_stokes, n_spec))
     dw_out = np.zeros_like(uw_out)
-    with full_fp32_matmul():
+    with matmul_precision("highest"):
         tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
                                 to_dev(band.zw))
         consts = dict(qp=to_dev(quad.qp_mu_n), wt=to_dev(quad.wt_mu_n),

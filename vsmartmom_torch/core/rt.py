@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vsmartmom_torch.core import precision
+
 
 class LayerRT(NamedTuple):
     """Reflection/transmission operator of a (composite or added) slab.
@@ -94,13 +96,27 @@ def dev_to_full(dev: LayerRTDev) -> LayerRT:
 # --- batched linear algebra helpers -----------------------------------------
 
 def bmm(a, b):
-    """Batched matrix product over the leading spectral axis."""
-    return torch.matmul(a, b)
+    """Batched matrix product over the leading spectral axis, in the mode
+    of the enclosing ``precision.matmul_precision`` block (float32 operands
+    only; "highest", full float32, outside any block)."""
+    return precision.mm(a, b)
 
 
 def bmv(a, v):
-    """Batched matrix-vector product."""
-    return torch.matmul(a, v.unsqueeze(-1)).squeeze(-1)
+    """Batched matrix-vector product, in the active mode as ``bmm``."""
+    return precision.mm(a, v.unsqueeze(-1)).squeeze(-1)
+
+
+def mix_z(zw, z_c):
+    """One layer's phase matrices sum_k zw[k, s] z_c[k]: (K, nSpec)
+    weights and (K, N, N) components -> (nSpec, N, N), in the active mode
+    as ``bmm`` (JAX runs this einsum under the default precision too)."""
+    mode = precision.active()
+    if mode == "highest" or z_c.dtype != torch.float32:
+        return torch.einsum("kn,kij->nij", zw, z_c)
+    k, n = z_c.shape[0], z_c.shape[-1]
+    return precision.product(zw.T, z_c.reshape(k, n * n),
+                             mode).reshape(-1, n, n)
 
 
 def rsolve_lu(x, a):
@@ -441,7 +457,8 @@ def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
                      i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
                      min_qp_mu, eye, rsolve=rsolve_lu,
                      ndoubl_static=None, ns_schedule=None,
-                     doubling_engine="torch", tau_scat_max=None) -> LayerRT:
+                     doubling_engine="torch", tau_scat_max=None,
+                     matmul_precision: str = "highest") -> LayerRT:
     """Elemental + doubling for one atmospheric layer -> full added layer.
 
     tau/omega: (nSpec,) per-wavelength optical depth & single-scatter albedo.
@@ -449,6 +466,9 @@ def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
     layer's optical depth. ``doubling_engine``: "torch" (batched ops) or
     "kernel" (the doubling-only kernel, cuda/doubling_kernel.py; needs the
     static NS schedule). ``tau_scat_max`` as in elemental_flipped.
+    ``matmul_precision``: the doubling kernel's product mode
+    (core/precision.py); the torch ops take the enclosing block's, as the
+    JAX package's make_added_layer passes its argument to the kernel alone.
     ref: src/CoreRT/CoreKernel/rt_kernel.jl:238-275 (init_layer + dispatch)
     """
     if doubling_engine not in ("torch", "kernel"):
@@ -465,8 +485,9 @@ def make_added_layer(tau, omega, z_pp, z_mp, tau_sum, qp, wct2, wct02,
             raise ValueError(f"ns_schedule has {len(ns_schedule)} steps, "
                              f"ndoubl is {ndoubl}")
         from vsmartmom_torch.cuda.doubling_kernel import fused_doubling
-        r_f, t_pp, j_p, jm_f = fused_doubling(r_f, t_pp, j_p, jm_f, expk,
-                                              ns_schedule=ns_schedule)
+        r_f, t_pp, j_p, jm_f = fused_doubling(
+            r_f, t_pp, j_p, jm_f, expk, ns_schedule=ns_schedule,
+            precision=matmul_precision)
     else:
         r_f, t_pp, j_p, jm_f = doubling(r_f, t_pp, j_p, jm_f, expk, ndoubl,
                                         eye, rsolve=rsolve,

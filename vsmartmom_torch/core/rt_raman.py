@@ -37,12 +37,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from vsmartmom_torch.core import precision
 from vsmartmom_torch.core.rt import (EXP_DIFF_CUT, LayerRT, bmm, bmv,
                                      doubling_number, elemental,
-                                     make_rsolve, ns_doubling_schedule,
-                                     vacuum_layer)
-from vsmartmom_torch.core.rt_run import (default_solver, full_fp32_matmul,
-                                         synthesis_weights)
+                                     make_rsolve, mix_z,
+                                     ns_doubling_schedule, vacuum_layer)
+from vsmartmom_torch.core.rt_run import default_solver, synthesis_weights
 from vsmartmom_torch.core.surface import lambertian_surface_layer
 from vsmartmom_torch.scattering.phase import compute_Z_moments
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
@@ -50,10 +50,13 @@ from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
 def bmm_ie(a, b):
     """Batched matmul of the first-order (ie) operands, broadcast over the
-    shift axis. Runs at the caller's matmul precision: the drivers pin
-    full float32 (TF32 off) or float64, where the JAX package reads a
-    reduced default from the environment."""
-    return torch.matmul(a, b)
+    shift axis, in the run's ``ie_precision`` (core/precision.py;
+    float32 operands only). The ie operators are perturbation-scale (no
+    ~1.0 transmission diagonal rides these products), so a bf16 mode's
+    absolute floor is small relative to the ie result. The JAX package
+    reads the mode from the environment (VSM_RAMAN_IE_PRECISION, default
+    "high"); the port takes it as a keyword, default "highest"."""
+    return precision.product(a, b, precision.active("ie"))
 
 
 class IELayer(NamedTuple):
@@ -502,8 +505,8 @@ def _layer_fn(mi: _MomentInputs, srcs, valids, w_shifts, gids):
 
     def layer(iz, nd=None, sched=None):
         w_z = w_shifts[iz] if w_shifts.ndim == 3 else w_shifts
-        z_pp = torch.einsum("kn,kij->nij", mi.zw[iz], mi.z_pp_c)
-        z_mp = torch.einsum("kn,kij->nij", mi.zw[iz], mi.z_mp_c)
+        z_pp = mix_z(mi.zw[iz], mi.z_pp_c)
+        z_mp = mix_z(mi.zw[iz], mi.z_mp_c)
         return raman_make_added_layer(
             mi.tau[iz], mi.omega[iz], z_pp, z_mp, mi.z_pp_r, mi.z_mp_r,
             tau_sum_all[iz], mi.f_rayl[iz], (srcs, valids), w_z, gids,
@@ -710,7 +713,8 @@ def _chunks(run: _RamanRun):
 def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                     surface, dtype=torch.float64, solver: Optional[str] = None,
                     device=DEFAULT_DEVICE, static_schedules: bool = False,
-                    tau_scat_max=None, coupling=None):
+                    tau_scat_max=None, coupling=None,
+                    ie_precision: str = "highest"):
     """Forward run with Raman coupling (RRS / VS / RVRS / ``_plus`` groups)
     for one band or a concatenated multi-band spectral axis.
 
@@ -726,7 +730,10 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     schulz, each layer doubles on its static per-step NS schedule
     (_raman_layer_schedules) instead of the solver's fixed count; off by
     default. Surfaces other than LambertianSurfaceScalar raise ValueError.
-    Matmuls run in full float32 (TF32 off) or float64.
+    The elastic products run in full float32 (TF32 off) or float64, as the
+    JAX package pins them; ``ie_precision`` ("highest", "high" or
+    "default", core/precision.py) is the mode of the float32 ie products
+    (bmm_ie).
     A spectral shard of a band (parallel/sharding.py) passes the whole
     band's ``tau_scat_max`` ((nZ,) maxima of tau * omega: the doubling
     counts) and ``coupling`` (the (srcs, valids, ws, gids) rows of
@@ -757,7 +764,8 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     T = np.zeros_like(R)
     ieR = np.zeros_like(R)
     ieT = np.zeros_like(R)
-    with full_fp32_matmul():
+    with precision.matmul_precision("highest"), \
+            precision.scoped("ie", ie_precision):
         for m in range(max_m):
             mi = run.moment(m)
             ie_p = ie_m = comp = None
@@ -868,15 +876,16 @@ def _fourier_step_rrs_ms(mi: _MomentInputs, srcs, valids, w_shifts, gids,
 
 def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                        surface, sensor_levels, dtype=torch.float64,
-                       solver: Optional[str] = None, device=DEFAULT_DEVICE):
+                       solver: Optional[str] = None, device=DEFAULT_DEVICE,
+                       ie_precision: str = "highest"):
     """Multi-sensor forward run with Raman coupling.
 
     sensor_levels: layer-interface indices, 0 = TOA .. nZ = BOA.
     Returns (uwJ, dwJ, ie_uwJ, ie_dwJ), each
     (nSensor, n_vza, n_stokes, nSpec).
     ref: rt_run_multisensor.jl rt_run_test_ms with RS types +
-    postprocessing_vza_ms.jl ieJ accumulation. ``device``, ``solver`` and
-    the surface as in rt_run_band_rrs.
+    postprocessing_vza_ms.jl ieJ accumulation. ``device``, ``solver``,
+    ``ie_precision`` and the surface as in rt_run_band_rrs.
     """
     device = resolve_device(device)
     solver = default_solver(device, solver)
@@ -893,7 +902,8 @@ def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                        solver)
     shape = (len(sensor_levels), len(vza), n_stokes, n_spec)
     outs = [np.zeros(shape) for _ in range(4)]
-    with full_fp32_matmul():
+    with precision.matmul_precision("highest"), \
+            precision.scoped("ie", ie_precision):
         for m in range(max_m):
             mi = run.moment(m)
             acc = None

@@ -34,16 +34,22 @@ The kernel engines need the Newton-Schulz solver's static schedules and
 raise on a layer without one; CPU tensors take each kernel's plain torch
 version. auto never picks kernel_dev, kernel_doubling, kernel_scan or
 kernel_lanes.
+
+Matrix-product precision (core/precision.py), as the JAX package's
+``matmul_precision`` and ``dd_precision``: a run's torch ops and the
+kernels of the kernel and kernel_doubling engines take
+``matmul_precision``, kernel_dev's kernel takes ``dd_precision``; the scan
+and lanes kernels stay in full float32, as their TPU counterparts do.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
+from vsmartmom_torch.core import precision
 from vsmartmom_torch.core.brdf import (brdf_fourier_matrix,
                                        legendre_spectral_albedo)
 from vsmartmom_torch.core.rt import (LayerRT, bmv, dev_to_full,
@@ -51,7 +57,7 @@ from vsmartmom_torch.core.rt import (LayerRT, bmv, dev_to_full,
                                      elemental_flipped_dev, interaction,
                                      interaction_dev, make_added_layer,
                                      make_added_layer_dev, make_rsolve,
-                                     ns_doubling_schedule,
+                                     mix_z, ns_doubling_schedule,
                                      ns_interaction_iters, vacuum_layer,
                                      vacuum_layer_dev)
 from vsmartmom_torch.core.surface import (brdf_surface_layer,
@@ -89,22 +95,6 @@ class BandRTInputs:
     greeks: list
 
 
-@contextlib.contextmanager
-def full_fp32_matmul():
-    """Float32 matmuls in full float32 (TF32 off) inside the block, the
-    previous settings restored after it: the plain-form algebra fails the
-    accuracy gates with reduced-mantissa products."""
-    prev_precision = torch.get_float32_matmul_precision()
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.set_float32_matmul_precision("highest")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev_precision)
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-
-
 def default_solver(device: torch.device, solver: Optional[str]) -> str:
     """``solver``, or the default where it is None: "lu" on the CPU,
     "schulz" on CUDA."""
@@ -140,9 +130,16 @@ def schedule_buckets(layer_schedules):
 def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                   albedo, spectral_albedo, mu0, mu0_node, min_qp_mu,
                   *, i_mu0_n, n_stokes, is_m0, solver, layer_schedules,
-                  engine, rho_brdf=None, tau_scat_max=None):
+                  engine, rho_brdf=None, tau_scat_max=None,
+                  matmul_precision: str = "highest", dd_precision=None):
     """One Fourier moment: layer scan + surface. Returns the composite
     layer and the surface-leaving source vector (hdr).
+
+    ``matmul_precision``: the product mode of the kernel and
+    kernel_doubling engines' kernels; ``dd_precision``: kernel_dev's
+    (None: precision.resolve_dd). The torch ops take the enclosing
+    ``precision.matmul_precision`` block's mode, as JAX's
+    ``_fourier_step_body`` takes the enclosing default precision.
 
     ``rho_brdf``: the BRDF surface's (N, N) Fourier matrix of this moment,
     or None for a Lambertian surface (``albedo``, ``spectral_albedo``).
@@ -183,6 +180,7 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
             fused_layer_step_lanes, from_lanes, to_lanes, to_lanes_m,
             to_lanes_v)
 
+    dd = precision.resolve_dd(matmul_precision, dd_precision)
     dev_form = engine in _DEV_ENGINES
     comp = (vacuum_layer_dev if dev_form else vacuum_layer)(
         n_spec, n, dtype, device)
@@ -216,8 +214,8 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
         exact = solver != "schulz" or sched is None
         for iz in range(start, start + count):
             tsm = None if tau_scat_max is None else float(tau_scat_max[iz])
-            z_pp = torch.einsum("kn,kij->nij", zw[iz], z_pp_c)
-            z_mp = torch.einsum("kn,kij->nij", zw[iz], z_mp_c)
+            z_pp = mix_z(zw[iz], z_pp_c)
+            z_mp = mix_z(zw[iz], z_mp_c)
             layer = (tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
                      wct2, wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
                      d_vec)
@@ -225,7 +223,8 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                 r_f, t, jp, jm_f, ek, _ = elemental_flipped(
                     *layer, min_qp_mu, ndoubl_static=nd, tau_scat_max=tsm)
                 comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek, d_vec,
-                                        ns_schedule=sched, ni=ni)
+                                        ns_schedule=sched, ni=ni,
+                                        precision=matmul_precision)
             elif engine == "kernel_lanes":
                 r_f, t, jp, jm_f, ek, _ = elemental_flipped(
                     *layer, min_qp_mu, ndoubl_static=nd, tau_scat_max=tsm)
@@ -237,7 +236,7 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                     *layer, nd)
                 comp = fused_layer_step_dev(comp, r_f, g_el, e_el, jp, jm_f,
                                             ek, d_vec, ns_schedule=sched,
-                                            ni=ni)
+                                            ni=ni, precision=dd)
             elif engine == "torch_dev":
                 added = make_added_layer_dev(
                     *layer, min_qp_mu, nd,
@@ -251,7 +250,8 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                     *layer, min_qp_mu, eye, rsolve=rsolve, ndoubl_static=nd,
                     ns_schedule=sched,
                     doubling_engine=("kernel" if engine == "kernel_doubling"
-                                     else "torch"), tau_scat_max=tsm)
+                                     else "torch"), tau_scat_max=tsm,
+                    matmul_precision=matmul_precision)
                 comp = interaction(comp, added, eye, rsolve=irs)
     if dev_form:
         comp = dev_to_full(comp)
@@ -411,7 +411,8 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                 vza, vaz, max_m: int, surface, dtype=torch.float64,
                 device=DEFAULT_DEVICE, solver: Optional[str] = None,
                 return_hdr: bool = False, return_composite: bool = False,
-                engine: str = "auto", sfi: bool = True, tau_scat_max=None):
+                engine: str = "auto", sfi: bool = True, tau_scat_max=None,
+                matmul_precision: str = "highest", dd_precision=None):
     """Run the full Fourier-moment loop for one band; azimuthally synthesize.
 
     surface: dict like {"type": "LambertianSurfaceScalar", "albedo": 0.1};
@@ -439,13 +440,20 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     (parallel/sharding.py); it stands in for every maximum the run would
     take over its own points (doubling counts and static schedules). None
     (default) takes them over ``band``.
-
-    Float32 matmuls run in full float32 for the duration of the call
-    (TF32 off): the plain-form algebra fails the accuracy gates with
-    reduced-mantissa products.
+    ``matmul_precision``: "highest" (default: full float32, TF32 off),
+    "high" (three bf16 passes) or "default" (one bf16 pass), for the torch
+    ops of a float32 run (a float64 run ignores it) and the kernels of the
+    kernel and kernel_doubling engines (core/precision.py). "high" is safe
+    only in split form: the plain engines fail the accuracy gates with it
+    (vsmartmom_torch/qualification/precision_h100.jsonl).
+    ``dd_precision``: kernel_dev's kernel mode, "bf16x3", "highest" or
+    "default"; None (default) takes "highest" for matmul_precision
+    "highest" and "bf16x3" otherwise, as the JAX package does (its
+    environment override VSM_DD_PRECISION is this keyword).
     """
     device = resolve_device(device)
     solver = default_solver(device, solver)
+    dd_precision = precision.resolve_dd(matmul_precision, dd_precision)
     n_spec = band.tau.shape[1]
     n_z = band.tau.shape[0]
     n = len(quad.qp_mu_n)
@@ -490,7 +498,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     run_banner(pol, quad, n_spec, n_z, max_m, surface, engine, solver,
                dtype, device)
 
-    with full_fp32_matmul():
+    with precision.matmul_precision(matmul_precision):
         tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
                                 to_dev(band.zw))
         qp_d, wt_d = to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n)
@@ -522,7 +530,9 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                     min_mu_d, i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
                     is_m0=(m == 0), solver=solver, layer_schedules=schedules,
                     engine=engine, rho_brdf=rho_brdf,
-                    tau_scat_max=tau_scat_max)
+                    tau_scat_max=tau_scat_max,
+                    matmul_precision=matmul_precision,
+                    dd_precision=dd_precision)
             if return_composite:
                 comps.append(LayerRT(*(x.cpu().numpy() for x in comp)))
 

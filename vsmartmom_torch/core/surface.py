@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from vsmartmom_torch.core import precision
 from vsmartmom_torch.core.rt import LayerRT
 
 
@@ -72,7 +73,7 @@ def brdf_surface_layer(rho_pre, n_spec, qp, wt, i0_vec, tau_sum, mu0
     atten = torch.exp(-tau_sum / mu0)[:, None]
 
     j_p = i0_vec.expand(n_spec, n) * atten
-    j_m = mu0 * (rho_pre @ i0_vec)[None, :] * atten
+    j_m = mu0 * precision.mm(rho_pre, i0_vec)[None, :] * atten
 
     r_mp = (rho_pre * (qp * wt)[None, :]).expand(n_spec, n, n)
     return LayerRT(r_mp=r_mp, r_pm=zero_m, t_pp=eye, t_mm=eye,

@@ -26,7 +26,11 @@
 // products. c_rpm and c_tmm arrive by cp.async while the doubling runs.
 // fp32 FMA on the CUDA cores: no TF32, no tensor cores. Every output is the
 // fmaf chain of the block-wide version over l in order, with the same
-// association of every product.
+// association of every product. Both kernels are templates on the tile
+// class and the product mode of the JAX kernels' precision_name
+// (rt_device.cuh: full fp32, or one or three bf16 passes, the operands
+// rounded in registers), which covers every product, the mv products of the
+// source vectors (JAX's packed vector columns) included.
 //
 // Per-point arena (floats; sq = n ld, ld the padded row stride, every slot
 // on 16 bytes): the doubling's Arena (R, T, A, M0, M1, TMP, JP, JM, W1, W2;
@@ -93,21 +97,25 @@ load_elemental(const Team<C>& tm, float* ar, const Arena& o, int p,
   });
 }
 
+// The layer step's parameters and their names (the body below and its two
+// kernels)
+#define LAYER_STEP_PARAMS                                                   \
+  const float *__restrict__ c_rmp, const float *__restrict__ c_rpm,        \
+      const float *__restrict__ c_tpp, const float *__restrict__ c_tmm,    \
+      const float *__restrict__ c_jp, const float *__restrict__ c_jm,      \
+      const float *__restrict__ r_f, const float *__restrict__ t,          \
+      const float *__restrict__ jp, const float *__restrict__ jm_f,        \
+      const float *__restrict__ ek, const float *__restrict__ d,           \
+      float *__restrict__ o_rmp, float *__restrict__ o_rpm,                \
+      float *__restrict__ o_tpp, float *__restrict__ o_tmm,                \
+      float *__restrict__ o_jp, float *__restrict__ o_jm, int S, int n,    \
+      int ld, int P, Schedule sch
+#define LAYER_STEP_ARGS                                                     \
+  c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d, o_rmp,  \
+      o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, P, sch
+
 template <class C>
-__global__ void __launch_bounds__(kMaxBlock)
-layer_step_kernel(const float* __restrict__ c_rmp,
-                  const float* __restrict__ c_rpm,
-                  const float* __restrict__ c_tpp,
-                  const float* __restrict__ c_tmm,
-                  const float* __restrict__ c_jp,
-                  const float* __restrict__ c_jm,
-                  const float* __restrict__ r_f, const float* __restrict__ t,
-                  const float* __restrict__ jp, const float* __restrict__ jm_f,
-                  const float* __restrict__ ek, const float* __restrict__ d,
-                  float* __restrict__ o_rmp, float* __restrict__ o_rpm,
-                  float* __restrict__ o_tpp, float* __restrict__ o_tmm,
-                  float* __restrict__ o_jp, float* __restrict__ o_jm,
-                  int S, int n, int ld, int P, Schedule sch) {
+__device__ __forceinline__ void layer_step(LAYER_STEP_PARAMS) {
   extern __shared__ float smem[];
   float* dv = smem;  // D-matrix diagonal, shared by all points
   for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = d[i];
@@ -218,6 +226,32 @@ layer_step_kernel(const float* __restrict__ c_rmp,
   });
 }
 
+// Full fp32: the launch bound alone, as before the product modes.
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock)
+layer_step_kernel(LAYER_STEP_PARAMS) {
+  layer_step<C>(LAYER_STEP_ARGS);
+}
+
+// A bf16 mode: (kMaxBlock, 1), as the split-form step has it: with the
+// block bound alone ptxas holds the N <= 16 class at bf16x3 to 64 registers
+// and spills it to a 64-byte stack.
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock, 1)
+layer_step_kernel_bf16(LAYER_STEP_PARAMS) {
+  layer_step<C>(LAYER_STEP_ARGS);
+}
+
+// The layer step's kernel for tile class and mode C.
+template <class C>
+auto layer_step_entry() {
+  if constexpr (C::MODE == vsm::kHighest) {
+    return layer_step_kernel<C>;
+  } else {
+    return layer_step_kernel_bf16<C>;
+  }
+}
+
 template <class C>
 __global__ void __launch_bounds__(kMaxBlock)
 doubling_kernel(const float* __restrict__ r_f, const float* __restrict__ t,
@@ -252,7 +286,8 @@ doubling_kernel(const float* __restrict__ r_f, const float* __restrict__ t,
 }  // namespace
 
 // Launch one layer step on `stream`: ld is the arena's padded row stride
-// (>= n, a multiple of 4), pts_per_block the teams of a block. Returns the
+// (>= n, a multiple of 4), mode the product mode (vsm::Mode),
+// pts_per_block the teams of a block. Returns the
 // cudaError_t of the launch (0 on success); the caller raises on anything
 // else.
 extern "C" int vsm_layer_step(
@@ -261,10 +296,11 @@ extern "C" int vsm_layer_step(
     const float* r_f, const float* t, const float* jp, const float* jm_f,
     const float* ek, const float* d, float* o_rmp, float* o_rpm,
     float* o_tpp, float* o_tmm, float* o_jp, float* o_jm, int S, int n,
-    int ld, const int* sched, int nd, int ni, int pts_per_block,
+    int ld, const int* sched, int nd, int ni, int mode, int pts_per_block,
     int smem_bytes, void* stream) {
   if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0)
+  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || mode < vsm::kHighest
+      || mode > vsm::kBf16)
     return (int)cudaErrorInvalidValue;
   const size_t need =
       (size_t)(round4(n) + pts_per_block * step_arena_floats(n, ld))
@@ -274,26 +310,35 @@ extern "C" int vsm_layer_step(
   const Schedule s = vsm::make_schedule(sched, nd, ni);
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
   return vsm::with_class(n, [&](auto c) {
-    auto* kern = layer_step_kernel<decltype(c)>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<blocks, pts_per_block * tt, smem_bytes, (cudaStream_t)stream>>>(
-        c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d,
-        o_rmp, o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, pts_per_block, s);
-    return (int)cudaGetLastError();
+    return vsm::with_mode(mode, [&](auto m) {
+      auto* kern = layer_step_entry<
+          vsm::WithMode<decltype(c), decltype(m)::value>>();
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+      kern<<<blocks, pts_per_block * tt, smem_bytes,
+             (cudaStream_t)stream>>>(
+          c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d,
+          o_rmp, o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, pts_per_block,
+          s);
+      return (int)cudaGetLastError();
+    });
   });
 }
 
 // Launch the doubling recursion alone on `stream`: (r, t, jp, jm) of S points
-// grown over the nd scheduled steps. Returns the launch's cudaError_t.
+// grown over the nd scheduled steps, products in `mode`. Returns the
+// launch's cudaError_t.
 extern "C" int vsm_doubling(const float* r_f, const float* t, const float* jp,
                             const float* jm_f, const float* ek, float* o_r,
                             float* o_t, float* o_jp, float* o_jm, int S,
                             int n, int ld, const int* sched, int nd,
-                            int pts_per_block, int smem_bytes, void* stream) {
+                            int mode, int pts_per_block, int smem_bytes,
+                            void* stream) {
   if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched) return (int)cudaErrorInvalidValue;
+  if (n < 1 || nd < 0 || nd > kMaxSched || mode < vsm::kHighest
+      || mode > vsm::kBf16)
+    return (int)cudaErrorInvalidValue;
   const size_t need =
       (size_t)pts_per_block * doubling_arena_floats(n, ld) * sizeof(float);
   const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
@@ -301,13 +346,16 @@ extern "C" int vsm_doubling(const float* r_f, const float* t, const float* jp,
   const Schedule s = vsm::make_schedule(sched, nd, 0);
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
   return vsm::with_class(n, [&](auto c) {
-    auto* kern = doubling_kernel<decltype(c)>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<blocks, pts_per_block * tt, smem_bytes, (cudaStream_t)stream>>>(
-        r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, ld, pts_per_block,
-        s);
-    return (int)cudaGetLastError();
+    return vsm::with_mode(mode, [&](auto m) {
+      auto* kern =
+          doubling_kernel<vsm::WithMode<decltype(c), decltype(m)::value>>;
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+      kern<<<blocks, pts_per_block * tt, smem_bytes,
+             (cudaStream_t)stream>>>(r_f, t, jp, jm_f, ek, o_r, o_t, o_jp,
+                                     o_jm, S, n, ld, pts_per_block, s);
+      return (int)cudaGetLastError();
+    });
   });
 }

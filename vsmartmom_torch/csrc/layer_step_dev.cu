@@ -22,7 +22,11 @@
 // cores) with the elementwise passes fused into their stores, and the
 // outputs are stored to device memory straight from the last products. The
 // tile classes are those of rt_device.cuh for N <= 64 and the fifth class
-// C80 for N = 65 .. 75, which only this kernel instantiates.
+// C80 for N = 65 .. 75, which only this kernel instantiates. The kernel is a
+// template on the tile class and the product mode of the JAX kernel's
+// precision_name (rt_device.cuh: full fp32, or one or three bf16 passes with
+// the operands rounded in registers, "bf16x3" the JAX default), which every
+// product takes.
 //
 // Per doubling step (flipped space; E's slot holds [E | jp | j1m], so one
 // product covers r [E | jp | j1m]):
@@ -381,7 +385,8 @@ layer_step_dev_kernel(const float* __restrict__ c_rmp,
 }  // namespace
 
 // Launch one split-form layer step on `stream`: ld is the arena's row stride
-// (>= n + 2, a multiple of 4), pts_per_block the teams of a block. Returns
+// (>= n + 2, a multiple of 4), mode the product mode (vsm::Mode),
+// pts_per_block the teams of a block. Returns
 // the cudaError_t of the launch (0 on success); the caller raises on
 // anything else.
 extern "C" int vsm_layer_step_dev(
@@ -391,10 +396,11 @@ extern "C" int vsm_layer_step_dev(
     const float* e_el, const float* jp, const float* jm_f, const float* ek,
     const float* d, float* o_rmp, float* o_rpm, float* o_epp, float* o_emm,
     float* o_g, float* o_jp, float* o_jm, int S, int n, int ld,
-    const int* sched, int nd, int ni, int pts_per_block, int smem_bytes,
-    void* stream) {
+    const int* sched, int nd, int ni, int mode, int pts_per_block,
+    int smem_bytes, void* stream) {
   if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || pts_per_block < 1)
+  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || pts_per_block < 1
+      || mode < vsm::kHighest || mode > vsm::kBf16)
     return (int)cudaErrorInvalidValue;
   const int tt = with_dev_class(n, [](auto c) { return decltype(c)::TT; });
   if (tt < 0 || ld < n + 2 || ld % 4 != 0
@@ -407,14 +413,18 @@ extern "C" int vsm_layer_step_dev(
   const Schedule s = vsm::make_schedule(sched, nd, ni);
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
   return with_dev_class(n, [&](auto c) {
-    auto* kern = layer_step_dev_kernel<decltype(c)>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-    kern<<<blocks, pts_per_block * tt, smem_bytes, (cudaStream_t)stream>>>(
-        c_rmp, c_rpm, c_epp, c_emm, c_g, c_jp, c_jm, r_f, g_el, e_el, jp,
-        jm_f, ek, d, o_rmp, o_rpm, o_epp, o_emm, o_g, o_jp, o_jm, S, n, ld,
-        pts_per_block, s);
-    return (int)cudaGetLastError();
+    return vsm::with_mode(mode, [&](auto m) {
+      auto* kern = layer_step_dev_kernel<
+          vsm::WithMode<decltype(c), decltype(m)::value>>;
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+      kern<<<blocks, pts_per_block * tt, smem_bytes,
+             (cudaStream_t)stream>>>(
+          c_rmp, c_rpm, c_epp, c_emm, c_g, c_jp, c_jm, r_f, g_el, e_el, jp,
+          jm_f, ek, d, o_rmp, o_rpm, o_epp, o_emm, o_g, o_jp, o_jm, S, n,
+          ld, pts_per_block, s);
+      return (int)cudaGetLastError();
+    });
   });
 }

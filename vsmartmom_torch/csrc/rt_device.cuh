@@ -18,9 +18,22 @@
 // fmaf chain over l = 0 .. n-1 from 0, in the order of torch's batched
 // matmul at these sizes. The tile coordinates are computed once per team;
 // no inner loop divides.
+//
+// Product modes (C::MODE, a template parameter, so that kHighest compiles to
+// the fp32 code alone): the JAX kernels' batch_mm
+// (vsmartmom/pallas/doubling_kernel.py:35-58, core/precision.py). kHighest
+// multiplies the fp32 operands; kBf16 rounds each loaded operand to bf16
+// (round to nearest even) in registers, and kBf16x3 runs three passes,
+// (a_hi b_lo + a_lo b_hi) + a_hi b_hi with x_hi = bf16(x), x_lo =
+// bf16(x - x_hi), one accumulator each, summed in that order. A product of
+// two bf16 values is exact in fp32, so each pass is the fmaf chain of exact
+// products over l, summed in fp32, as torch's matmul of the same values.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace vsm {
 
@@ -32,10 +45,14 @@ struct Schedule {
   int it[kMaxSched];      // NS iterations of each doubling step
 };
 
-// Tile classes: padded width NP, team threads TT, tile rows TM x columns TN.
-template <int NP_, int TT_, int TM_, int TN_>
+// Product modes (build.MODE_CODES): full fp32, three bf16 passes, one.
+enum Mode : int { kHighest = 0, kBf16x3 = 1, kBf16 = 2 };
+
+// Tile classes: padded width NP, team threads TT, tile rows TM x columns TN;
+// the product mode MODE.
+template <int NP_, int TT_, int TM_, int TN_, int MODE_ = kHighest>
 struct Cfg {
-  static constexpr int NP = NP_, TT = TT_, TM = TM_, TN = TN_;
+  static constexpr int NP = NP_, TT = TT_, TM = TM_, TN = TN_, MODE = MODE_;
   static constexpr int RG = NP / TM;  // row groups
   static constexpr int CG = TT / RG;  // column groups
   static constexpr int CB = CG * TN;  // columns per block
@@ -48,6 +65,19 @@ using C64 = Cfg<64, 256, 4, 4>;
 // the split-form step's fifth class, N = 65 .. 80 (layer_step_dev.cu alone
 // instantiates it; with_class below stops at 64)
 using C80 = Cfg<80, 320, 4, 4>;
+
+// tile class C in product mode M
+template <class C, int M>
+using WithMode = Cfg<C::NP, C::TT, C::TM, C::TN, M>;
+
+// f(std::integral_constant<int, mode>{}) for a valid mode; -1 otherwise.
+template <class F>
+inline int with_mode(int mode, F f) {
+  if (mode == kHighest) return f(std::integral_constant<int, kHighest>{});
+  if (mode == kBf16x3) return f(std::integral_constant<int, kBf16x3>{});
+  if (mode == kBf16) return f(std::integral_constant<int, kBf16>{});
+  return -1;
+}
 
 // Threads per block at most (the team kernels' launch bound; <= 128
 // registers a thread).
@@ -121,11 +151,38 @@ __device__ __forceinline__ void each_flat(const Team<C>& tm, int n, int k,
   }
 }
 
-// The float4 tile of one column block: acc[r][c] = sum over l of
-// A[ra[r] + l] * B[l ldb + jb + c], one fmaf chain per element in the order
-// of l. A, B and their row strides are 16-byte aligned, so A is read as
-// float4 over four l and B as one float4 of the thread's TN = 4 columns.
-template <class C>
+// The operand a pass reads: x itself (kF32), its bf16 part x_hi (kHi) or
+// the bf16 part of the remainder, x_lo = bf16(x - x_hi) (kLo); x - x_hi is
+// exact in fp32.
+enum Part : int { kF32 = 0, kHi = 1, kLo = 2 };
+
+template <int K>
+__device__ __forceinline__ float part(float x) {
+  if constexpr (K == kF32) {
+    return x;
+  } else {
+    const float hi = __bfloat162float(__float2bfloat16_rn(x));
+    if constexpr (K == kHi) return hi;
+    return __bfloat162float(__float2bfloat16_rn(__fsub_rn(x, hi)));
+  }
+}
+
+template <int K>
+__device__ __forceinline__ float4 part4(float4 v) {
+  if constexpr (K == kF32) {
+    return v;
+  } else {
+    return make_float4(part<K>(v.x), part<K>(v.y), part<K>(v.z),
+                       part<K>(v.w));
+  }
+}
+
+// The float4 tile of one column block and one pass: acc[r][c] = sum over l
+// of part<KA>(A[ra[r] + l]) * part<KB>(B[l ldb + jb + c]), one fmaf chain
+// per element in the order of l. A, B and their row strides are 16-byte
+// aligned, so A is read as float4 over four l and B as one float4 of the
+// thread's TN = 4 columns.
+template <class C, int KA, int KB>
 __device__ __forceinline__ void tile4(float (&acc)[C::TM][C::TN],
                                       const int (&ra)[C::TM], int n,
                                       const float* A, const float* B,
@@ -140,10 +197,10 @@ __device__ __forceinline__ void tile4(float (&acc)[C::TM][C::TN],
     float4 av[C::TM], bv[4];
 #pragma unroll
     for (int r = 0; r < C::TM; ++r)
-      av[r] = *reinterpret_cast<const float4*>(A + ra[r] + l);
+      av[r] = part4<KA>(*reinterpret_cast<const float4*>(A + ra[r] + l));
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      bv[q] = *reinterpret_cast<const float4*>(b + q * ldb);
+      bv[q] = part4<KB>(*reinterpret_cast<const float4*>(b + q * ldb));
 #pragma unroll
     for (int r = 0; r < C::TM; ++r) {
       const float a4[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
@@ -158,14 +215,54 @@ __device__ __forceinline__ void tile4(float (&acc)[C::TM][C::TN],
   }
 #pragma unroll 1
   for (; l < n; ++l, b += ldb) {
-    const float4 v = *reinterpret_cast<const float4*>(b);
+    const float4 v = part4<KB>(*reinterpret_cast<const float4*>(b));
 #pragma unroll
     for (int r = 0; r < C::TM; ++r) {
-      const float a = A[ra[r] + l];
+      const float a = part<KA>(A[ra[r] + l]);
       acc[r][0] = fmaf(a, v.x, acc[r][0]);
       acc[r][1] = fmaf(a, v.y, acc[r][1]);
       acc[r][2] = fmaf(a, v.z, acc[r][2]);
       acc[r][3] = fmaf(a, v.w, acc[r][3]);
+    }
+  }
+}
+
+template <class C>
+__device__ __forceinline__ void zero(float (&acc)[C::TM][C::TN]) {
+#pragma unroll
+  for (int r = 0; r < C::TM; ++r)
+#pragma unroll
+    for (int c = 0; c < C::TN; ++c) acc[r][c] = 0.f;
+}
+
+// The tile of one column block in C::MODE: one pass, or kBf16x3's three
+// passes summed (a_hi b_lo + a_lo b_hi) + a_hi b_hi.
+template <class C>
+__device__ __forceinline__ void tile(float (&acc)[C::TM][C::TN],
+                                     const int (&ra)[C::TM], int n,
+                                     const float* A, const float* B, int ldb,
+                                     int jb) {
+  zero<C>(acc);
+  if constexpr (C::MODE == kHighest) {
+    tile4<C, kF32, kF32>(acc, ra, n, A, B, ldb, jb);
+  } else if constexpr (C::MODE == kBf16) {
+    tile4<C, kHi, kHi>(acc, ra, n, A, B, ldb, jb);
+  } else {
+    tile4<C, kHi, kLo>(acc, ra, n, A, B, ldb, jb);
+#pragma unroll 1
+    for (int q = 0; q < 2; ++q) {
+      float p[C::TM][C::TN];
+      zero<C>(p);
+      if (q == 0) {
+        tile4<C, kLo, kHi>(p, ra, n, A, B, ldb, jb);
+      } else {
+        tile4<C, kHi, kHi>(p, ra, n, A, B, ldb, jb);
+      }
+#pragma unroll
+      for (int r = 0; r < C::TM; ++r)
+#pragma unroll
+        for (int c = 0; c < C::TN; ++c)
+          acc[r][c] = __fadd_rn(acc[r][c], p[r][c]);
     }
   }
 }
@@ -186,13 +283,9 @@ __device__ __forceinline__ void mm(const Team<C>& tm, int n, int k,
   for (int c0 = 0; c0 < k; c0 += C::CB) {
     const int j0 = c0 + tm.cg * C::TN;  // the thread's first column
     float acc[C::TM][C::TN];
-#pragma unroll
-    for (int r = 0; r < C::TM; ++r)
-#pragma unroll
-      for (int c = 0; c < C::TN; ++c) acc[r][c] = 0.f;
     // past the edge (j0 >= ldb >= k: nothing stored) read the row's last TN
     // columns
-    tile4<C>(acc, ra, n, A, B, ldb, min(j0, ldb - C::TN));
+    tile<C>(acc, ra, n, A, B, ldb, min(j0, ldb - C::TN));
     if (Inplace) tm.sync();
 #pragma unroll
     for (int r = 0; r < C::TM; ++r) {
@@ -206,15 +299,31 @@ __device__ __forceinline__ void mm(const Team<C>& tm, int n, int k,
   }
 }
 
-// out(i, s) for every row of A (n x n, row stride lda) @ x, x(l) the vector;
-// one row per thread.
+// One pass of a row of A times x: the fmaf chain over l of part<KA>(a[l])
+// part<KX>(x(l)).
+template <int KA, int KX, class X>
+__device__ __forceinline__ float dot(const float* a, int n, X x) {
+  float s = 0.f;
+  for (int l = 0; l < n; ++l) s = fmaf(part<KA>(a[l]), part<KX>(x(l)), s);
+  return s;
+}
+
+// out(i, s) for every row of A (n x n, row stride lda) @ x, x(l) the vector,
+// in C::MODE as tile(); one row per thread.
 template <class C, class X, class Out>
 __device__ __forceinline__ void mv(const Team<C>& tm, int n, const float* A,
                                    int lda, X x, Out out) {
   for (int i = tm.t; i < n; i += C::TT) {
     const float* a = A + i * lda;
-    float s = 0.f;
-    for (int l = 0; l < n; ++l) s = fmaf(a[l], x(l), s);
+    float s;
+    if constexpr (C::MODE == kHighest) {
+      s = dot<kF32, kF32>(a, n, x);
+    } else if constexpr (C::MODE == kBf16) {
+      s = dot<kHi, kHi>(a, n, x);
+    } else {
+      s = __fadd_rn(__fadd_rn(dot<kHi, kLo>(a, n, x), dot<kLo, kHi>(a, n, x)),
+                    dot<kHi, kHi>(a, n, x));
+    }
     out(i, s);
   }
 }

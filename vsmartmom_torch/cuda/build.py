@@ -43,17 +43,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # 6 composite + 4 elemental + ek + d inputs, 6 outputs; S, n, row stride,
-    # schedule (host int*), nd, ni, points per block, shared bytes, stream
+    # schedule (host int*), nd, ni, product mode (mode_code), points per
+    # block, shared bytes, stream
     "vsm_layer_step": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
-                                   _I, _I, _P],
+                                   _I, _I, _I, _P],
     # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, row
-    # stride, schedule, nd, ni, points per block, shared bytes, stream
+    # stride, schedule, nd, ni, product mode, points per block, shared
+    # bytes, stream
     "vsm_layer_step_dev": [_P] * 21 + [_I, _I, _I, ctypes.POINTER(_I), _I,
-                                       _I, _I, _I, _P],
+                                       _I, _I, _I, _I, _P],
     # r, t, jp, jm, ek inputs, 4 outputs; S, n, row stride, schedule, nd,
-    # points per block, shared bytes, stream
+    # product mode, points per block, shared bytes, stream
     "vsm_doubling": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
-                                _P],
+                                _I, _P],
     # tau, omega, tau_sum, zw, zpp_c, zmp_c, qp, wct2, i0, d, 6 composite
     # inputs, 6 outputs; S, n, row stride, nz, K, schedule, nd, ni, i_mu0_n,
     # n_stokes, mu0, mu0_node, wct02, points per block, shared bytes, stream
@@ -263,6 +265,18 @@ def check_operands(name: str, xs, device):
             raise ValueError(f"{name} takes contiguous tensors")
         if x.requires_grad:
             raise RuntimeError(f"{name} is forward-only")
+
+
+#: the product modes of rows 1, 3 and 4 as their launch entries take them
+#: (``Mode`` in csrc/rt_device.cuh): full fp32, three bf16 passes, one
+MODE_CODES = {"highest": 0, "high": 1, "bf16x3": 1, "default": 2}
+
+
+def mode_code(precision: str) -> int:
+    """The launch entries' code of a product mode (core/precision.py)."""
+    if precision not in MODE_CODES:
+        raise ValueError(f"unknown precision {precision!r}")
+    return MODE_CODES[precision]
 
 
 def schedule_array(ns_schedule):

@@ -12,7 +12,10 @@ of the fused layer step (the same team device function of
 csrc/rt_device.cuh, a team of whole warps per point) on a smaller
 shared-memory arena of about 6 N ld + 4 N^2 floats per point (state, NS
 iterates, packed operands; ld the padded row stride) and writes the state
-back. Ragged S is masked in the kernel.
+back. Ragged S is masked in the kernel. ``precision`` is the JAX kernel's
+``precision_name`` (core/precision.py): every product of the doubling, the
+source-vector columns included, in full fp32, three bf16 passes ("high")
+or one ("default"); the kernel is a template on the mode.
 
 The plain version runs cuda/layer_step_kernel.py:doubling_body. The wrapper
 takes it only for CPU tensors; for CUDA tensors it launches the kernel or
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from vsmartmom_torch.core.precision import MATMUL_MODES, batch_mm, check_mode
 from vsmartmom_torch.cuda import build
 from vsmartmom_torch.cuda.layer_step_kernel import doubling_body
 
@@ -47,15 +51,19 @@ def doubling_bytes(n: int) -> int:
     return 4 * ((2 * n * n + 2 * n + 1) + (2 * n * n + 2 * n))
 
 
-def fused_doubling_plain(r, t, jp, jm, ek, *, ns_schedule):
-    """Plain torch version of the kernel (doubling_body), with the
-    wrapper's arguments."""
-    return doubling_body(r, t, jp, jm, ek[:, None], tuple(ns_schedule))
+def fused_doubling_plain(r, t, jp, jm, ek, *, ns_schedule,
+                         precision: str = "highest"):
+    """Plain torch version of the kernel (doubling_body at ``precision``),
+    with the wrapper's arguments."""
+    return doubling_body(r, t, jp, jm, ek[:, None], tuple(ns_schedule),
+                         batch_mm(check_mode(precision)))
 
 
-def fused_doubling(r, t, jp, jm, ek, *, ns_schedule):
+def fused_doubling(r, t, jp, jm, ek, *, ns_schedule,
+                   precision: str = "highest"):
     """All doubling steps of ``ns_schedule`` (NS iterations per step) on
-    r, t: (S, N, N); jp, jm: (S, N); ek: (S,). Returns the doubled
+    r, t: (S, N, N); jp, jm: (S, N); ek: (S,), every product in
+    ``precision`` (one of core.precision.MATMUL_MODES). Returns the doubled
     (r, t, jp, jm).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
@@ -63,9 +71,11 @@ def fused_doubling(r, t, jp, jm, ek, *, ns_schedule):
     transform they raise NotImplementedError (no forward rule).
     """
     ns_schedule = tuple(int(i) for i in ns_schedule)
+    check_mode(precision, MATMUL_MODES)
     if r.device.type == "cpu":
         return fused_doubling_plain(r, t, jp, jm, ek,
-                                    ns_schedule=ns_schedule)
+                                    ns_schedule=ns_schedule,
+                                    precision=precision)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
     s, n, _ = r.shape
@@ -85,8 +95,8 @@ def fused_doubling(r, t, jp, jm, ek, *, ns_schedule):
         return tuple(outs)
     err = build.lib().vsm_doubling(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, ld, sched, len(ns_schedule), pts, smem,
-        torch.cuda.current_stream(r.device).cuda_stream)
+        s, n, ld, sched, len(ns_schedule), build.mode_code(precision), pts,
+        smem, torch.cuda.current_stream(r.device).cuda_stream)
     build.check(err, "doubling launch")
     global launches
     launches += 1

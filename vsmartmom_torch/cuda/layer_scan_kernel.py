@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from vsmartmom_torch.core import precision
 from vsmartmom_torch.core.rt import (LayerRT, elemental_flipped, interaction,
                                      make_rsolve)
 from vsmartmom_torch.cuda import build
@@ -88,7 +89,19 @@ def fused_layer_scan_plain(comp_in: LayerRT, tau, omega, zw, tau_sum,
                            n_stokes: int, inter_iters: int) -> LayerRT:
     """Plain torch version of the kernel: the bucket's layers one at a time
     (Z mixing in component order, elemental_flipped, doubling_body, the
-    D-unflip and the schulz two-solve interaction), in the tensors' dtype."""
+    D-unflip and the schulz two-solve interaction), in the tensors' dtype,
+    every product in full precision whatever the enclosing
+    core.precision block, as the kernel (and the JAX kernel, pinned to
+    HIGHEST) computes them."""
+    with precision.scoped("matmul", "highest"):
+        return _scan_plain(comp_in, tau, omega, zw, tau_sum, z_pp_c, z_mp_c,
+                           qp, wct2, i0_vec, d_vec, mu0, mu0_node, wct02,
+                           ns_schedule, i_mu0_n, n_stokes, inter_iters)
+
+
+def _scan_plain(comp_in, tau, omega, zw, tau_sum, z_pp_c, z_mp_c, qp, wct2,
+                i0_vec, d_vec, mu0, mu0_node, wct02, ns_schedule, i_mu0_n,
+                n_stokes, inter_iters):
     ns_schedule = tuple(int(i) for i in ns_schedule)
     dtype, device = tau.dtype, tau.device
     n = qp.shape[0]

@@ -26,9 +26,12 @@ square of row stride ld >= N + 2 (E's slot carries jp and j1m as two more
 columns); the composite's squares are staged into slots the doubling
 frees. A block holds as many teams as half an SM's shared memory takes
 (N = 15: 10 points of 11 KB; N = 44: one point of 81 KB; N = 75: one of
-223 KB). Matrix products are full fp32 (the counterpart of the JAX
-kernel's "highest" mode); every sum outside a product rounds as the plain
-version's torch ops. The ragged last block is masked in the kernel.
+223 KB). ``precision`` is the JAX kernel's ``precision_name``
+(core/precision.py): "bf16x3" (three bf16 passes, the default here as in
+JAX: no operand carries the ~1.0 direct diagonal), "highest" (full fp32)
+or "default" (one bf16 pass); the kernel is a template on the mode. Every
+sum outside a product rounds as the plain version's torch ops. The ragged
+last block is masked in the kernel.
 
 The plain version (``fused_layer_step_dev_plain``) is the JAX package's
 ``_xla_twin_step_dev`` on the port's torch functions. The wrapper takes it
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from vsmartmom_torch.core.precision import DD_MODES, batch_mm, check_mode
 from vsmartmom_torch.core.rt import LayerRTDev, doubling_dev, interaction_dev
 from vsmartmom_torch.cuda import build
 
@@ -95,26 +99,28 @@ def step_bytes(n: int) -> int:
 
 
 def fused_layer_step_dev_plain(comp: LayerRTDev, r_f, g_el, e_el, jp, jm_f,
-                               ek, d_vec, *, ns_schedule,
-                               ni: int) -> LayerRTDev:
+                               ek, d_vec, *, ns_schedule, ni: int,
+                               precision: str = "bf16x3") -> LayerRTDev:
     """Plain torch version of the kernel: split-form doubling, unflip and
-    interaction_dev, one batched matmul at a time."""
+    interaction_dev, one batched matmul at a time, each in ``precision``."""
+    mm = batch_mm(check_mode(precision, DD_MODES))
     r_f2, g2, e2, jp2, jm_f2 = doubling_dev(
         r_f, g_el, e_el, jp, jm_f, ek, ns_schedule=tuple(ns_schedule),
-        ndoubl=len(ns_schedule))
+        ndoubl=len(ns_schedule), mm=mm)
     r_mp = d_vec[None, :, None] * r_f2
     sgn = d_vec[None, :, None] * d_vec[None, None, :]
     added = LayerRTDev(r_mp=r_mp, r_pm=sgn * r_mp, e_pp=e2, e_mm=sgn * e2,
                        g=g2, j_p=jp2, j_m=d_vec[None, :] * jm_f2)
-    return interaction_dev(comp, added, ni=int(ni))
+    return interaction_dev(comp, added, ni=int(ni), mm=mm)
 
 
 def _plain_flat(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m, r_f, g_el, e_el, jp,
-                jm_f, ek, d_vec, ns_schedule, ni):
+                jm_f, ek, d_vec, ns_schedule, ni, precision):
     """fused_layer_step_dev_plain on flat tensor arguments, as a tuple."""
     return tuple(fused_layer_step_dev_plain(
         LayerRTDev(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m), r_f, g_el, e_el,
-        jp, jm_f, ek, d_vec, ns_schedule=ns_schedule, ni=ni))
+        jp, jm_f, ek, d_vec, ns_schedule=ns_schedule, ni=ni,
+        precision=precision))
 
 
 class _FusedLayerStepDev(torch.autograd.Function):
@@ -142,7 +148,7 @@ class _FusedLayerStepDev(torch.autograd.Function):
 
 
 def _launch(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m, r_f, g_el, e_el, jp, jm_f,
-            ek, d_vec, ns_schedule, ni):
+            ek, d_vec, ns_schedule, ni, precision):
     """One launch of the kernel on CUDA tensors; the new composite as a
     tuple of its seven fields."""
     if r_f.device.type != "cuda":
@@ -164,7 +170,8 @@ def _launch(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m, r_f, g_el, e_el, jp, jm_f,
         return tuple(outs)
     err = build.lib().vsm_layer_step_dev(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, ld, sched, len(ns_schedule), int(ni), pts, smem,
+        s, n, ld, sched, len(ns_schedule), int(ni),
+        build.mode_code(precision), pts, smem,
         torch.cuda.current_stream(r_f.device).cuda_stream)
     build.check(err, "layer_step_dev launch")
     global launches
@@ -173,12 +180,15 @@ def _launch(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m, r_f, g_el, e_el, jp, jm_f,
 
 
 def fused_layer_step_dev(comp: LayerRTDev, r_f, g_el, e_el, jp, jm_f, ek,
-                         d_vec, *, ns_schedule, ni: int) -> LayerRTDev:
+                         d_vec, *, ns_schedule, ni: int,
+                         precision: str = "bf16x3") -> LayerRTDev:
     """One split-form RT layer step. comp: LayerRTDev of (S, N, N) x 4 and
     (S, N) x 3; r_f, e_el: (S, N, N); g_el, jp, jm_f: (S, N); ek: (S,);
     d_vec: (N,). ``ns_schedule``: per-doubling-step NS iteration counts;
-    ``ni``: NS iterations of the interaction solve. Returns the new
-    composite.
+    ``ni``: NS iterations of the interaction solve. ``precision``: the
+    product mode, one of core.precision.DD_MODES, "bf16x3" by default as
+    the JAX kernel's ``precision_name`` (rt_run_band passes "highest" unless
+    asked otherwise). Returns the new composite.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32, contiguous, no autograd, N <= max_n()) or raise.
@@ -187,5 +197,7 @@ def fused_layer_step_dev(comp: LayerRTDev, r_f, g_el, e_el, jp, jm_f, ek,
     only.
     """
     ns_schedule = tuple(int(i) for i in ns_schedule)
+    check_mode(precision, DD_MODES)
     return LayerRTDev(*_FusedLayerStepDev.apply(
-        *comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec, ns_schedule, int(ni)))
+        *comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec, ns_schedule, int(ni),
+        precision))

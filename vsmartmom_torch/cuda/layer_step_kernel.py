@@ -13,14 +13,18 @@ dependent N x N products (N = 1..63) on the point's own data. Per point the
 kernel reads 4 composite + 2 elemental matrices and writes 4, so device
 memory traffic is small against the O(N^3) work per product; the work is
 fp32 FMA on the CUDA cores (no TF32, no tensor cores), fed from shared
-memory. Design (csrc/layer_step.cu on the team helpers of
-csrc/rt_device.cuh): a team of whole warps per point (one warp at N <= 16;
-2, 6, 8 warps for the width classes 32, 48, 64) owns the point's arena
-(elemental layer, NS iterates, packed operands, the composite's c_rpm and
-c_tmm) for the whole step and synchronises only itself; products are
-register-tiled with the elementwise passes fused into their stores. A block
-holds as many teams as half an SM's shared memory takes (N = 15: 7 points
-of 15 KB; N = 44 and N = 63: one point, 108 KB and 221 KB). Every arena
+memory. ``precision`` takes the JAX kernel's ``precision_name`` modes
+(core/precision.py): "highest" (full fp32), "high" (three bf16 passes) or
+"default" (one bf16 pass); the kernel is a template on the mode, and each
+pass is one fmaf chain of exact bf16 products. Design (csrc/layer_step.cu
+on the team helpers of csrc/rt_device.cuh): a team of whole warps per point
+(one warp at N <= 16; 2, 6, 8 warps for the width classes 32, 48, 64) owns
+the point's arena (elemental layer, NS iterates, packed operands, the
+composite's c_rpm and c_tmm) for the whole step and synchronises only
+itself; products are register-tiled with the elementwise passes fused into
+their stores. A block holds as many teams as half an SM's shared memory
+takes (N = 15: 7 points of 15 KB; N = 44 and N = 63: one point, 108 KB
+and 221 KB). Every arena
 slot starts on 16 bytes and square slots have a row stride ld = 4 mod 8
 where it fits, so products read float4 rows without bank conflicts. The
 ragged last block is masked in the kernel.
@@ -35,7 +39,8 @@ from __future__ import annotations
 
 import torch
 
-from vsmartmom_torch.core.rt import LayerRT, bmm
+from vsmartmom_torch.core.precision import MATMUL_MODES, batch_mm, check_mode
+from vsmartmom_torch.core.rt import LayerRT
 from vsmartmom_torch.cuda import build
 
 #: kernel launches since the count was last reset (set it to 0 to reset)
@@ -81,34 +86,35 @@ def step_bytes(n: int) -> int:
                 + (4 * n * n + 2 * n))
 
 
-def ns_m(a, iters: int):
-    """Newton-Schulz approximate inverse M of A = I - B, rho(B) < 1."""
+def ns_m(a, iters: int, mm):
+    """Newton-Schulz approximate inverse M of A = I - B, rho(B) < 1, with
+    the product ``mm``."""
     n = a.shape[-1]
     eye2 = 2.0 * torch.eye(n, dtype=a.dtype, device=a.device)
     m = eye2 - a
     for _ in range(iters):
-        m = bmm(m, eye2 - bmm(a, m))
+        m = mm(m, eye2 - mm(a, m))
     return m
 
 
-def doubling_body(r, t, jp, jm, ek, ns_schedule):
-    """Doubling recursion over a static NS schedule (flipped space);
-    ek: (S, 1)."""
+def doubling_body(r, t, jp, jm, ek, ns_schedule, mm=torch.matmul):
+    """Doubling recursion over a static NS schedule (flipped space) with
+    the product ``mm`` (a core.precision.batch_mm); ek: (S, 1)."""
     n = r.shape[-1]
     eye = torch.eye(n, dtype=r.dtype, device=r.device)
     for it in ns_schedule:
-        a = eye - bmm(r, r)
+        a = eye - mm(r, r)
         m = 2.0 * eye - a               # = I + r r
         for _ in range(it):
-            m = bmm(m, 2.0 * eye - bmm(a, m))
+            m = mm(m, 2.0 * eye - mm(a, m))
         j1p = jp * ek
         j1m = jm * ek
-        rp = bmm(r, torch.cat([t, jp[..., None], j1m[..., None]], dim=-1))
+        rp = mm(r, torch.cat([t, jp[..., None], j1m[..., None]], dim=-1))
         v1 = j1m + rp[..., n]           # j1m + r jp
         v2 = jp + rp[..., n + 1]        # jp  + r j1m
         pack2 = torch.cat([rp[..., :n], t, v1[..., None], v2[..., None]],
                           dim=-1)
-        tp = bmm(t, bmm(m, pack2))      # t M [r t | t | v1 | v2]
+        tp = mm(t, mm(m, pack2))        # t M [r t | t | v1 | v2]
         jm = jm + tp[..., 2 * n]
         jp = j1p + tp[..., 2 * n + 1]
         r = r + tp[..., :n]
@@ -118,11 +124,14 @@ def doubling_body(r, t, jp, jm, ek, ns_schedule):
 
 
 def fused_layer_step_plain(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
-                           ns_schedule, ni: int) -> LayerRT:
+                           ns_schedule, ni: int,
+                           precision: str = "highest") -> LayerRT:
     """Plain torch version of the kernel: the same doubling, unflip and
-    push-through adding, one batched matmul at a time."""
+    push-through adding, one batched matmul at a time, each in
+    ``precision``."""
+    mm = batch_mm(check_mode(precision))
     r_f2, t2, jp2, jm_f2 = doubling_body(r_f, t, jp, jm_f, ek[:, None],
-                                         ns_schedule)
+                                         ns_schedule, mm)
     d = d_vec[None, :]
     r2mp = d[:, :, None] * r_f2             # un-flip rows
     j2m = d * jm_f2
@@ -132,17 +141,17 @@ def fused_layer_step_plain(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
     n = r2mp.shape[-1]
     eye = torch.eye(n, dtype=r2mp.dtype, device=r2mp.device)
 
-    a1 = eye - bmm(r2mp, comp.r_pm)
-    w1 = bmm(r2mp, torch.cat([comp.t_pp, comp.j_p[..., None]], dim=-1))
+    a1 = eye - mm(r2mp, comp.r_pm)
+    w1 = mm(r2mp, torch.cat([comp.t_pp, comp.j_p[..., None]], dim=-1))
     v1 = w1[..., n] + j2m
     x1 = torch.cat([w1[..., :n], t2mm, v1[..., None]], dim=-1)
-    w2 = bmm(comp.r_pm, torch.cat([t2mm, j2m[..., None]], dim=-1))
+    w2 = mm(comp.r_pm, torch.cat([t2mm, j2m[..., None]], dim=-1))
     v2 = comp.j_p + w2[..., n]
     x2 = torch.cat([comp.t_pp, w2[..., :n], v2[..., None]], dim=-1)
     # one NS solve; the second interaction solve by push-through
-    y = bmm(ns_m(a1, ni), torch.cat([x1, bmm(r2mp, x2)], dim=-1))
-    o1 = bmm(comp.t_mm, y[..., :2 * n + 1])
-    o2 = bmm(t2, x2 + bmm(comp.r_pm, y[..., 2 * n + 1:]))
+    y = mm(ns_m(a1, ni, mm), torch.cat([x1, mm(r2mp, x2)], dim=-1))
+    o1 = mm(comp.t_mm, y[..., :2 * n + 1])
+    o2 = mm(t2, x2 + mm(comp.r_pm, y[..., 2 * n + 1:]))
     return LayerRT(r_mp=comp.r_mp + o1[..., :n],
                    r_pm=r2pm + o2[..., n:2 * n],
                    t_pp=o2[..., :n],
@@ -152,22 +161,23 @@ def fused_layer_step_plain(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
 
 
 def _plain_flat(r_mp, r_pm, t_pp, t_mm, j_p, j_m, r_f, t, jp, jm_f, ek,
-                d_vec, ns_schedule, ni):
+                d_vec, ns_schedule, ni, precision):
     """fused_layer_step_plain on flat tensor arguments, as a tuple."""
     return tuple(fused_layer_step_plain(
         LayerRT(r_mp, r_pm, t_pp, t_mm, j_p, j_m), r_f, t, jp, jm_f, ek,
-        d_vec, ns_schedule=ns_schedule, ni=ni))
+        d_vec, ns_schedule=ns_schedule, ni=ni, precision=precision))
 
 
 class _FusedLayerStep(torch.autograd.Function):
     """The layer step with a forward-mode rule, as the JAX package's
     custom_jvp: the primal is the kernel (the plain version on CPU
     tensors), the tangent torch.func.jvp of the plain version at the same
-    primals. Forward mode through torch.func only (jvp, jacfwd): under
-    torch.autograd.forward_ad the nested torch.func.jvp raises. The vmap
-    rule is generated, so the primal must be unbatched (jacfwd batches
-    only the tangents); vmapping over states reaches the launch with
-    wrapped tensors and raises. No backward: reverse mode is not ported."""
+    primals and precision mode. Forward mode through torch.func only (jvp,
+    jacfwd): under torch.autograd.forward_ad the nested torch.func.jvp
+    raises. The vmap rule is generated, so the primal must be unbatched
+    (jacfwd batches only the tangents); vmapping over states reaches the
+    launch with wrapped tensors and raises. No backward: reverse mode is
+    not ported."""
     generate_vmap_rule = True
 
     @staticmethod
@@ -187,7 +197,7 @@ class _FusedLayerStep(torch.autograd.Function):
 
 
 def _launch(r_mp, r_pm, t_pp, t_mm, j_p, j_m, r_f, t, jp, jm_f, ek, d_vec,
-            ns_schedule, ni):
+            ns_schedule, ni, precision):
     """One launch of the kernel on CUDA tensors; the new composite as a
     tuple of its six fields."""
     if r_f.device.type != "cuda":
@@ -212,7 +222,8 @@ def _launch(r_mp, r_pm, t_pp, t_mm, j_p, j_m, r_f, t, jp, jm_f, ek, d_vec,
         return tuple(outs)
     err = build.lib().vsm_layer_step(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
-        s, n, ld, sched, len(ns_schedule), int(ni), pts, smem,
+        s, n, ld, sched, len(ns_schedule), int(ni),
+        build.mode_code(precision), pts, smem,
         torch.cuda.current_stream(r_f.device).cuda_stream)
     build.check(err, "layer_step launch")
     global launches
@@ -221,12 +232,15 @@ def _launch(r_mp, r_pm, t_pp, t_mm, j_p, j_m, r_f, t, jp, jm_f, ek, d_vec,
 
 
 def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
-                     ns_schedule, ni: int) -> LayerRT:
+                     ns_schedule, ni: int,
+                     precision: str = "highest") -> LayerRT:
     """One RT layer step: double the elemental (flipped-space) layer and
     compose it under the composite. comp: LayerRT of (S, N, N) x 4 and
     (S, N) x 2; r_f, t: (S, N, N); jp, jm_f: (S, N); ek: (S,); d_vec: (N,).
     ``ns_schedule``: per-doubling-step NS iteration counts; ``ni``: NS
-    iterations of the interaction solve. Returns the new composite.
+    iterations of the interaction solve. ``precision``: the product mode,
+    one of core.precision.MATMUL_MODES (the JAX kernel's
+    ``precision_name``). Returns the new composite.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32, contiguous, no autograd) or raise. Differentiable in forward
@@ -235,5 +249,7 @@ def fused_layer_step(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
     only.
     """
     ns_schedule = tuple(int(i) for i in ns_schedule)
+    check_mode(precision, MATMUL_MODES)
     return LayerRT(*_FusedLayerStep.apply(*comp, r_f, t, jp, jm_f, ek,
-                                          d_vec, ns_schedule, int(ni)))
+                                          d_vec, ns_schedule, int(ni),
+                                          precision))

@@ -172,9 +172,10 @@ def rt_run_band_sharded(pol, quad, band: BandRTInputs, vza, vaz,
     (``tau_scat_max``) and a Legendre or spectral albedo is evaluated over
     the whole band and sliced, so every shard runs the single-device run's
     doubling counts and schedules. ``kw`` goes to rt_run_band (dtype,
-    engine, solver, return_hdr, ...; not ``device`` or
-    ``return_composite``). Returns what rt_run_band returns, joined along
-    the spectral axis.
+    engine, solver, return_hdr, matmul_precision, dd_precision, ...; not
+    ``device`` or ``return_composite``), so each shard runs at the same
+    precision modes as the single-device run. Returns what rt_run_band
+    returns, joined along the spectral axis.
     """
     if kw.get("return_composite"):
         raise ValueError("rt_run_band_sharded joins no composites")
@@ -256,8 +257,9 @@ def rt_run_band_rrs_sharded(pol, quad, band: BandRTInputs, rrs, f_rayl, vza,
     set, and only its owned points are kept. ``tau_scat_max`` is taken
     once over the whole band. Logs one line (INFO) with each shard's halo
     points and their share of its index set.
-    ``kw`` goes to rt_run_band_rrs (dtype, solver, static_schedules; not
-    ``device``). Returns (R, T, ieR, ieT) joined along the spectral axis.
+    ``kw`` goes to rt_run_band_rrs (dtype, solver, static_schedules,
+    ie_precision; not ``device``). Returns (R, T, ieR, ieT) joined along
+    the spectral axis.
     """
     devices = _devices(devices)
     specs = list(rrs) if isinstance(rrs, (list, tuple)) else [rrs]

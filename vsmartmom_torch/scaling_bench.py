@@ -136,9 +136,9 @@ def time_steps(shards: _Shards, reps: int = 3, full: bool = True) -> float:
     """Seconds of one (moment-0, two further moments) sequence of Fourier
     steps over every shard (``full``), or of one moment-0 step, averaged
     over ``reps`` after a warm-up."""
-    from vsmartmom_torch.core.rt_run import full_fp32_matmul
+    from vsmartmom_torch.core.precision import matmul_precision
     pattern = (True, False, False) if full else (True,)
-    with full_fp32_matmul():
+    with matmul_precision("highest"):
         _sync([x for m0 in pattern for x in shards.run(m0)])
         t0 = time.perf_counter()
         outs = []
