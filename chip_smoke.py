@@ -8,17 +8,19 @@ Run from the repository root:  python3 chip_smoke.py
    and prints each kernel's registers, stack, shared and local memory
    (cuobjdump on the built library); fails on local memory (spills) or a
    stack above 32 bytes in the team kernels (layer step, split-form step,
-   doubling, layer scan, lanes step), and on local memory in the Voigt
+   doubling, layer scan, lanes step) and the lanes step's wide kernel, and
+   on local memory in the Voigt
    kernel and its reduction.
 1b. Runs those five team kernels against their plain versions at every
    width class of csrc/rt_device.cuh and its edges (N = 1, 13, 15, 16, 17,
    24, 32, 33, 44, 48, 49, 63, and 64 for the scan and the split-form step)
    at a ragged S = 1 007 on a synthetic slab, the split-form step's fifth
-   class at N = 65, 72 and 75, and the lanes step's wide path at N = 72:
-   every field within 1e-5 of its max; rows 1, 3 and 4 also at each
-   reduced mode (phase 17), bit-equal to the plain version at that mode,
-   which differs from the plain version at "highest"; times the wide path
-   and its plain version.
+   class at N = 65, 72 and 75, and the lanes step's wide path at N = 64,
+   72, 92 and 136 (one CTA a point; a cluster of two at N = 136): every
+   field within 1e-5 of its max; rows 1, 3 and 4 also at each reduced mode
+   (phase 17), bit-equal to the plain version at that mode, which differs
+   from the plain version at "highest"; times the wide path at each of its
+   widths beside its plain version and its bound.
 2. Drives the flagship O2 A-band forward run through the public API at full
    width (default_parameters with float_type Float32 -> model_from_parameters
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
@@ -188,6 +190,18 @@ Run from the repository root:  python3 chip_smoke.py
    ie_precision "high" and "default" against "highest" (R and T within
    1e-6, ieR within 1e-2). precision_only() runs the build and this phase
    alone.
+18. (n) The lanes step's wide path on a full-width run: rt_run_band with
+   engine kernel_lanes in float32 on the headline atmosphere of phase 6
+   under the streams of tests/data/ref_yaml/PureRayleighParameters.yaml
+   (RadauQuad, l_trunc 20, sza 30, nine views, Stokes_IQUV: N = 92; one
+   schedule bucket of 10 doublings), the launch counts set to 0 just
+   before (30 wide launches and nothing else); first and steady seconds,
+   points/s, peak device memory (< 40 GiB) and the mean milliseconds of
+   the steady run's launches (CUDA events); the first launch held against
+   its plain version (1e-5 of max per field) and both timed; R and T
+   within 1e-3 of the float32 torch engine at the same schedules and the
+   first 512 points within 1e-3 of float64. lanes_wide_only() runs the
+   build, the wide widths of phase 1b and this phase alone.
 
 Each kernel's bound is the larger of its matrix-product (or Voigt) FLOPs over
 67 TFLOP/s (H100 SXM float32 outside the tensor cores) and its device bytes
@@ -208,6 +222,8 @@ HAPI-grid CO2 shapes and the layer-scan kernel at the headline shape through
 entry points that every design of those kernels has kept, so a copy of this
 script beside an older tree of the repository times that tree's design:
 python3 -c 'import chip_smoke; chip_smoke.kernel_times()'.
+lanes_wide_times() does the same for the first launch of phase 18's run
+(the lanes step's wide path and its plain version).
 """
 import json
 import os
@@ -534,17 +550,19 @@ def kernel_times(shapes=("flagship", "co2_hapi", "headline")):
 #: no stack above MAX_TEAM_STACK bytes (the N <= 16 layer step's once grew
 #: to 56 bytes and ran 30 % slower)
 TEAM_KERNELS = ("layer_step_kernel", "layer_step_dev_kernel",
-                "doubling_kernel", "layer_scan_kernel", "lanes_team_kernel")
+                "doubling_kernel", "layer_scan_kernel", "lanes_team_kernel",
+                "lanes_wide_kernel")
 MAX_TEAM_STACK = 32
 #: the Voigt kernel and its reduction: no local memory allowed either
 VOIGT_KERNELS = ("voigt_kernel", "voigt_reduce_kernel")
 #: widths of the phase below: every tile class of csrc/rt_device.cuh and its
 #: edges (the layer step, doubling and lanes team kernel take N <= 63, the
-#: scan N <= 64), one width of the lanes step's wide path, and the widths of
-#: the split-form step's fifth class (N = 65 .. 75)
+#: scan N <= 64), the widths of the split-form step's fifth class (N = 65 ..
+#: 75), and the lanes step's wide path at N = 64 (its first width), 72, 92
+#: (phase 18's) and 136 (Natraj's, its widest: two CTAs a point)
 WIDTHS = (1, 13, 15, 16, 17, 24, 32, 33, 44, 48, 49, 63, 64)
-LANES_WIDE_N = 72
 DEV_WIDE_WIDTHS = (65, 72, 75)
+LANES_WIDE_WIDTHS = (64, 72, 92, 136)
 WIDTH_S = 1007
 
 
@@ -584,22 +602,24 @@ def build_phase(tag):
           f"bytes in a team kernel: {spills}")
 
 
-def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
+def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT,
+                      wide_only=False):
     """The layer step, doubling, layer scan and lanes step kernels against
     their plain versions at every width of WIDTHS, the lanes step's wide
-    path at LANES_WIDE_N, and the split-form step at WIDTHS and
+    path at LANES_WIDE_WIDTHS, and the split-form step at WIDTHS and
     DEV_WIDE_WIDTHS, at a ragged S (not a multiple of any block's points),
     on a passive random slab (nd = 6; the split form's pre-split) under a
     composite built by two plain steps. Each field within 1e-5 of its max.
     Rows 1, 3 and 4 also at each reduced mode of ROW_MODES, bit-equal to
     their plain version at that mode, which itself differs from the plain
-    version at "highest". Returns the largest error per kernel (and mode)
-    and N, and the wide path's milliseconds, its plain version's and its
+    version at "highest". ``wide_only``: the lanes step's wide path alone.
+    Returns the largest error per kernel (and mode) and N, and per wide
+    width the wide path's milliseconds, its plain version's and its
     bound."""
     from vsmartmom_torch.core.rt import (LayerRTDev, ns_doubling_schedule,
                                          vacuum_layer, vacuum_layer_dev)
     rng = np.random.default_rng(1)
-    S, nd, ni, out, wide_ms = WIDTH_S, 6, 3, {}, None
+    S, nd, ni, out, wide_ms = WIDTH_S, 6, 3, {}, {}
 
     def f32(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
@@ -623,7 +643,9 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
                   f"is {sep:.3e} of max from the plain version at highest")
             errs[f"{name}[{mode}]"] = e
 
-    for n in sorted({*WIDTHS, LANES_WIDE_N, *DEV_WIDE_WIDTHS}):
+    widths = (LANES_WIDE_WIDTHS if wide_only
+              else {*WIDTHS, *DEV_WIDE_WIDTHS, *LANES_WIDE_WIDTHS})
+    for n in sorted(widths):
         qp = np.linspace(0.1, 1.0, n) if n > 1 else np.array([0.5])
         sched = tuple(ns_doubling_schedule(0.5, float(qp.min()), nd))
         dtau, mqm = 0.5 / 2 ** nd, float(qp.min())
@@ -646,22 +668,23 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
                     f32(rng.uniform(0, dtau, (S, n))))
 
         ek = f32(np.full(S, np.exp(-dtau / 0.7)))
-        dcomp = vacuum_layer_dev(S, n, torch.float32, dev)
-        for scale in (1.0, 0.6):
-            dcomp = LayerRTDev(*(x.contiguous() for x in
-                                 ldk.fused_layer_step_dev_plain(
-                                     dcomp, *dev_slab(scale), ek, d,
-                                     ns_schedule=sched, ni=4,
-                                     precision="highest")))
-        dargs = (dcomp, *dev_slab(0.8), ek, d)
-        dkw = dict(ns_schedule=sched, ni=ni, precision="highest")
-        errs["layer_step_dev"] = worst(
-            ldk.fused_layer_step_dev(*dargs, **dkw),
-            ldk.fused_layer_step_dev_plain(*dargs, **dkw))
-        reduced(errs, "layer_step_dev", "kernel_dev",
-                ldk.fused_layer_step_dev, ldk.fused_layer_step_dev_plain,
-                dargs, dict(ns_schedule=sched, ni=ni))
-        del dcomp, dargs
+        if not wide_only and (n in WIDTHS or n in DEV_WIDE_WIDTHS):
+            dcomp = vacuum_layer_dev(S, n, torch.float32, dev)
+            for scale in (1.0, 0.6):
+                dcomp = LayerRTDev(*(x.contiguous() for x in
+                                     ldk.fused_layer_step_dev_plain(
+                                         dcomp, *dev_slab(scale), ek, d,
+                                         ns_schedule=sched, ni=4,
+                                         precision="highest")))
+            dargs = (dcomp, *dev_slab(0.8), ek, d)
+            dkw = dict(ns_schedule=sched, ni=ni, precision="highest")
+            errs["layer_step_dev"] = worst(
+                ldk.fused_layer_step_dev(*dargs, **dkw),
+                ldk.fused_layer_step_dev_plain(*dargs, **dkw))
+            reduced(errs, "layer_step_dev", "kernel_dev",
+                    ldk.fused_layer_step_dev, ldk.fused_layer_step_dev_plain,
+                    dargs, dict(ns_schedule=sched, ni=ni))
+            del dcomp, dargs
         comp = vacuum_layer(S, n, torch.float32, dev)
         for scale in (1.0, 0.6):
             comp = LayerRT(*(x.contiguous() for x in
@@ -683,22 +706,23 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
             reduced(errs, "doubling", "kernel_doubling", dk.fused_doubling,
                     dk.fused_doubling_plain, (*el, ek),
                     dict(ns_schedule=sched))
-        if n <= 63 or n == LANES_WIDE_N:
+        if n <= 63 or n in LANES_WIDE_WIDTHS:
             largs = (lnk.to_lanes(comp), *(lnk.to_lanes_m(x) for x in el[:2]),
                      *(lnk.to_lanes_v(x) for x in el[2:]), ek, d)
             lkw = dict(ns_schedule=sched, ni=ni)
-            errs["lanes"] = worst(lnk.fused_layer_step_lanes(*largs, **lkw),
-                                  lnk.lanes_layer_step_plain(*largs, **lkw))
-        if n == LANES_WIDE_N:
+            name = "lanes" if n <= 63 else "lanes_wide"
+            errs[name] = worst(lnk.fused_layer_step_lanes(*largs, **lkw),
+                               lnk.lanes_layer_step_plain(*largs, **lkw))
+        if n in LANES_WIDE_WIDTHS:
             check(not lnk.team_path(n), f"N = {n} took the team path")
-            wide_ms = (cuda_ms(torch, lambda: lnk.fused_layer_step_lanes(
-                                   *largs, **lkw), 3),
-                       cuda_ms(torch, lambda: lnk.lanes_layer_step_plain(
-                           *largs, **lkw), 1),
-                       1e3 * max(S * lnk.step_flops(n, sched, ni)
-                                 / PEAK_F32_FLOPS,
-                                 S * lnk.step_bytes(n) / PEAK_BYTES))
-        if n in WIDTHS:
+            wide_ms[n] = (cuda_ms(torch, lambda: lnk.fused_layer_step_lanes(
+                                      *largs, **lkw), 3),
+                          cuda_ms(torch, lambda: lnk.lanes_layer_step_plain(
+                              *largs, **lkw), 1),
+                          1e3 * max(S * lnk.step_flops(n, sched, ni)
+                                    / PEAK_F32_FLOPS,
+                                    S * lnk.step_bytes(n) / PEAK_BYTES))
+        if n in WIDTHS and not wide_only:
             # the scan: two layers of a synthetic band, two Z components
             # whose rows sum to one against the weights
             nz, k = 2, 2
@@ -727,6 +751,235 @@ def width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk, LayerRT):
             out.setdefault(name, {})[n] = float(f"{e:.3e}")
     return out, wide_ms
 
+
+#: the streams of tests/data/ref_yaml/PureRayleighParameters.yaml (RadauQuad,
+#: l_trunc 20, sza 30, nine views, Stokes_IQUV): N = 92, the lanes step's
+#: wide path
+WIDE_PATH_STREAMS = ("RadauQuad", 20, 30.0,
+                     [60.0, 45.0, 30.0, 15.0, 0.0, 15.0, 30.0, 45.0, 60.0], 4)
+
+
+def wide_path_shape():
+    """The headline atmosphere (headline_shape: 20 000 points, 10 layers, 3
+    moments) under WIDE_PATH_STREAMS. Returns (pol, quad, band, surface,
+    vza)."""
+    from vsmartmom_torch.util.quadrature import rt_set_streams
+    pol, _, band, surf = headline_shape()
+    return (pol, rt_set_streams(*WIDE_PATH_STREAMS), band, surf,
+            WIDE_PATH_STREAMS[3])
+
+
+class _FirstLaunchDone(Exception):
+    """Ends a run after its first lanes launch was measured."""
+
+
+def lanes_wide_path_phase(torch, dev, tag, reset_counts, counts):
+    """18. The lanes step's wide path on a full-width run:
+    rt_run_band(engine="kernel_lanes") in float32 on wide_path_shape()
+    (N = 92, one schedule bucket of 10 doublings: one launch a layer and
+    moment, 30). The launches counted (the counts set to 0 just before),
+    first and steady seconds, points/s, peak device memory (< 40 GiB) and
+    the mean milliseconds of a launch in the steady run (CUDA events); the
+    first launch's inputs held against the plain version (each field within
+    1e-5 of its max) and both timed; R and T within 1e-3 of the float32
+    torch engine at the same schedules, and the first 512 points within
+    1e-3 of a float64 torch run. Returns the KernelStats of the wide kernel
+    (ms: the steady run's launches; plain_ms, work: the compared launch)
+    and the launches of a run."""
+    from vsmartmom_torch.core.rt import LayerRT
+    from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
+    from vsmartmom_torch.cuda import lanes_kernel as lnk
+    pol, quad, band, surf, vza = wide_path_shape()
+    n, (nz, ns), max_m = len(quad.qp_mu_n), band.tau.shape, 3
+    check(n == 92 and not lnk.team_path(n), f"the wide path's streams give "
+          f"N = {n}")
+
+    def run(engine, dtype=torch.float32, band_=band):
+        return rt_run_band(pol, quad, band_, vza, [0.0] * len(vza), max_m,
+                           surf, dtype=dtype, device=dev, solver="schulz",
+                           engine=engine)
+
+    real = lnk.fused_layer_step_lanes
+    first = []
+
+    def capture(*args, **kw):
+        if not first:
+            first.append(([x.clone() for x in args[0]],
+                          [x.clone() for x in args[1:]], dict(kw)))
+        return real(*args, **kw)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    lnk.fused_layer_step_lanes = capture
+    try:
+        t0 = time.perf_counter()
+        R, T = run("kernel_lanes")
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+    finally:
+        lnk.fused_layer_step_lanes = real
+    c = counts()
+    launches = c["kernel_lanes"]
+    check(launches == max_m * nz and sum(c.values()) == launches,
+          f"N = 92 kernel_lanes: launches {c}, expected {max_m * nz} of "
+          f"kernel_lanes only")
+    check(np.isfinite(R).all() and np.isfinite(T).all(),
+          "N = 92 kernel_lanes: non-finite R/T")
+
+    events = []
+
+    def timed(*args, **kw):
+        e = (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+        e[0].record()
+        out = real(*args, **kw)
+        e[1].record()
+        events.append(e)
+        return out
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    lnk.fused_layer_step_lanes = timed
+    try:
+        t0 = time.perf_counter()
+        run("kernel_lanes")
+        torch.cuda.synchronize()
+        t_steady = time.perf_counter() - t0
+    finally:
+        lnk.fused_layer_step_lanes = real
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(peak < 40.0, f"N = 92 kernel_lanes: peak {peak:.2f} GiB >= 40")
+    st = KernelStats()
+    st.ms = [e[0].elapsed_time(e[1]) for e in events]
+    check(len(st.ms) == launches, "N = 92: the steady run's launches")
+
+    comp, rest, kw = first.pop()
+    args = (LayerRT(*comp), *rest)
+    out = real(*args, **kw)
+    ref = lnk.lanes_layer_step_plain(*args, **kw)
+    for a, b in zip(out, ref):
+        err, scale = field_err(torch, a, b)
+        st.abs = max(st.abs, err)
+        st.rel = max(st.rel, err / max(scale, 1e-30))
+    check(st.rel < 1e-5, f"N = 92 wide kernel vs plain: {st.rel:.3e} of "
+          f"max >= 1e-5")
+    del out, ref
+    st.calls = 1
+    st.flops = ns * lnk.step_flops(n, kw["ns_schedule"], kw["ni"])
+    st.nbytes = ns * lnk.step_bytes(n)
+    launch_ms = cuda_ms(torch, lambda: real(*args, **kw), 2)
+    st.plain_ms = [cuda_ms(torch,
+                           lambda: lnk.lanes_layer_step_plain(*args, **kw),
+                           1)]
+    del args, comp, rest
+
+    t0 = time.perf_counter()
+    Rt, Tt = run("torch")
+    torch.cuda.synchronize()
+    t_torch = time.perf_counter() - t0
+    rel_r, rel_t = rel_err(R, Rt), rel_err(T, Tt)
+    cut = BandRTInputs(tau=band.tau[:, :512], omega=band.omega[:, :512],
+                       zw=band.zw[:, :, :512], greeks=band.greeks)
+    R64, T64 = run("torch", torch.float64, cut)
+    rel_r64, rel_t64 = rel_err(R[..., :512], R64), rel_err(T[..., :512], T64)
+    ms, plain_ms = st.mean_ms()
+    bound, by = st.bound()
+    print(f"lanes wide path, N = {n} run (S = {ns}, {nz} layers, {max_m} "
+          f"moments, schedule {kw['ns_schedule']}, ni {kw['ni']}): "
+          f"{launches} launches; first {t_first:.3f} s, steady "
+          f"{t_steady:.3f} s = {ns / t_steady:.1f} points/s, peak "
+          f"{peak:.2f} GiB; kernel {ms:.3f} ms per launch (mean of the "
+          f"steady run; {launch_ms:.3f} ms for the compared launch alone), "
+          f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+          f"{bound / ms:.2%} of bound; vs plain max|diff| {st.abs:.3e} "
+          f"({st.rel:.3e} of max); vs the float32 torch engine "
+          f"({t_torch:.3f} s) max|dR|/max R {rel_r:.3e}, max|dT|/max T "
+          f"{rel_t:.3e}; first 512 points vs float64 {rel_r64:.3e}, "
+          f"{rel_t64:.3e} {tag}")
+    check(rel_r < 1e-3 and rel_t < 1e-3, "N = 92 kernel_lanes R/T off the "
+          "float32 torch engine by >= 1e-3")
+    check(rel_r64 < 1e-3 and rel_t64 < 1e-3, "N = 92 kernel_lanes R/T off "
+          "float64 by >= 1e-3")
+    return st, launches
+
+
+def print_wide_widths(wide_ms, tag):
+    for n, (ms, plain_ms, bound) in sorted(wide_ms.items()):
+        print(f"lanes step, wide path (N = {n}, S = {WIDTH_S}): kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms, "
+              f"{bound / ms:.2%} of bound {tag}")
+
+
+def lanes_wide_only():
+    """The build (phase 1), the lanes step's wide path at the widths of
+    LANES_WIDE_WIDTHS (phase 1b) and on the N = 92 run (phase 18), on the
+    card:
+    python3 -c 'import chip_smoke; chip_smoke.lanes_wide_only()'."""
+    torch = setup()
+    from vsmartmom_torch.core.rt import LayerRT
+    from vsmartmom_torch.cuda import doubling_kernel as dk
+    from vsmartmom_torch.cuda import lanes_kernel as lnk
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
+    from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
+    from vsmartmom_torch.cuda import layer_step_kernel as lsk
+    dev = torch.device("cuda:0")
+    card = card_name()
+    tag = f"[card: {card}]"
+    build_phase(tag)
+    widths, wide_ms = width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk,
+                                        LayerRT, wide_only=True)
+    print(f"wide widths (S = {WIDTH_S}): max|diff| / max by N: "
+          f"{json.dumps(widths)} {tag}")
+    print_wide_widths(wide_ms, tag)
+    st, launches = lanes_wide_path_phase(torch, dev, tag, reset_counts,
+                                         counts)
+    print(f"card: {card}")
+    print(json.dumps({"kernels": [st.entry(
+        "lanes_wide_kernel", "vsmartmom_torch/csrc/lanes.cu",
+        "vsmartmom/pallas/lanes_kernel.py:135", launches)]}))
+
+
+def lanes_wide_times():
+    """The first launch of the N = 92 run (phase 18) against its plain
+    version, each timed with CUDA events, as one JSON line, through entry
+    points that every design of the lanes step kept (rt_run_band's
+    kernel_lanes engine, fused_layer_step_lanes, lanes_layer_step_plain),
+    so that a copy of this script beside an older tree times that tree's
+    wide path: python3 -c 'import chip_smoke; chip_smoke.lanes_wide_times()'.
+    The run ends after that launch."""
+    torch = setup()
+    from vsmartmom_torch.core.rt_run import rt_run_band
+    from vsmartmom_torch.cuda import lanes_kernel as lnk
+    pol, quad, band, surf, vza = wide_path_shape()
+    real, out = lnk.fused_layer_step_lanes, {}
+
+    def first(comp_l, r_f, *args, ns_schedule, ni):
+        a, kw = (comp_l, r_f, *args), dict(ns_schedule=ns_schedule, ni=ni)
+        n, s = r_f.shape[0], r_f.shape[2]
+        got = real(*a, **kw)
+        ref = lnk.lanes_layer_step_plain(*a, **kw)
+        out.update(
+            n=n, S=s, schedule=list(ns_schedule), ni=ni,
+            max_rel_err=max(float((x - y).abs().max() / y.abs().max())
+                            for x, y in zip(got, ref)),
+            ms=cuda_ms(torch, lambda: real(*a, **kw), 1),
+            plain_ms=cuda_ms(torch,
+                             lambda: lnk.lanes_layer_step_plain(*a, **kw), 1),
+            bound_ms=1e3 * s * lnk.step_flops(n, ns_schedule, ni)
+            / PEAK_F32_FLOPS)
+        raise _FirstLaunchDone
+
+    lnk.fused_layer_step_lanes = first
+    try:
+        rt_run_band(pol, quad, band, vza, [0.0] * len(vza), 3, surf,
+                    dtype=torch.float32, device="cuda:0", solver="schulz",
+                    engine="kernel_lanes")
+    except _FirstLaunchDone:
+        pass
+    finally:
+        lnk.fused_layer_step_lanes = real
+    check(bool(out), "the N = 92 run made no lanes launch")
+    print(json.dumps({"shape": "lanes_wide_n92", **out, "card": card_name()}),
+          flush=True)
 
 #: the reference's OCO-2-style configuration (tests/data/ref_yaml): O2
 #: A-band, weak and strong CO2 on one concatenated spectral axis
@@ -2357,15 +2610,13 @@ def main():
     build_phase(tag)
 
     # ---- 1b. the team kernels at every width class and its edges -----------
-    widths, (wide_ms, wide_plain, wide_bound) = width_class_phase(
-        torch, dev, lsk, dk, scn, lnk, ldk, LayerRT)
+    widths, wide_ms = width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk,
+                                        LayerRT)
     print(f"width classes (S = {WIDTH_S}): every launch within 1e-5 of max "
           f"per field of its plain version, at a reduced mode ([mode]) "
           f"bit-equal to it; max|diff| / max by N: "
           f"{json.dumps(widths)} {tag}")
-    print(f"lanes step, wide path (N = {LANES_WIDE_N}, S = {WIDTH_S}): "
-          f"kernel {wide_ms:.3f} ms, plain {wide_plain:.3f} ms, bound "
-          f"{wide_bound:.4f} ms {tag}")
+    print_wide_widths(wide_ms, tag)
 
     # ---- 2. the flagship forward run, launches counted ----------------------
     params = vt.default_parameters()
@@ -2832,6 +3083,10 @@ def main():
     # ---- 17. (m) the precision modes of rows 1, 3 and 4 ---------------------
     precision_entries = precision_phase(torch, dev, tag)
 
+    # ---- 18. (n) the lanes step's wide path on the N = 92 run ---------------
+    wide_stats, wide_launches = lanes_wide_path_phase(torch, dev, tag,
+                                                      reset_counts, counts)
+
     kernels = [
         s_stats.entry("fused_layer_step",
                       "vsmartmom_torch/csrc/layer_step.cu",
@@ -2854,6 +3109,9 @@ def main():
             "fused_layer_step_lanes", "vsmartmom_torch/csrc/lanes.cu",
             "vsmartmom/pallas/lanes_kernel.py:135",
             f_launches["kernel_lanes"]),
+        wide_stats.entry("lanes_wide_kernel", "vsmartmom_torch/csrc/lanes.cu",
+                         "vsmartmom/pallas/lanes_kernel.py:135",
+                         wide_launches),
         *precision_entries,
     ]
     print(f"card: {card}")

@@ -131,11 +131,11 @@ class _FakeLib:
         return lambda *args: self.calls.append((name, args)) or 0
 
 
-@pytest.mark.parametrize("n", [1, 15, 44, 63, 64, 72])
+@pytest.mark.parametrize("n", [1, 15, 44, 63, 64, 72, 92, 136])
 def test_width_dispatch_team_and_wide_paths(n, monkeypatch):
-    """N <= 63 launches the team kernel (vsm_lanes) at its launch config
-    with no workspace; N > 63 the wide path (vsm_lanes_wide) with a
-    workspace of (6 N^2 + 6 N) S floats."""
+    """N <= 63 launches the team kernel (vsm_lanes) at its launch config;
+    N > 63 the wide path (vsm_lanes_wide) at wide_launch_config. Neither
+    allocates a workspace."""
     fake, S = _FakeLib(), 5
     monkeypatch.setattr(build, "lib", lambda: fake)
     allocs = []
@@ -152,15 +152,119 @@ def test_width_dispatch_team_and_wide_paths(n, monkeypatch):
     outs = [m] * 4 + [v] * 2
     assert lk._launch(ins, outs, (2, 3), 4, 0) == 0
     (name, args), = fake.calls
+    assert not allocs
     if n <= 63:
-        assert lk.team_path(n) and name == "vsm_lanes" and not allocs
+        assert lk.team_path(n) and name == "vsm_lanes"
         pts, smem, ld, _ = lk.launch_config(n)
         assert args[18:21] == (S, n, ld) and args[22:] == (2, 4, pts, smem, 0)
+        assert list(args[21]) == [2, 3]
     else:
+        cfg = lk.wide_launch_config(n)
         assert not lk.team_path(n) and name == "vsm_lanes_wide"
-        assert allocs == [(lk.workspace_floats(n) * S,)]
-        assert args[19:21] == (S, n) and args[22:] == (2, 4, 0)
-    assert list(args[21]) == [2, 3]
+        assert args[18:24] == (S, n, cfg.cluster, cfg.rows, cfg.ld,
+                               cfg.threads)
+        assert args[25:] == (2, 4, cfg.smem_bytes, 0)
+        assert list(args[24]) == [2, 3]
+
+
+@pytest.mark.parametrize("n", [64, 72, 92, 136])
+def test_wide_launch_fits_hopper(n):
+    """The wide path's launch at N = 64 (its first width), 72, 92 (the
+    PureRayleighParameters.yaml streams) and 136 (Natraj, its widest):
+    each CTA's arena within one block's 227 KB, a cluster of at most 8
+    CTAs that all own rows (one CTA up to N = 96, then 2), whole
+    warps within 1 024 threads and the kernel's launch bound, one thread
+    per output tile of a CTA's rows (4 x 4, 8 x 4 in a cluster), and a
+    float4 row stride."""
+    cs, rows, ld, threads, smem = cfg = lk.wide_launch_config(n)
+    assert smem == 4 * lk.wide_arena_floats(n, rows, ld)
+    assert smem <= build.MAX_SHARED_BYTES
+    assert cs <= 8 and cs == (1 if n <= 96 else 2)
+    assert (cs - 1) * rows < n <= cs * rows
+    assert cs == 1 or rows % 4 == 0
+    k = lk.WIDE_CLUSTERS.index(cs)
+    assert threads % 32 == 0
+    assert threads <= min(1024, lk.WIDE_MAX_THREADS[k])
+    assert threads >= -(-rows // lk.WIDE_TILE_ROWS[k]) * -(-n // 4)
+    assert ld >= n and ld % 4 == 0
+    assert cfg == lk.wide_launch_config(n)
+
+
+def test_wide_path_refuses_wider_n(monkeypatch):
+    """Beyond WIDE_MAX_N (136) the wide path raises ValueError naming the
+    limit, before any launch; the constants mirror csrc/lanes.cu."""
+    with open(build.CSRC + "/lanes.cu") as f:
+        src = f.read()
+    rows, most = lk.WIDE_TILE_ROWS, lk.WIDE_MAX_THREADS
+    assert f"TM = CS == 1 ? {rows[0]} : {rows[1]}, TN = 4;" in src
+    assert f"kThreads = CS == 1 ? {most[0]} : {most[1]};" in src
+    assert f"constexpr int kWideVecs = {lk.WIDE_VECTORS};" in src
+    for cs in lk.WIDE_CLUSTERS:
+        assert f"lanes_wide_kernel<{cs}>" in src
+    lk.wide_launch_config(lk.WIDE_MAX_N)
+    with pytest.raises(ValueError, match="N <= 136"):
+        lk.wide_launch_config(lk.WIDE_MAX_N + 1)
+    fake, n = _FakeLib(), lk.WIDE_MAX_N + 1
+    monkeypatch.setattr(build, "lib", lambda: fake)
+    m, v = torch.empty((n, n, 1)), torch.empty((n, 1))
+    with pytest.raises(ValueError, match="N <= 136"):
+        lk._launch([m] * 4 + [v] * 2 + [m, m, v, v, torch.empty(1),
+                                         torch.empty(n)],
+                   [m] * 4 + [v] * 2, (1,), 1, 0)
+    assert not fake.calls
+
+
+#: the streams of tests/data/ref_yaml/PureRayleighParameters.yaml (RadauQuad,
+#: l_trunc 20, sza 30, nine views, Stokes_IQUV): N = 92, the wide path
+PURE_RAYLEIGH_STREAMS = ("RadauQuad", 20, 30.0,
+                         [60.0, 45.0, 30.0, 15.0, 0.0, 15.0, 30.0, 45.0,
+                          60.0], 4)
+
+
+def test_lanes_plain_matches_jax_at_the_wide_width():
+    """The plain version, the wide kernel's yardstick on the card, against
+    JAX lanes_layer_step_math at N = 92 (S = 4, one composite layer, an
+    IQUV D vector), float64: 1e-12 of each field's max, as BOUNDS pins the
+    algebra."""
+    d_vec = np.resize([1.0, 1.0, -1.0, -1.0], 92)
+    sched, comp_l, elem_l, ek = _fixture(d_vec, S=4)
+    ref = lanes_layer_step_math(
+        *(jnp.asarray(x) for x in comp_l + elem_l),
+        jnp.asarray(ek).reshape(1, -1), jnp.asarray(d_vec).reshape(-1, 1),
+        ns_schedule=sched, ni=4)
+    got = lk.fused_layer_step_lanes(
+        LayerRT(*(torch.as_tensor(x) for x in comp_l)),
+        *(torch.as_tensor(x) for x in elem_l), torch.as_tensor(ek),
+        torch.as_tensor(d_vec), ns_schedule=sched, ni=4)
+    for name, a, b in zip(LayerRT._fields, ref, got):
+        a = np.asarray(a)
+        rel = np.abs(b.numpy() - a).max() / np.abs(a).max()
+        assert b.shape == a.shape and rel < BOUNDS["float64"], (name, rel)
+
+
+def test_kernel_lanes_at_the_wide_width_equals_torch():
+    """rt_run_band(engine="kernel_lanes") at the N = 92 streams (8 points,
+    2 layers, 3 moments, float64, the schulz solver) against the torch
+    engine at the same schedules, within 1e-10 of max R and max T: the
+    engines differ only in how the interaction's second solve is reached
+    (two NS solves against the push-through identity)."""
+    rng = np.random.default_rng(0)
+    tau_scat = np.array([[0.02], [0.05]]) * np.ones((1, 8))
+    tau = tau_scat + rng.uniform(0.0, 0.5, (2, 8))
+    pol = Polarization.from_name("Stokes_IQUV")
+    quad = rt_set_streams(*PURE_RAYLEIGH_STREAMS)
+    assert len(quad.qp_mu_n) == 92 and not lk.team_path(92)
+    args = (pol, quad, BandRTInputs(tau=tau, omega=tau_scat / tau,
+                                    zw=np.ones((2, 1, 8)),
+                                    greeks=[get_greek_rayleigh(0.0)]),
+            PURE_RAYLEIGH_STREAMS[3], [0.0] * 9, 3,
+            {"type": "LambertianSurfaceScalar", "albedo": 0.15})
+    R, T = rt_run_band(*args, device="cpu", solver="schulz",
+                       engine="kernel_lanes")
+    R0, T0 = rt_run_band(*args, device="cpu", solver="schulz",
+                         engine="torch")
+    assert np.abs(R - R0).max() <= 1e-10 * np.abs(R0).max()
+    assert np.abs(T - T0).max() <= 1e-10 * np.abs(T0).max()
 
 
 def test_lanes_layout_round_trip():

@@ -66,9 +66,11 @@ _SIGNATURES = {
     # the team path: the arguments of vsm_layer_step
     "vsm_lanes": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
                               _I, _P],
-    # the wide path: 6 composite + 4 elemental + ek + d inputs, 6 outputs,
-    # workspace; S, n, schedule, nd, ni, stream
-    "vsm_lanes_wide": [_P] * 19 + [_I, _I, ctypes.POINTER(_I), _I, _I, _P],
+    # the wide path: 6 composite + 4 elemental + ek + d inputs, 6 outputs;
+    # S, n, CTAs a point, rows a CTA, row stride, threads a CTA, schedule,
+    # nd, ni, shared bytes a CTA, stream
+    "vsm_lanes_wide": [_P] * 18 + [_I] * 6 + [ctypes.POINTER(_I), _I, _I,
+                                              _I, _P],
     # grid_b, centers, item_block, item_lo, item_hi, block_item0, nu, amp,
     # igd, y; n_layers, n_lines, n_items, n_grid, cutoff, workspace, out,
     # stream

@@ -22,12 +22,14 @@ boundary only, and the width picks one of two paths (csrc/lanes.cu):
   and c_tmm) and runs register-tiled fp32 products with fused stores; the
   loads and stores address the lanes layout directly, the teams of a block
   on consecutive points sharing its sectors. No device-memory workspace.
-- N > 63: the wide path, which takes any N (the team kernels' tile
-  classes stop at NP = 64). A warp covers 32 consecutive points, every
-  load is one coalesced line, and a block of 32 points x min(N, 16) row
-  threads runs the point's products row by row out of a device-memory
-  workspace in the same layout, (6 N^2 + 6 N) S floats, allocated here
-  with ``torch.empty``.
+- 64 <= N <= WIDE_MAX_N (136): the wide path. A point's team arena no
+  longer fits a block, so the step runs on six n x n slots (c_rpm and
+  c_tpp read again from device memory where a solve needs their slots)
+  held by a cluster of 1 or 2 CTAs (``wide_launch_config``): each CTA
+  owns a row slab of every slot and reads the other CTAs' rows of a
+  product's right operand through distributed shared memory. Products are
+  the team kernels' float4 register tiles of fp32 FMA (4 x 4; 8 x 4 in a
+  cluster of 2). No device-memory workspace; wider N raises ValueError.
 Both paths raise on a failed launch and count in ``launches``.
 
 The plain version (``lanes_layer_step_plain``) is the port of
@@ -36,6 +38,8 @@ takes it only for CPU tensors; for CUDA tensors it launches the kernel or
 raises. Forward only.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -103,11 +107,59 @@ def launch_config(n: int) -> build.TeamLaunch:
     return build.team_launch_config(n, arena_floats, build.round4(n))
 
 
-def workspace_floats(n: int) -> int:
-    """Device-memory workspace floats per point of the wide path (must
-    match csrc/lanes.cu): r, t, NS scratch A, M, M2, TMP (6 n^2) and six
-    vectors."""
-    return 6 * n * n + 6 * n
+#: cluster sizes of the wide path, smallest first (csrc/lanes.cu
+#: instantiates lanes_wide_kernel<1> and <2>)
+WIDE_CLUSTERS = (1, 2)
+#: whole vectors in a wide CTA's arena (kWideVecs in csrc/lanes.cu)
+WIDE_VECTORS = 8
+#: by cluster size (WIDE_CLUSTERS): rows of a thread's register tile and
+#: threads a CTA may have (WideTile<CS> in csrc/lanes.cu)
+WIDE_TILE_ROWS = (4, 8)
+WIDE_MAX_THREADS = (576, 320)
+#: widest N the wide path takes (the arena of a cluster of 2 at N = 137 no
+#: longer fits a block)
+WIDE_MAX_N = 136
+
+
+class WideLaunch(NamedTuple):
+    """The wide path's launch: CTAs a point (one cluster), rows each CTA
+    owns, the slots' row stride, threads a CTA and dynamic shared-memory
+    bytes a CTA."""
+    cluster: int
+    rows: int
+    ld: int
+    threads: int
+    smem_bytes: int
+
+
+def wide_arena_floats(n: int, rows: int, ld: int) -> int:
+    """Shared-memory floats of one wide CTA (must match
+    ``wide_arena_floats`` in csrc/lanes.cu): six slots of ``rows`` rows at
+    row stride ld, then WIDE_VECTORS whole vectors of round4(n)."""
+    return 6 * rows * ld + WIDE_VECTORS * build.round4(n)
+
+
+def wide_launch_config(n: int) -> WideLaunch:
+    """The wide path's launch at width n: the smallest cluster of
+    WIDE_CLUSTERS whose CTAs' arenas fit a block, each CTA owning rows
+    (n for one CTA, else a multiple of 4 with every CTA owning some), the
+    row stride ld = 4 mod 8 where that fits (float4 rows on distinct banks)
+    else round4(n), and one thread per output tile of the CTA's rows
+    (WIDE_TILE_ROWS x 4), in whole warps. Raises ValueError beyond
+    WIDE_MAX_N."""
+    for cs, tm, most in zip(WIDE_CLUSTERS, WIDE_TILE_ROWS,
+                            WIDE_MAX_THREADS):
+        rows = n if cs == 1 else build.round4(-(-n // cs))
+        if (cs - 1) * rows >= n:
+            continue
+        for ld in (n + (4 - n) % 8, build.round4(n)):
+            smem = 4 * wide_arena_floats(n, rows, ld)
+            if smem <= build.MAX_SHARED_BYTES:
+                tiles = -(-rows // tm) * -(-n // 4)
+                return WideLaunch(cs, rows, ld,
+                                  min(most, 32 * -(-tiles // 32)), smem)
+    raise ValueError(f"N = {n}: the lanes step's wide path takes N <= "
+                     f"{WIDE_MAX_N}")
 
 
 #: device-memory bytes of one point's step: the layer step's operands in
@@ -241,7 +293,7 @@ def _launch(ins, outs, ns_schedule, ni: int, stream) -> int:
         pts, smem, ld, _ = launch_config(n)
         return build.lib().vsm_lanes(*ptrs, s, n, ld, sched,
                                      len(ns_schedule), ni, pts, smem, stream)
-    ws = torch.empty(workspace_floats(n) * s, dtype=torch.float32,
-                     device=ins[6].device)
-    return build.lib().vsm_lanes_wide(*ptrs, ws.data_ptr(), s, n, sched,
-                                      len(ns_schedule), ni, stream)
+    cs, rows, ld, threads, smem = wide_launch_config(n)
+    return build.lib().vsm_lanes_wide(*ptrs, s, n, cs, rows, ld, threads,
+                                      sched, len(ns_schedule), ni, smem,
+                                      stream)
