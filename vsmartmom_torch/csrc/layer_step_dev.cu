@@ -13,20 +13,26 @@
 // contracted into an FMA.
 //
 // Bound: as the plain layer step (layer_step.cu), a chain of small dependent
-// N x N products per spectral point, O(N^3) fp32 FMAs against O(N^2) bytes
-// of device memory, so arithmetic and the shared-memory loads that feed it
+// N x N products per spectral point, O(N^3) FMAs against O(N^2) bytes of
+// device memory, so arithmetic and the shared-memory loads that feed it
 // bound it, not device memory. Design: the layer step's (layer_step.cu) on
 // the team helpers of rt_device.cuh. A team of whole warps per point owns
 // its arena in dynamic shared memory for the whole step and synchronises
-// only itself; products are register-tiled fp32 FMA (no TF32, no tensor
-// cores) with the elementwise passes fused into their stores, and the
-// outputs are stored to device memory straight from the last products. The
-// tile classes are those of rt_device.cuh for N <= 64 and the fifth class
-// C80 for N = 65 .. 75, which only this kernel instantiates. The kernel is a
-// template on the tile class and the product mode of the JAX kernel's
-// precision_name (rt_device.cuh: full fp32, or one or three bf16 passes with
-// the operands rounded in registers, "bf16x3" the JAX default), which every
-// product takes.
+// only itself; the elementwise passes are fused into the products' stores,
+// and the outputs are stored to device memory straight from the last
+// products. The tile classes are those of rt_device.cuh for N <= 64 and the
+// fifth class C80 for N = 65 .. 75, which only this kernel instantiates.
+// The JAX kernel's precision_name picks the body. "bf16x3" (three bf16
+// passes, the JAX default) is layer_step_dev_tc_kernel: every product on
+// the tensor cores (rt_device.cuh: mm_tc, mma.sync m16n8k16 bf16 with fp32
+// accumulation), which is what the TPU kernel's modes exist for (its
+// batch_mm feeds them to the matrix unit). "highest" and "default" are
+// layer_step_dev_kernel, register-tiled FMA on the CUDA cores in the
+// plain version's order (no TF32; "default" rounds each loaded operand to
+// bf16): one bf16 pass keeps no low part, so a sum in another order moves
+// an intermediate by an ulp and flips its next bf16 rounding by 2^-8; on an
+// H100 the tensor cores' order left "default" up to 3.4e-4 of max from its
+// plain version (PERF.md), where the step is held to 1e-5.
 //
 // Per doubling step (flipped space; E's slot holds [E | jp | j1m], so one
 // product covers r [E | jp | j1m]):
@@ -104,29 +110,27 @@ struct DevArena {
   __host__ __device__ int floats() const { return slot(6); }
 };
 
-// (kMaxBlock, 1): with the block bound alone ptxas holds the C16
-// instantiation to 64 registers and spills it to a 56-byte stack
+// the step's parameters: the composite, the elemental layer, ek, the D
+// diagonal, the new composite; S points, width n, row stride ld, P points a
+// block, the schedule
+#define DEV_STEP_PARAMS                                                     \
+  const float *__restrict__ c_rmp, const float *__restrict__ c_rpm,        \
+      const float *__restrict__ c_epp, const float *__restrict__ c_emm,    \
+      const float *__restrict__ c_g, const float *__restrict__ c_jp,       \
+      const float *__restrict__ c_jm, const float *__restrict__ r_f,       \
+      const float *__restrict__ g_el, const float *__restrict__ e_el,      \
+      const float *__restrict__ jp, const float *__restrict__ jm_f,        \
+      const float *__restrict__ ek, const float *__restrict__ d,           \
+      float *__restrict__ o_rmp, float *__restrict__ o_rpm,                \
+      float *__restrict__ o_epp, float *__restrict__ o_emm,                \
+      float *__restrict__ o_g, float *__restrict__ o_jp,                   \
+      float *__restrict__ o_jm, int S, int n, int ld, int P, Schedule sch
+#define DEV_STEP_ARGS                                                       \
+  c_rmp, c_rpm, c_epp, c_emm, c_g, c_jp, c_jm, r_f, g_el, e_el, jp, jm_f,  \
+      ek, d, o_rmp, o_rpm, o_epp, o_emm, o_g, o_jp, o_jm, S, n, ld, P, sch
+
 template <class C>
-__global__ void __launch_bounds__(kMaxBlock, 1)
-layer_step_dev_kernel(const float* __restrict__ c_rmp,
-                      const float* __restrict__ c_rpm,
-                      const float* __restrict__ c_epp,
-                      const float* __restrict__ c_emm,
-                      const float* __restrict__ c_g,
-                      const float* __restrict__ c_jp,
-                      const float* __restrict__ c_jm,
-                      const float* __restrict__ r_f,
-                      const float* __restrict__ g_el,
-                      const float* __restrict__ e_el,
-                      const float* __restrict__ jp,
-                      const float* __restrict__ jm_f,
-                      const float* __restrict__ ek,
-                      const float* __restrict__ d,
-                      float* __restrict__ o_rmp, float* __restrict__ o_rpm,
-                      float* __restrict__ o_epp, float* __restrict__ o_emm,
-                      float* __restrict__ o_g, float* __restrict__ o_jp,
-                      float* __restrict__ o_jm, int S, int n, int ld, int P,
-                      Schedule sch) {
+__device__ __forceinline__ void layer_step_dev(DEV_STEP_PARAMS) {
   extern __shared__ float smem[];
   float* dv = smem;  // D-matrix diagonal, shared by all points
   for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = d[i];
@@ -382,25 +386,56 @@ layer_step_dev_kernel(const float* __restrict__ c_rmp,
   each_row(tm, n, [=](int i) { o_g[gv + i] = __fmul_rn(GC[i], G[i]); });
 }
 
-}  // namespace
+// On the CUDA cores: full fp32, or "default"'s one bf16 pass with the
+// operands rounded in registers. (kMaxBlock, 1): with the block bound alone
+// ptxas holds the C16 instantiation to 64 registers and spills it to a
+// 56-byte stack.
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock, 1)
+layer_step_dev_kernel(DEV_STEP_PARAMS) {
+  layer_step_dev<C>(DEV_STEP_ARGS);
+}
 
-// Launch one split-form layer step on `stream`: ld is the arena's row stride
-// (>= n + 2, a multiple of 4), mode the product mode (vsm::Mode),
-// pts_per_block the teams of a block. Returns
-// the cudaError_t of the launch (0 on success); the caller raises on
-// anything else.
-extern "C" int vsm_layer_step_dev(
-    const float* c_rmp, const float* c_rpm, const float* c_epp,
-    const float* c_emm, const float* c_g, const float* c_jp,
-    const float* c_jm, const float* r_f, const float* g_el,
-    const float* e_el, const float* jp, const float* jm_f, const float* ek,
-    const float* d, float* o_rmp, float* o_rpm, float* o_epp, float* o_emm,
-    float* o_g, float* o_jp, float* o_jm, int S, int n, int ld,
-    const int* sched, int nd, int ni, int mode, int pts_per_block,
-    int smem_bytes, void* stream) {
+// The tensor-core body's block bound: the most threads a launch of class C
+// takes (build.team_launch_config: half an SM's shared memory holds two
+// N <= 48 points at most from N = 33, one from N = 49), so that ptxas may
+// give a thread 65 536 / bound registers. Under kMaxBlock's 128 the
+// fragments a warp keeps (8 registers a k tile) spilled the C48, C64 and
+// C80 classes to 48-264-byte stacks.
+template <class C>
+constexpr int tc_block_bound() {
+  return C::NP <= 32 ? kMaxBlock : C::NP == 48 ? 2 * C::TT : C::TT;
+}
+
+// bf16x3, every product on the tensor cores (C::TC).
+template <class C>
+__global__ void __launch_bounds__(tc_block_bound<C>(), 1)
+layer_step_dev_tc_kernel(DEV_STEP_PARAMS) {
+  static_assert(C::TC, "the tensor-core step takes a tensor-core class");
+  layer_step_dev<C>(DEV_STEP_ARGS);
+}
+
+// The launch entries' parameters (vsm_layer_step_dev below).
+#define DEV_ENTRY_PARAMS                                                    \
+  const float *c_rmp, const float *c_rpm, const float *c_epp,              \
+      const float *c_emm, const float *c_g, const float *c_jp,             \
+      const float *c_jm, const float *r_f, const float *g_el,              \
+      const float *e_el, const float *jp, const float *jm_f,               \
+      const float *ek, const float *d, float *o_rmp, float *o_rpm,         \
+      float *o_epp, float *o_emm, float *o_g, float *o_jp, float *o_jm,    \
+      int S, int n, int ld, const int *sched, int nd, int ni, int mode,    \
+      int pts_per_block, int smem_bytes, void *stream
+#define DEV_ENTRY_ARGS                                                      \
+  c_rmp, c_rpm, c_epp, c_emm, c_g, c_jp, c_jm, r_f, g_el, e_el, jp, jm_f,  \
+      ek, d, o_rmp, o_rpm, o_epp, o_emm, o_g, o_jp, o_jm, S, n, ld, sched,  \
+      nd, ni, mode, pts_per_block, smem_bytes, stream
+
+// Checks the launch and launches pick(class, mode)'s kernel, which is
+// nullptr for a mode the entry does not take.
+template <class Pick>
+int launch_dev(Pick pick, DEV_ENTRY_PARAMS) {
   if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || pts_per_block < 1
-      || mode < vsm::kHighest || mode > vsm::kBf16)
+  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || pts_per_block < 1)
     return (int)cudaErrorInvalidValue;
   const int tt = with_dev_class(n, [](auto c) { return decltype(c)::TT; });
   if (tt < 0 || ld < n + 2 || ld % 4 != 0
@@ -412,10 +447,10 @@ extern "C" int vsm_layer_step_dev(
   if ((size_t)smem_bytes < need) return (int)cudaErrorInvalidValue;
   const Schedule s = vsm::make_schedule(sched, nd, ni);
   const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  return with_dev_class(n, [&](auto c) {
+  const int err = with_dev_class(n, [&](auto c) {
     return vsm::with_mode(mode, [&](auto m) {
-      auto* kern = layer_step_dev_kernel<
-          vsm::WithMode<decltype(c), decltype(m)::value>>;
+      auto* kern = pick(c, m);
+      if (kern == nullptr) return (int)cudaErrorInvalidValue;
       cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
       if (e != cudaSuccess) return (int)e;
@@ -427,4 +462,38 @@ extern "C" int vsm_layer_step_dev(
       return (int)cudaGetLastError();
     });
   });
+  return err < 0 ? (int)cudaErrorInvalidValue : err;
+}
+
+// every split-form kernel has this type
+using DevKernel = decltype(&layer_step_dev_kernel<vsm::C16>);
+
+}  // namespace
+
+// Launch one split-form layer step on `stream`: ld is the arena's row stride
+// (>= n + 2, a multiple of 4), mode the product mode (vsm::Mode),
+// pts_per_block the teams of a block. vsm_layer_step_dev takes "highest"
+// and "default" (the body on the CUDA cores), vsm_layer_step_dev_tc
+// "bf16x3" (the tensor-core body); each refuses the other's. Returns the
+// cudaError_t of the launch (0 on success); the caller raises on anything
+// else.
+extern "C" int vsm_layer_step_dev(DEV_ENTRY_PARAMS) {
+  return launch_dev(
+      [](auto c, auto m) -> DevKernel {
+        constexpr int M = decltype(m)::value;
+        if constexpr (M != vsm::kBf16x3)
+          return layer_step_dev_kernel<vsm::WithMode<decltype(c), M>>;
+        return nullptr;
+      },
+      DEV_ENTRY_ARGS);
+}
+
+extern "C" int vsm_layer_step_dev_tc(DEV_ENTRY_PARAMS) {
+  return launch_dev(
+      [](auto c, auto m) -> DevKernel {
+        if constexpr (decltype(m)::value == vsm::kBf16x3)
+          return layer_step_dev_tc_kernel<vsm::WithTensorCores<decltype(c)>>;
+        return nullptr;
+      },
+      DEV_ENTRY_ARGS);
 }

@@ -28,6 +28,14 @@
 // bf16(x - x_hi), one accumulator each, summed in that order. A product of
 // two bf16 values is exact in fp32, so each pass is the fmaf chain of exact
 // products over l, summed in fp32, as torch's matmul of the same values.
+//
+// Tensor-core products (C::TC, the split-form step at kBf16x3 alone): mm()
+// runs mm_tc(), the same function on mma.sync m16n8k16 bf16 tiles with fp32
+// accumulation. Each warp owns one 16-row tile of A and every G-th 8-column
+// tile of the output; it splits its A fragments into x_hi, x_lo once a
+// product (the C80 class once a column tile) and each B fragment once a
+// tile. The bf16 products are exact, but the tensor cores sum them in their
+// own order, so the result differs from the fmaf chain in the last bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,14 +57,17 @@ struct Schedule {
 enum Mode : int { kHighest = 0, kBf16x3 = 1, kBf16 = 2 };
 
 // Tile classes: padded width NP, team threads TT, tile rows TM x columns TN;
-// the product mode MODE.
-template <int NP_, int TT_, int TM_, int TN_, int MODE_ = kHighest>
+// the product mode MODE, and TC: products on the tensor cores (kBf16x3).
+template <int NP_, int TT_, int TM_, int TN_, int MODE_ = kHighest,
+          bool TC_ = false>
 struct Cfg {
   static constexpr int NP = NP_, TT = TT_, TM = TM_, TN = TN_, MODE = MODE_;
+  static constexpr bool TC = TC_;
   static constexpr int RG = NP / TM;  // row groups
   static constexpr int CG = TT / RG;  // column groups
   static constexpr int CB = CG * TN;  // columns per block
   static_assert(RG * TM == NP && RG * CG == TT && TT % 32 == 0, "tile");
+  static_assert(!TC || MODE == kBf16x3, "tensor cores take kBf16x3");
 };
 using C16 = Cfg<16, 32, 2, 4>;
 using C32 = Cfg<32, 64, 4, 4>;
@@ -66,9 +77,12 @@ using C64 = Cfg<64, 256, 4, 4>;
 // instantiates it; with_class below stops at 64)
 using C80 = Cfg<80, 320, 4, 4>;
 
-// tile class C in product mode M
+// tile class C in product mode M (CUDA cores), and in kBf16x3 on the
+// tensor cores
 template <class C, int M>
 using WithMode = Cfg<C::NP, C::TT, C::TM, C::TN, M>;
+template <class C>
+using WithTensorCores = Cfg<C::NP, C::TT, C::TM, C::TN, kBf16x3, true>;
 
 // f(std::integral_constant<int, mode>{}) for a valid mode; -1 otherwise.
 template <class F>
@@ -267,33 +281,148 @@ __device__ __forceinline__ void tile(float (&acc)[C::TM][C::TN],
   }
 }
 
+// bf16x2 of (x0, x1), x0 in the low half, each rounded to nearest even.
+__device__ __forceinline__ unsigned bf16x2(float x0, float x1) {
+  unsigned d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(x1), "f"(x0));
+  return d;
+}
+
+// The bf16 parts of (x0, x1), as part<kHi> and part<kLo>: hi = bf16(x) and
+// lo = bf16(x - hi) (x - hi is exact in fp32), each a bf16x2.
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
+                                       unsigned& lo) {
+  hi = bf16x2(x0, x1);
+  lo = bf16x2(__fsub_rn(x0, __uint_as_float(hi << 16)),
+              __fsub_rn(x1, __uint_as_float(hi & 0xffff0000u)));
+}
+
+// d += a b on one m16n8k16 tile: A 16 x 16 (row), B 16 x 8 (column), bf16
+// products exact, summed in fp32 by the tensor cores.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mm() on the tensor cores in kBf16x3: the passes a_hi b_lo, a_lo b_hi and
+// a_hi b_hi in three accumulators, summed (p1 + p2) + p3 as batch_mm sums
+// its three products. M and K pad to MT = NP / 16 tiles of 16, the
+// output's columns to tiles of 8. Warp w owns m tile w % MT and the column
+// tiles w / MT + G q (G = warps / MT). Lane (g, t) = (lane / 4, lane % 4)
+// holds A rows g, g + 8 and columns (K) 2t, 2t + 1, 2t + 8, 2t + 9 of a
+// tile, B rows (K) 2t, 2t + 1, 2t + 8, 2t + 9 of column g, and outputs rows
+// g, g + 8, columns 2t, 2t + 1 (the PTX fragment layouts). Past the K edge
+// (l >= n) both operands read 0, so padded terms add nothing; rows past n
+// and columns past k read a clamped valid element and are never stored.
+// A's row stride lda must exceed n (A is read as float2 at l, l + 1 <= n).
+// With Inplace every warp has read B's columns of a round of column tiles
+// before any warp stores into them.
+template <class C, bool Inplace, class Out>
+__device__ __forceinline__ void mm_tc(const Team<C>& tm, int n, int k,
+                                      const float* A, int lda, const float* B,
+                                      int ldb, Out out) {
+  constexpr int MT = C::NP / 16, W = C::TT / 32, G = W / MT;
+  static_assert(MT * 16 == C::NP && G * MT == W, "tensor-core tiles");
+  static_assert(C::MODE == kBf16x3, "the tensor-core product is bf16x3");
+  const int lane = tm.t & 31, warp = tm.t >> 5;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int i0 = 16 * (warp % MT) + g;
+  const float* a0 = A + min(i0, n - 1) * lda;
+  const float* a1 = A + min(i0 + 8, n - 1) * lda;
+  // the A fragments of k tile kt, split
+  auto load_a = [&](int kt, unsigned (&hi)[4], unsigned (&lo)[4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int l = 16 * kt + 8 * h + t2;
+      const int lc = min(l, (n - 1) & ~1);  // l, l + 1 <= n < lda
+      float2 x = *reinterpret_cast<const float2*>(a0 + lc);
+      float2 y = *reinterpret_cast<const float2*>(a1 + lc);
+      if (l >= n) x.x = y.x = 0.f;
+      if (l + 1 >= n) x.y = y.y = 0.f;
+      split2(x.x, x.y, hi[2 * h], lo[2 * h]);
+      split2(y.x, y.y, hi[2 * h + 1], lo[2 * h + 1]);
+    }
+  };
+  // Up to four k tiles the warp keeps its A fragments, split once; the C80
+  // class (five) loads them again for each column tile: held, they spilled
+  // it to a 64-byte stack under its 168 registers.
+  constexpr bool kHold = MT <= 4;
+  unsigned ah[kHold ? MT : 1][4], al[kHold ? MT : 1][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kt = 0; kt < MT; ++kt) load_a(kt, ah[kt], al[kt]);
+  }
+  const int tiles = (k + 7) >> 3;
+#pragma unroll 1
+  for (int q0 = 0; q0 < tiles; q0 += G) {  // the same rounds in every warp
+    const int j0 = 8 * (q0 + warp / MT);
+    float p[3][4] = {};  // a_hi b_lo, a_lo b_hi, a_hi b_hi
+    if (j0 < k) {
+      const float* b = B + min(j0 + g, k - 1);
+#pragma unroll
+      for (int kt = 0; kt < MT; ++kt) {
+        const int ka = kHold ? kt : 0;
+        if constexpr (!kHold) load_a(kt, ah[0], al[0]);
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int l = 16 * kt + t2 + (e & 1) + 8 * (e >> 1);
+          v[e] = l < n ? b[min(l, n - 1) * ldb] : 0.f;
+        }
+        unsigned bh0, bh1, bl0, bl1;
+        split2(v[0], v[1], bh0, bl0);
+        split2(v[2], v[3], bh1, bl1);
+        mma_bf16(p[0], ah[ka], bl0, bl1);
+        mma_bf16(p[1], al[ka], bh0, bh1);
+        mma_bf16(p[2], ah[ka], bh0, bh1);
+      }
+    }
+    if (Inplace) tm.sync();
+    if (j0 < k) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = i0 + 8 * (c >> 1), j = j0 + t2 + (c & 1);
+        if (i < n && j < k)
+          out(i, j, __fadd_rn(__fadd_rn(p[0][c], p[1][c]), p[2][c]));
+      }
+    }
+  }
+}
+
 // out(i, j, s) for every output of A (n x n, row stride lda) @ B (n x k, row
-// stride ldb), s = the fmaf chain over l. A, B, lda and ldb must be 16-byte
-// aligned (every arena slot is; tile4 reads float4). With Inplace the team
-// synchronises before each column block's stores, so out may write the
-// block's columns of B.
+// stride ldb), s = the fmaf chain over l (with C::TC, mm_tc's tensor-core
+// sum). A, B, lda and ldb must be 16-byte aligned (every arena slot is;
+// tile4 reads float4). With Inplace the team synchronises before each
+// column block's stores, so out may write the block's columns of B.
 template <class C, bool Inplace = false, class Out>
 __device__ __forceinline__ void mm(const Team<C>& tm, int n, int k,
                                    const float* A, int lda, const float* B,
                                    int ldb, Out out) {
-  int ra[C::TM];
+  if constexpr (C::TC) {
+    mm_tc<C, Inplace>(tm, n, k, A, lda, B, ldb, out);
+  } else {
+    int ra[C::TM];
 #pragma unroll
-  for (int r = 0; r < C::TM; ++r)
-    ra[r] = min(tm.rg + r * C::RG, n - 1) * lda;
-  for (int c0 = 0; c0 < k; c0 += C::CB) {
-    const int j0 = c0 + tm.cg * C::TN;  // the thread's first column
-    float acc[C::TM][C::TN];
-    // past the edge (j0 >= ldb >= k: nothing stored) read the row's last TN
-    // columns
-    tile<C>(acc, ra, n, A, B, ldb, min(j0, ldb - C::TN));
-    if (Inplace) tm.sync();
+    for (int r = 0; r < C::TM; ++r)
+      ra[r] = min(tm.rg + r * C::RG, n - 1) * lda;
+    for (int c0 = 0; c0 < k; c0 += C::CB) {
+      const int j0 = c0 + tm.cg * C::TN;  // the thread's first column
+      float acc[C::TM][C::TN];
+      // past the edge (j0 >= ldb >= k: nothing stored) read the row's last
+      // TN columns
+      tile<C>(acc, ra, n, A, B, ldb, min(j0, ldb - C::TN));
+      if (Inplace) tm.sync();
 #pragma unroll
-    for (int r = 0; r < C::TM; ++r) {
-      const int i = tm.rg + r * C::RG;
-      if (i < n) {
+      for (int r = 0; r < C::TM; ++r) {
+        const int i = tm.rg + r * C::RG;
+        if (i < n) {
 #pragma unroll
-        for (int c = 0; c < C::TN; ++c)
-          if (j0 + c < k) out(i, j0 + c, acc[r][c]);
+          for (int c = 0; c < C::TN; ++c)
+            if (j0 + c < k) out(i, j0 + c, acc[r][c]);
+        }
       }
     }
   }

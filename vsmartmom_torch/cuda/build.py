@@ -52,6 +52,9 @@ _SIGNATURES = {
     # bytes, stream
     "vsm_layer_step_dev": [_P] * 21 + [_I, _I, _I, ctypes.POINTER(_I), _I,
                                        _I, _I, _I, _I, _P],
+    # the same at bf16x3, on the tensor cores
+    "vsm_layer_step_dev_tc": [_P] * 21 + [_I, _I, _I, ctypes.POINTER(_I),
+                                          _I, _I, _I, _I, _I, _P],
     # r, t, jp, jm, ek inputs, 4 outputs; S, n, row stride, schedule, nd,
     # product mode, points per block, shared bytes, stream
     "vsm_doubling": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,

@@ -29,9 +29,16 @@ frees. A block holds as many teams as half an SM's shared memory takes
 223 KB). ``precision`` is the JAX kernel's ``precision_name``
 (core/precision.py): "bf16x3" (three bf16 passes, the default here as in
 JAX: no operand carries the ~1.0 direct diagonal), "highest" (full fp32)
-or "default" (one bf16 pass); the kernel is a template on the mode. Every
-sum outside a product rounds as the plain version's torch ops. The ragged
-last block is masked in the kernel.
+or "default" (one bf16 pass). "bf16x3" launches the body with every
+product on the tensor cores (``layer_step_dev_tc_kernel``: mma.sync
+m16n8k16 bf16, fp32 accumulation; ``tc_plan``), whose sums follow the
+tensor cores' order, not the fmaf chain. "highest" and "default" launch
+the body on the CUDA cores (``layer_step_dev_kernel``: the plain version's
+fmaf chains bit for bit, "default" with each loaded operand rounded to
+bf16): "default" keeps no low part, so a sum in another order flips some
+of its later bf16 roundings by 2^-8 and moved its outputs by up to 3e-4
+of max on an H100 (``entry_point``). Every sum outside a product rounds as the plain
+version's torch ops. The ragged last block is masked in the kernel.
 
 The plain version (``fused_layer_step_dev_plain``) is the JAX package's
 ``_xla_twin_step_dev`` on the port's torch functions. The wrapper takes it
@@ -41,6 +48,8 @@ primal and the plain version's jvp the tangent (the JAX package's
 custom_jvp); no backward.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -71,6 +80,58 @@ def launch_config(n: int) -> build.TeamLaunch:
     return build.team_launch_config(n, arena_floats, build.round4(n),
                                     min_ld=n + 2,
                                     classes=build.DEV_TILE_CLASSES)
+
+
+def entry_point(precision: str) -> str:
+    """The launch entry of a product mode: ``vsm_layer_step_dev_tc`` (the
+    tensor-core body) for "bf16x3", ``vsm_layer_step_dev`` (the body on the
+    CUDA cores) for "highest" and "default"."""
+    check_mode(precision, DD_MODES)
+    return ("vsm_layer_step_dev_tc" if precision == "bf16x3"
+            else "vsm_layer_step_dev")
+
+
+def product_widths(n: int) -> tuple:
+    """The column counts k of the step's (n x n) @ (n x k) products."""
+    return (n, n + 1, n + 2, 2 * n + 1, 2 * n + 2)
+
+
+#: the tensor-core kernel's block bound by padded width NP
+#: (``tc_block_bound`` in csrc/layer_step_dev.cu): a launch of more threads
+#: fails
+TC_BLOCK_BOUND = {16: 512, 32: 512, 48: 384, 64: 256, 80: 320}
+
+
+class TensorCorePlan(NamedTuple):
+    """The tensor-core body's tiling at width n (``mm_tc`` in
+    csrc/rt_device.cuh): M and K pad to ``m_tiles`` tiles of 16 (the tile
+    class's NP / 16); warp w of a point's ``warps`` owns m tile w % m_tiles
+    and every ``warps_per_m_tile``-th 8-column tile from w // m_tiles;
+    ``col_tiles[k]`` 8-column tiles cover a product of k columns in
+    ``rounds[k]`` rounds (a warp's column tiles at most); ``k_read[l]``
+    says whether padded K index l reads the operands (l < n) or zeros.
+    The arena and the launch are ``launch_config``'s."""
+    m_tiles: int
+    padded: int
+    warps: int
+    warps_per_m_tile: int
+    col_tiles: dict
+    rounds: dict
+    k_read: tuple
+    launch: build.TeamLaunch
+
+
+def tc_plan(n: int) -> TensorCorePlan:
+    """The tensor-core body's plan at stream count n (1 <= n <= max_n())."""
+    launch = launch_config(n)
+    np_ = build.tile_class(n, build.DEV_TILE_CLASSES)[0]
+    m_tiles, warps = np_ // 16, launch.team_threads // 32
+    per_tile = warps // m_tiles
+    col_tiles = {k: -(-k // 8) for k in product_widths(n)}
+    return TensorCorePlan(
+        m_tiles, 16 * m_tiles, warps, per_tile, col_tiles,
+        {k: -(-t // per_tile) for k, t in col_tiles.items()},
+        tuple(l < n for l in range(16 * m_tiles)), launch)
 
 
 def max_n() -> int:
@@ -168,7 +229,7 @@ def _launch(r_mp, r_pm, e_pp, e_mm, g, j_p, j_m, r_f, g_el, e_el, jp, jm_f,
         + [torch.empty_like(j_p) for _ in range(3)]
     if s == 0:
         return tuple(outs)
-    err = build.lib().vsm_layer_step_dev(
+    err = getattr(build.lib(), entry_point(precision))(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
         s, n, ld, sched, len(ns_schedule), int(ni),
         build.mode_code(precision), pts, smem,
