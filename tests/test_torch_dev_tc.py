@@ -7,7 +7,9 @@ and N, warps a point, shared bytes) for every N the kernel takes, and a
 lane-by-lane numpy mirror of ``mm_tc``'s gathers (csrc/rt_device.cuh: the
 PTX m16n8k16 fragment layouts, the clamps at the M and N edges, the plan's
 K masks) on operands whose padding holds NaN: every output is stored once
-and equals A @ B, so the padded K terms read zeros. The plain version at
+and equals A @ B, so the padded K terms read zeros; the same mirror covers
+the plain form's arena (rows 1 and 4 at "high", tests/test_torch_step_tc.py
+for the rest of their tensor-core body). The plain version at
 "bf16x3" against JAX's kernel in interpret mode is
 tests/test_torch_precision.py's test_twins_at_bf16x3_match_jax_interpret.
 """
@@ -19,6 +21,7 @@ import pytest
 
 from vsmartmom_torch.cuda import build
 from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
+from vsmartmom_torch.cuda import layer_step_kernel as lsk
 
 
 @pytest.mark.parametrize("n", range(1, 76))
@@ -50,7 +53,9 @@ def test_tc_plan_fits_hopper(n):
 
 def _mm_tc_mirror(a_buf, lda, b_buf, ldb, n, k, plan):
     """mm_tc's gathers, tiles and stores, lane by lane, with float64 sums:
-    {(i, j): value} of every store."""
+    {(i, j): value} of every store. With plan.diag (kTcDiag's a_hi b_hi
+    pass) A reads 0 at l = i and B at l = j mod n, and each output adds
+    those terms after the tile, as the kernel's epilogue does."""
     mt_n, g_n = plan.m_tiles, plan.warps_per_m_tile
     k_read = plan.k_read
     out = {}
@@ -67,7 +72,9 @@ def _mm_tc_mirror(a_buf, lda, b_buf, ldb, n, k, plan):
                     for r, row in ((g, i0), (g + 8, i0 + 8)):
                         base = min(row, n - 1) * lda + lc
                         for c in range(2):
-                            v = a_buf[base + c] if k_read[l + c] else 0.0
+                            keep = k_read[l + c] and not (
+                                plan.diag and l + c == row)
+                            v = a_buf[base + c] if keep else 0.0
                             a_tiles[kt, r, 8 * h + t2 + c] = v
         tiles = -(-k // 8)
         for q0 in range(0, tiles, g_n):
@@ -80,11 +87,12 @@ def _mm_tc_mirror(a_buf, lda, b_buf, ldb, n, k, plan):
                 for lane in range(32):
                     g, t2 = lane >> 2, 2 * (lane & 3)
                     col = min(j0 + g, k - 1)
+                    jd = col % n if plan.diag else -1
                     for e in range(4):
                         r = t2 + (e & 1) + 8 * (e >> 1)
                         l = 16 * kt + r
                         b_tile[r, g] = (b_buf[min(l, n - 1) * ldb + col]
-                                        if k_read[l] else 0.0)
+                                        if k_read[l] and l != jd else 0.0)
                 d += a_tiles[kt] @ b_tile
             for lane in range(32):
                 g, t2 = lane >> 2, 2 * (lane & 3)
@@ -94,28 +102,66 @@ def _mm_tc_mirror(a_buf, lda, b_buf, ldb, n, k, plan):
                         i = 16 * mt + r
                         if j < k and i < n:
                             assert (i, j) not in out, (i, j)
-                            out[i, j] = d[r, t2 + c]
+                            v = d[r, t2 + c]
+                            if plan.diag:
+                                jn = j % n
+                                v += a_buf[i * lda + i] * b_buf[i * ldb + j]
+                                if jn != i:
+                                    v += (a_buf[i * lda + jn]
+                                          * b_buf[jn * ldb + j])
+                            out[i, j] = v
     return out
 
 
-@pytest.mark.parametrize("n", (1, 15, 16, 17, 30, 44, 64, 65, 75))
-def test_tc_fragments_pad_k_with_zeros(n):
-    """mm_tc's mirror on operands laid out as the arena lays them (A at
-    row stride ld, B at ld or the two-square slots' 2 ld), every float
-    outside the n x n and n x k blocks NaN: each output is stored once and
-    equals A @ B, so no padded or clamped value reaches a stored sum."""
-    plan = ldk.tc_plan(n)
-    ld = plan.launch.ld
+def _products(form, n):
+    """(tensor-core plan, [(A offset, lda, B offset, ldb, k)]) of the
+    products of one arena layout at width n: the split form's (A at row
+    stride ld, B at ld or the two-square slots' 2 ld, from offset 0), or
+    every distinct operand layout of the plain form's step and doubling
+    (cuda/layer_step_kernel.py:tc_products: X, X2, W1, W2 and their
+    offsets in the step's arena)."""
+    if form == "dev":
+        plan = ldk.tc_plan(n)
+        ld = plan.launch.ld
+        return plan, [(0, ld, 0, ldb, k)
+                      for k, ldb in ((n, ld), (n + 2, ld),
+                                     (2 * n + 2, 2 * ld))]
+    plan = lsk.tc_plan(n)
+    seen = {}
+    for p in lsk.tc_products(n, plan.launch.ld):
+        if not p.mv:
+            seen.setdefault((p.name, p.lda, p.ldb, p.k),
+                            (p.a, p.lda, p.b, p.ldb, p.k))
+    return plan, list(seen.values())
+
+
+@pytest.mark.parametrize(
+    "form,n", [("dev", n) for n in (1, 15, 16, 17, 30, 44, 64, 65, 75)]
+    + [("plain", n) for n in (1, 5, 13, 15, 16)],
+    ids=lambda v: v if isinstance(v, str) else str(v))
+def test_tc_fragments_pad_k_with_zeros(form, n):
+    """mm_tc's mirror on operands laid out as the arena lays them, every
+    float outside the n x n and n x k blocks NaN: each output is stored
+    once and equals A @ B, so no padded or clamped value reaches a stored
+    sum. The split form (row 3) at each of its tile classes; the plain
+    form (rows 1 and 4 at "high", the N <= 16 class, its diagonal terms
+    added after the tile) at every product's offsets and strides in the
+    step's arena."""
+    plan, products = _products(form, n)
     rng = np.random.default_rng(n)
-    for k, ldb in ((n, ld), (n + 2, ld), (2 * n + 2, 2 * ld)):
-        a, b = rng.uniform(-1, 1, (n, n)), rng.uniform(-1, 1, (n, k))
-        # the slot and whatever lies past it hold NaN
-        a_buf = np.full(n * ld + 64, np.nan)
-        b_buf = np.full(n * ldb + 64, np.nan)
+    size = max(max(a + n * lda, b + n * ldb)
+               for a, lda, b, ldb, _ in products) + 64
+    for a_off, lda, b_off, ldb, k in products:
+        buf = np.full(size, np.nan)
         for i in range(n):
-            a_buf[i * ld:i * ld + n] = a[i]
-            b_buf[i * ldb:i * ldb + k] = b[i]
-        out = _mm_tc_mirror(a_buf, ld, b_buf, ldb, n, k, plan)
+            buf[a_off + i * lda:a_off + i * lda + n] = rng.uniform(-1, 1, n)
+        for i in range(n):
+            buf[b_off + i * ldb:b_off + i * ldb + k] = rng.uniform(-1, 1, k)
+        a = np.array([buf[a_off + i * lda:a_off + i * lda + n]
+                      for i in range(n)])
+        b = np.array([buf[b_off + i * ldb:b_off + i * ldb + k]
+                      for i in range(n)])
+        out = _mm_tc_mirror(buf[a_off:], lda, buf[b_off:], ldb, n, k, plan)
         assert len(out) == n * k
         got = np.array([[out[i, j] for j in range(k)] for i in range(n)])
         np.testing.assert_allclose(got, a @ b, rtol=1e-12, atol=1e-12)

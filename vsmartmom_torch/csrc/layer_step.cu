@@ -24,13 +24,19 @@
 // and 2I - A M, the W1 packing and the state update of the doubling, the
 // outputs of the interaction, stored to device memory straight from the
 // products. c_rpm and c_tmm arrive by cp.async while the doubling runs.
-// fp32 FMA on the CUDA cores: no TF32, no tensor cores. Every output is the
-// fmaf chain of the block-wide version over l in order, with the same
-// association of every product. Both kernels are templates on the tile
-// class and the product mode of the JAX kernels' precision_name
-// (rt_device.cuh: full fp32, or one or three bf16 passes, the operands
-// rounded in registers), which covers every product, the mv products of the
-// source vectors (JAX's packed vector columns) included.
+// fp32 FMA on the CUDA cores: no TF32. Every output is the fmaf chain of the
+// block-wide version over l in order, with the same association of every
+// product. Both kernels are templates on the tile class and the product
+// mode of the JAX kernels' precision_name (rt_device.cuh: full fp32, or one
+// or three bf16 passes, the operands rounded in registers), which covers
+// every product, the mv products of the source vectors (JAX's packed vector
+// columns) included. At "high" (bf16x3) the N <= 16 class runs the same
+// bodies with every N x N product on the tensor cores (layer_step_tc_kernel,
+// doubling_tc_kernel: rt_device.cuh mm_tc, mma.sync m16n8k16 bf16, fp32
+// accumulation, the diagonal terms of T and the Newton-Schulz iterates in
+// the a_hi b_hi pass summed apart and added after it (kTcDiag); the mv
+// products keep their three passes on the CUDA cores), launched through
+// their own entries.
 //
 // Per-point arena (floats; sq = n ld, ld the padded row stride, every slot
 // on 16 bytes): the doubling's Arena (R, T, A, M0, M1, TMP, JP, JM, W1, W2;
@@ -242,24 +248,40 @@ layer_step_kernel_bf16(LAYER_STEP_PARAMS) {
   layer_step<C>(LAYER_STEP_ARGS);
 }
 
-// The layer step's kernel for tile class and mode C.
+// The tile classes whose "high" (bf16x3) runs on the tensor cores
+// (cuda/layer_step_kernel.py TC_CLASSES): the N <= 16 class alone. The
+// plain form at "high" moves by about as much when its sums change order as
+// it lies from "highest" (vsmartmom_torch/order_sensitivity.py --form
+// plain); the wider classes' emulated orders moved by up to 1.4 times that
+// distance, so they keep the body on the CUDA cores, whose fmaf chains sum
+// as the plain version does.
 template <class C>
-auto layer_step_entry() {
-  if constexpr (C::MODE == vsm::kHighest) {
-    return layer_step_kernel<C>;
-  } else {
-    return layer_step_kernel_bf16<C>;
-  }
+constexpr bool high_on_tensor_cores() {
+  return C::NP == 16;
 }
 
+// "high" (bf16x3), every N x N product on the tensor cores (C::TC), under
+// the bf16 kernels' (kMaxBlock, 1): a launch takes 16 points of one warp at
+// most, and the A fragments mm_tc keeps take 8 registers.
 template <class C>
-__global__ void __launch_bounds__(kMaxBlock)
-doubling_kernel(const float* __restrict__ r_f, const float* __restrict__ t,
-                const float* __restrict__ jp, const float* __restrict__ jm_f,
-                const float* __restrict__ ek, float* __restrict__ o_r,
-                float* __restrict__ o_t, float* __restrict__ o_jp,
-                float* __restrict__ o_jm, int S, int n, int ld, int P,
-                Schedule sch) {
+__global__ void __launch_bounds__(kMaxBlock, 1)
+layer_step_tc_kernel(LAYER_STEP_PARAMS) {
+  static_assert(C::TC == vsm::kTcDiag, "the step takes kTcDiag classes");
+  layer_step<C>(LAYER_STEP_ARGS);
+}
+
+// The doubling kernels' parameters and their names
+#define DOUBLING_PARAMS                                                     \
+  const float *__restrict__ r_f, const float *__restrict__ t,              \
+      const float *__restrict__ jp, const float *__restrict__ jm_f,        \
+      const float *__restrict__ ek, float *__restrict__ o_r,               \
+      float *__restrict__ o_t, float *__restrict__ o_jp,                   \
+      float *__restrict__ o_jm, int S, int n, int ld, int P, Schedule sch
+#define DOUBLING_ARGS \
+  r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, ld, P, sch
+
+template <class C>
+__device__ __forceinline__ void doubling(DOUBLING_PARAMS) {
   extern __shared__ float smem[];
   const int team = threadIdx.x / C::TT;
   const int p = blockIdx.x * P + team;
@@ -283,79 +305,157 @@ doubling_kernel(const float* __restrict__ r_f, const float* __restrict__ t,
   });
 }
 
-}  // namespace
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock)
+doubling_kernel(DOUBLING_PARAMS) {
+  doubling<C>(DOUBLING_ARGS);
+}
 
-// Launch one layer step on `stream`: ld is the arena's padded row stride
-// (>= n, a multiple of 4), mode the product mode (vsm::Mode),
-// pts_per_block the teams of a block. Returns the
-// cudaError_t of the launch (0 on success); the caller raises on anything
-// else.
-extern "C" int vsm_layer_step(
-    const float* c_rmp, const float* c_rpm, const float* c_tpp,
-    const float* c_tmm, const float* c_jp, const float* c_jm,
-    const float* r_f, const float* t, const float* jp, const float* jm_f,
-    const float* ek, const float* d, float* o_rmp, float* o_rpm,
-    float* o_tpp, float* o_tmm, float* o_jp, float* o_jm, int S, int n,
-    int ld, const int* sched, int nd, int ni, int mode, int pts_per_block,
-    int smem_bytes, void* stream) {
+// "high" (bf16x3), every N x N product on the tensor cores (C::TC),
+// under (kMaxBlock, 1) as layer_step_tc_kernel.
+template <class C>
+__global__ void __launch_bounds__(kMaxBlock, 1)
+doubling_tc_kernel(DOUBLING_PARAMS) {
+  static_assert(C::TC == vsm::kTcDiag, "the doubling takes kTcDiag classes");
+  doubling<C>(DOUBLING_ARGS);
+}
+
+// every layer-step kernel, and every doubling kernel, has this type
+using StepKernel = decltype(&layer_step_kernel<vsm::C16>);
+using DoublingKernel = decltype(&doubling_kernel<vsm::C16>);
+
+// Launches pick(class, mode)'s kernel (nullptr for a mode the entry does not
+// take) with `need` bytes of shared memory a block and `args`; returns the
+// cudaError_t of the launch.
+template <class Pick, class... Args>
+int launch_team(Pick pick, int S, int n, int ld, int mode, int pts_per_block,
+                int smem_bytes, size_t need, void* stream, Args... args) {
+  const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
+  if (tt < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (S + pts_per_block - 1) / pts_per_block;
+  const int err = vsm::with_class(n, [&](auto c) {
+    return vsm::with_mode(mode, [&](auto m) {
+      auto* kern = pick(c, m);
+      if (kern == nullptr) return (int)cudaErrorInvalidValue;
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+      kern<<<blocks, pts_per_block * tt, smem_bytes,
+             (cudaStream_t)stream>>>(args...);
+      return (int)cudaGetLastError();
+    });
+  });
+  return err < 0 ? (int)cudaErrorInvalidValue : err;
+}
+
+// The layer step's launch entries' parameters (vsm_layer_step below)
+#define STEP_ENTRY_PARAMS                                                   \
+  const float *c_rmp, const float *c_rpm, const float *c_tpp,              \
+      const float *c_tmm, const float *c_jp, const float *c_jm,            \
+      const float *r_f, const float *t, const float *jp, const float *jm_f, \
+      const float *ek, const float *d, float *o_rmp, float *o_rpm,         \
+      float *o_tpp, float *o_tmm, float *o_jp, float *o_jm, int S, int n,  \
+      int ld, const int *sched, int nd, int ni, int mode,                  \
+      int pts_per_block, int smem_bytes, void *stream
+
+template <class Pick>
+int launch_step(Pick pick, STEP_ENTRY_PARAMS) {
   if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0 || mode < vsm::kHighest
-      || mode > vsm::kBf16)
+  if (n < 1 || nd < 0 || nd > kMaxSched || ni < 0)
     return (int)cudaErrorInvalidValue;
   const size_t need =
       (size_t)(round4(n) + pts_per_block * step_arena_floats(n, ld))
       * sizeof(float);
-  const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
-  if (tt < 0) return (int)cudaErrorInvalidValue;
-  const Schedule s = vsm::make_schedule(sched, nd, ni);
-  const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  return vsm::with_class(n, [&](auto c) {
-    return vsm::with_mode(mode, [&](auto m) {
-      auto* kern = layer_step_entry<
-          vsm::WithMode<decltype(c), decltype(m)::value>>();
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-      if (e != cudaSuccess) return (int)e;
-      kern<<<blocks, pts_per_block * tt, smem_bytes,
-             (cudaStream_t)stream>>>(
-          c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d,
-          o_rmp, o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, pts_per_block,
-          s);
-      return (int)cudaGetLastError();
-    });
-  });
+  return launch_team(pick, S, n, ld, mode, pts_per_block, smem_bytes, need,
+                     stream, c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t,
+                     jp, jm_f, ek, d, o_rmp, o_rpm, o_tpp, o_tmm, o_jp, o_jm,
+                     S, n, ld, pts_per_block,
+                     vsm::make_schedule(sched, nd, ni));
+}
+
+// The doubling's launch entries' parameters (vsm_doubling below)
+#define DOUBLING_ENTRY_PARAMS                                               \
+  const float *r_f, const float *t, const float *jp, const float *jm_f,    \
+      const float *ek, float *o_r, float *o_t, float *o_jp, float *o_jm,   \
+      int S, int n, int ld, const int *sched, int nd, int mode,            \
+      int pts_per_block, int smem_bytes, void *stream
+
+template <class Pick>
+int launch_doubling(Pick pick, DOUBLING_ENTRY_PARAMS) {
+  if (S <= 0) return 0;
+  if (n < 1 || nd < 0 || nd > kMaxSched) return (int)cudaErrorInvalidValue;
+  const size_t need =
+      (size_t)pts_per_block * doubling_arena_floats(n, ld) * sizeof(float);
+  return launch_team(pick, S, n, ld, mode, pts_per_block, smem_bytes, need,
+                     stream, r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S,
+                     n, ld, pts_per_block, vsm::make_schedule(sched, nd, 0));
+}
+
+}  // namespace
+
+// Launch one layer step on `stream`: ld is the arena's padded row stride
+// (>= n, a multiple of 4), mode the product mode (vsm::Mode),
+// pts_per_block the teams of a block. vsm_layer_step_tc takes "high" in the
+// classes of high_on_tensor_cores (the tensor-core body), vsm_layer_step
+// every other mode and class (the body on the CUDA cores); each refuses the
+// other's. Returns the cudaError_t of the launch (0 on success); the caller
+// raises on anything else.
+extern "C" int vsm_layer_step(STEP_ENTRY_PARAMS) {
+  return launch_step(
+      [](auto c, auto m) -> StepKernel {
+        using C = decltype(c);
+        constexpr int M = decltype(m)::value;
+        if constexpr (M == vsm::kHighest)
+          return layer_step_kernel<C>;
+        else if constexpr (M == vsm::kBf16 || !high_on_tensor_cores<C>())
+          return layer_step_kernel_bf16<vsm::WithMode<C, M>>;
+        return nullptr;
+      },
+      c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d, o_rmp,
+      o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, sched, nd, ni, mode,
+      pts_per_block, smem_bytes, stream);
+}
+
+extern "C" int vsm_layer_step_tc(STEP_ENTRY_PARAMS) {
+  return launch_step(
+      [](auto c, auto m) -> StepKernel {
+        using C = decltype(c);
+        if constexpr (decltype(m)::value == vsm::kBf16x3
+                      && high_on_tensor_cores<C>())
+          return layer_step_tc_kernel<vsm::WithTensorCores<C, vsm::kTcDiag>>;
+        return nullptr;
+      },
+      c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d, o_rmp,
+      o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, sched, nd, ni, mode,
+      pts_per_block, smem_bytes, stream);
 }
 
 // Launch the doubling recursion alone on `stream`: (r, t, jp, jm) of S points
-// grown over the nd scheduled steps, products in `mode`. Returns the
-// launch's cudaError_t.
-extern "C" int vsm_doubling(const float* r_f, const float* t, const float* jp,
-                            const float* jm_f, const float* ek, float* o_r,
-                            float* o_t, float* o_jp, float* o_jm, int S,
-                            int n, int ld, const int* sched, int nd,
-                            int mode, int pts_per_block, int smem_bytes,
-                            void* stream) {
-  if (S <= 0) return 0;
-  if (n < 1 || nd < 0 || nd > kMaxSched || mode < vsm::kHighest
-      || mode > vsm::kBf16)
-    return (int)cudaErrorInvalidValue;
-  const size_t need =
-      (size_t)pts_per_block * doubling_arena_floats(n, ld) * sizeof(float);
-  const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
-  if (tt < 0) return (int)cudaErrorInvalidValue;
-  const Schedule s = vsm::make_schedule(sched, nd, 0);
-  const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  return vsm::with_class(n, [&](auto c) {
-    return vsm::with_mode(mode, [&](auto m) {
-      auto* kern =
-          doubling_kernel<vsm::WithMode<decltype(c), decltype(m)::value>>;
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-      if (e != cudaSuccess) return (int)e;
-      kern<<<blocks, pts_per_block * tt, smem_bytes,
-             (cudaStream_t)stream>>>(r_f, t, jp, jm_f, ek, o_r, o_t, o_jp,
-                                     o_jm, S, n, ld, pts_per_block, s);
-      return (int)cudaGetLastError();
-    });
-  });
+// grown over the nd scheduled steps, products in `mode`. vsm_doubling_tc
+// takes "high" where vsm_layer_step_tc does, vsm_doubling the rest; each
+// refuses the other's. Returns the launch's cudaError_t.
+extern "C" int vsm_doubling(DOUBLING_ENTRY_PARAMS) {
+  return launch_doubling(
+      [](auto c, auto m) -> DoublingKernel {
+        using C = decltype(c);
+        constexpr int M = decltype(m)::value;
+        if constexpr (M != vsm::kBf16x3 || !high_on_tensor_cores<C>())
+          return doubling_kernel<vsm::WithMode<C, M>>;
+        return nullptr;
+      },
+      r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, ld, sched, nd, mode,
+      pts_per_block, smem_bytes, stream);
+}
+
+extern "C" int vsm_doubling_tc(DOUBLING_ENTRY_PARAMS) {
+  return launch_doubling(
+      [](auto c, auto m) -> DoublingKernel {
+        using C = decltype(c);
+        if constexpr (decltype(m)::value == vsm::kBf16x3
+                      && high_on_tensor_cores<C>())
+          return doubling_tc_kernel<vsm::WithTensorCores<C, vsm::kTcDiag>>;
+        return nullptr;
+      },
+      r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, ld, sched, nd, mode,
+      pts_per_block, smem_bytes, stream);
 }

@@ -29,13 +29,20 @@
 // two bf16 values is exact in fp32, so each pass is the fmaf chain of exact
 // products over l, summed in fp32, as torch's matmul of the same values.
 //
-// Tensor-core products (C::TC, the split-form step at kBf16x3 alone): mm()
+// Tensor-core products (C::TC, at kBf16x3: the split-form step in every
+// class, the layer step and the doubling in the N <= 16 class): mm()
 // runs mm_tc(), the same function on mma.sync m16n8k16 bf16 tiles with fp32
 // accumulation. Each warp owns one 16-row tile of A and every G-th 8-column
 // tile of the output; it splits its A fragments into x_hi, x_lo once a
 // product (the C80 class once a column tile) and each B fragment once a
 // tile. The bf16 products are exact, but the tensor cores sum them in their
 // own order, so the result differs from the fmaf chain in the last bits.
+// They align the products of a tile to the largest one and cut the rest
+// toward zero, which biases a sum whose terms span many binades. The plain
+// form's operands carry a ~1.0 diagonal (T, the Newton-Schulz iterates, and
+// T's block in the packed W1, W2, X), so its kernels take C::TC ==
+// kTcDiag: the terms l = i and l = j mod n of output (i, j), where those
+// diagonals sit, leave the a_hi b_hi pass's sum and are added to it after.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,13 +63,18 @@ struct Schedule {
 // Product modes (build.MODE_CODES): full fp32, three bf16 passes, one.
 enum Mode : int { kHighest = 0, kBf16x3 = 1, kBf16 = 2 };
 
+// Where a class's products run (Cfg::TC): the CUDA cores, the tensor
+// cores, or the tensor cores with the diagonal terms summed apart.
+enum TensorCores : int { kCudaCores = 0, kTc = 1, kTcDiag = 2 };
+
 // Tile classes: padded width NP, team threads TT, tile rows TM x columns TN;
-// the product mode MODE, and TC: products on the tensor cores (kBf16x3).
+// the product mode MODE, and TC: where the products run (kBf16x3 alone on
+// the tensor cores).
 template <int NP_, int TT_, int TM_, int TN_, int MODE_ = kHighest,
-          bool TC_ = false>
+          int TC_ = kCudaCores>
 struct Cfg {
   static constexpr int NP = NP_, TT = TT_, TM = TM_, TN = TN_, MODE = MODE_;
-  static constexpr bool TC = TC_;
+  static constexpr int TC = TC_;
   static constexpr int RG = NP / TM;  // row groups
   static constexpr int CG = TT / RG;  // column groups
   static constexpr int CB = CG * TN;  // columns per block
@@ -78,11 +90,11 @@ using C64 = Cfg<64, 256, 4, 4>;
 using C80 = Cfg<80, 320, 4, 4>;
 
 // tile class C in product mode M (CUDA cores), and in kBf16x3 on the
-// tensor cores
+// tensor cores (TC: kTc, or kTcDiag for the plain form)
 template <class C, int M>
 using WithMode = Cfg<C::NP, C::TT, C::TM, C::TN, M>;
-template <class C>
-using WithTensorCores = Cfg<C::NP, C::TT, C::TM, C::TN, kBf16x3, true>;
+template <class C, int TC = kTc>
+using WithTensorCores = Cfg<C::NP, C::TT, C::TM, C::TN, kBf16x3, TC>;
 
 // f(std::integral_constant<int, mode>{}) for a valid mode; -1 otherwise.
 template <class F>
@@ -318,6 +330,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
 // (l >= n) both operands read 0, so padded terms add nothing; rows past n
 // and columns past k read a clamped valid element and are never stored.
 // A's row stride lda must exceed n (A is read as float2 at l, l + 1 <= n).
+// With kTcDiag (one k tile: n <= 16) the a_hi b_hi pass reads A as 0 at
+// l = i and B at l = j mod n, and adds those terms after the mma, rounded
+// to nearest: a_ii b_ij, then a_i,j' b_j',j (j' = j mod n, unless j' = i).
+// Two more mma compute them exactly, each a sum of one product: A's
+// diagonal alone times B, and A without it times B's l = j mod n entries
+// alone. The two small passes keep those terms: their sums are 2^-8 of the
+// result, so the tensor cores' cut moves it by far less than an ulp.
 // With Inplace every warp has read B's columns of a round of column tiles
 // before any warp stores into them.
 template <class C, bool Inplace, class Out>
@@ -325,13 +344,18 @@ __device__ __forceinline__ void mm_tc(const Team<C>& tm, int n, int k,
                                       const float* A, int lda, const float* B,
                                       int ldb, Out out) {
   constexpr int MT = C::NP / 16, W = C::TT / 32, G = W / MT;
+  constexpr bool kDiag = C::TC == kTcDiag;
   static_assert(MT * 16 == C::NP && G * MT == W, "tensor-core tiles");
   static_assert(C::MODE == kBf16x3, "the tensor-core product is bf16x3");
+  static_assert(!kDiag || MT == 1, "the diagonal terms take one k tile");
   const int lane = tm.t & 31, warp = tm.t >> 5;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
   const int i0 = 16 * (warp % MT) + g;
   const float* a0 = A + min(i0, n - 1) * lda;
   const float* a1 = A + min(i0 + 8, n - 1) * lda;
+  // kTcDiag: the fragments of A_hi without its l = i terms, and of those
+  // terms alone
+  unsigned ad[4], ai[4];
   // the A fragments of k tile kt, split
   auto load_a = [&](int kt, unsigned (&hi)[4], unsigned (&lo)[4]) {
 #pragma unroll
@@ -344,6 +368,14 @@ __device__ __forceinline__ void mm_tc(const Team<C>& tm, int n, int k,
       if (l + 1 >= n) x.y = y.y = 0.f;
       split2(x.x, x.y, hi[2 * h], lo[2 * h]);
       split2(y.x, y.y, hi[2 * h + 1], lo[2 * h + 1]);
+      if constexpr (kDiag) {
+        const bool x0 = l == i0, x1 = l + 1 == i0;
+        const bool y0 = l == i0 + 8, y1 = l + 1 == i0 + 8;
+        ad[2 * h] = bf16x2(x0 ? 0.f : x.x, x1 ? 0.f : x.y);
+        ad[2 * h + 1] = bf16x2(y0 ? 0.f : y.x, y1 ? 0.f : y.y);
+        ai[2 * h] = bf16x2(x0 ? x.x : 0.f, x1 ? x.y : 0.f);
+        ai[2 * h + 1] = bf16x2(y0 ? y.x : 0.f, y1 ? y.y : 0.f);
+      }
     }
   };
   // Up to four k tiles the warp keeps its A fragments, split once; the C80
@@ -377,7 +409,25 @@ __device__ __forceinline__ void mm_tc(const Team<C>& tm, int n, int k,
         split2(v[2], v[3], bh1, bl1);
         mma_bf16(p[0], ah[ka], bl0, bl1);
         mma_bf16(p[1], al[ka], bh0, bh1);
-        mma_bf16(p[2], ah[ka], bh0, bh1);
+        if constexpr (kDiag) {
+          // column j0 + g's l = j mod n term: B' without it, B_d it alone
+          const int jd = (j0 + g) % n;
+          bool m[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            m[e] = t2 + (e & 1) + 8 * (e >> 1) == jd;
+          float d1[4] = {}, d2[4] = {};
+          mma_bf16(p[2], ad, bf16x2(m[0] ? 0.f : v[0], m[1] ? 0.f : v[1]),
+                   bf16x2(m[2] ? 0.f : v[2], m[3] ? 0.f : v[3]));
+          mma_bf16(d1, ai, bh0, bh1);  // a_ii b_ij
+          mma_bf16(d2, ad, bf16x2(m[0] ? v[0] : 0.f, m[1] ? v[1] : 0.f),
+                   bf16x2(m[2] ? v[2] : 0.f, m[3] ? v[3] : 0.f));
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            p[2][c] = __fadd_rn(__fadd_rn(p[2][c], d1[c]), d2[c]);
+        } else {
+          mma_bf16(p[2], ah[ka], bh0, bh1);
+        }
       }
     }
     if (Inplace) tm.sync();

@@ -47,6 +47,9 @@ _SIGNATURES = {
     # block, shared bytes, stream
     "vsm_layer_step": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
                                    _I, _I, _I, _P],
+    # the same at "high", on the tensor cores
+    "vsm_layer_step_tc": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I,
+                                      _I, _I, _I, _I, _P],
     # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, row
     # stride, schedule, nd, ni, product mode, points per block, shared
     # bytes, stream
@@ -59,6 +62,9 @@ _SIGNATURES = {
     # product mode, points per block, shared bytes, stream
     "vsm_doubling": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
                                 _I, _P],
+    # the same at "high", on the tensor cores
+    "vsm_doubling_tc": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
+                                   _I, _I, _P],
     # tau, omega, tau_sum, zw, zpp_c, zmp_c, qp, wct2, i0, d, 6 composite
     # inputs, 6 outputs; S, n, row stride, nz, K, schedule, nd, ni, i_mu0_n,
     # n_stokes, mu0, mu0_node, wct02, points per block, shared bytes, stream
@@ -216,6 +222,71 @@ def team_launch_config(n: int, arena_floats, shared_floats: int = 0,
                      // per_point))
     return TeamLaunch(pts, 4 * (shared_floats + pts * arena_floats(n, ld)),
                       ld, tt)
+
+
+class TensorCorePlan(NamedTuple):
+    """A team kernel's tiling on the tensor cores at width n (``mm_tc`` in
+    csrc/rt_device.cuh): M and K pad to ``m_tiles`` tiles of 16 (the tile
+    class's NP / 16); warp w of a point's ``warps`` owns m tile w % m_tiles
+    and every ``warps_per_m_tile``-th 8-column tile from w // m_tiles;
+    ``col_tiles[k]`` 8-column tiles cover a product of k columns in
+    ``rounds[k]`` rounds (a warp's column tiles at most); ``k_read[l]``
+    says whether padded K index l reads the operands (l < n) or zeros.
+    ``launch`` is the kernel's launch at n. ``diag`` (``kTcDiag``): the
+    terms l = i and l = j mod n of output (i, j) leave the a_hi b_hi
+    pass's sum and are added to it after."""
+    m_tiles: int
+    padded: int
+    warps: int
+    warps_per_m_tile: int
+    col_tiles: dict
+    rounds: dict
+    k_read: tuple
+    launch: TeamLaunch
+    diag: bool = False
+
+
+def tensor_core_plan(n: int, launch: TeamLaunch, widths,
+                     classes=TILE_CLASSES, diag=False) -> TensorCorePlan:
+    """The tensor-core plan at width n of a kernel launched as ``launch``
+    whose (n x n) @ (n x k) products have the column counts ``widths``."""
+    np_ = tile_class(n, classes)[0]
+    m_tiles, warps = np_ // 16, launch.team_threads // 32
+    per_tile = warps // m_tiles
+    col_tiles = {k: -(-k // 8) for k in widths}
+    return TensorCorePlan(
+        m_tiles, 16 * m_tiles, warps, per_tile, col_tiles,
+        {k: -(-t // per_tile) for k, t in col_tiles.items()},
+        tuple(l < n for l in range(16 * m_tiles)), launch, diag)
+
+
+class Arena(NamedTuple):
+    """Offsets (floats) of the doubling phase's arena (``Arena`` in
+    csrc/rt_device.cuh) at width n and row stride ld: six n x ld squares
+    R, T, A, M0, M1, TMP, then JP and JM (round4(n) each), then W1 and W2
+    (n x w2, w2 = round4(2n + 2))."""
+    n: int
+    ld: int
+    w2: int
+    r: int
+    t: int
+    a: int
+    m0: int
+    m1: int
+    tmp: int
+    jp: int
+    jm: int
+    w1: int
+    w2_slot: int
+
+
+def arena(n: int, ld: int) -> Arena:
+    """The doubling arena's offsets at width n and row stride ld."""
+    sq, w2 = n * ld, round4(2 * n + 2)
+    jp = 6 * sq
+    w1 = jp + 2 * round4(n)
+    return Arena(n, ld, w2, 0, sq, 2 * sq, 3 * sq, 4 * sq, 5 * sq, jp,
+                 jp + round4(n), w1, w1 + n * w2)
 
 
 def doubling_arena_floats(n: int, ld: int) -> int:

@@ -27,7 +27,8 @@ import torch
 
 from vsmartmom_torch.core.precision import MATMUL_MODES, batch_mm, check_mode
 from vsmartmom_torch.cuda import build
-from vsmartmom_torch.cuda.layer_step_kernel import doubling_body
+from vsmartmom_torch.cuda.layer_step_kernel import (doubling_body,
+                                                    on_tensor_cores)
 
 #: kernel launches since the count was last reset (set it to 0 to reset)
 launches = 0
@@ -43,6 +44,28 @@ def launch_config(n: int) -> build.TeamLaunch:
     """Teams per block, dynamic shared-memory bytes, row stride and team
     threads at stream count n."""
     return build.team_launch_config(n, arena_floats)
+
+
+def entry_point(precision: str, n: int) -> str:
+    """The launch entry at ``precision`` and width n: ``vsm_doubling_tc``
+    (the tensor-core body) where the layer step's "high" runs on the tensor
+    cores (layer_step_kernel.on_tensor_cores: the same classes, for the
+    same reason), ``vsm_doubling`` (the body on the CUDA cores)
+    otherwise."""
+    return ("vsm_doubling_tc" if on_tensor_cores(precision, n)
+            else "vsm_doubling")
+
+
+def product_widths(n: int) -> tuple:
+    """The column counts k of the doubling's (n x n) @ (n x k) products."""
+    return (n, 2 * n + 2)
+
+
+def tc_plan(n: int) -> build.TensorCorePlan:
+    """The tensor-core body's plan at stream count n (a width of
+    layer_step_kernel.TC_CLASSES)."""
+    return build.tensor_core_plan(n, launch_config(n), product_widths(n),
+                                  diag=True)
 
 
 def doubling_bytes(n: int) -> int:
@@ -93,7 +116,7 @@ def fused_doubling(r, t, jp, jm, ek, *, ns_schedule,
             torch.empty_like(jm)]
     if s == 0:
         return tuple(outs)
-    err = build.lib().vsm_doubling(
+    err = getattr(build.lib(), entry_point(precision, n))(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
         s, n, ld, sched, len(ns_schedule), build.mode_code(precision), pts,
         smem, torch.cuda.current_stream(r.device).cuda_stream)

@@ -49,8 +49,6 @@ custom_jvp); no backward.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from vsmartmom_torch.core.precision import DD_MODES, batch_mm, check_mode
@@ -102,36 +100,11 @@ def product_widths(n: int) -> tuple:
 TC_BLOCK_BOUND = {16: 512, 32: 512, 48: 384, 64: 256, 80: 320}
 
 
-class TensorCorePlan(NamedTuple):
-    """The tensor-core body's tiling at width n (``mm_tc`` in
-    csrc/rt_device.cuh): M and K pad to ``m_tiles`` tiles of 16 (the tile
-    class's NP / 16); warp w of a point's ``warps`` owns m tile w % m_tiles
-    and every ``warps_per_m_tile``-th 8-column tile from w // m_tiles;
-    ``col_tiles[k]`` 8-column tiles cover a product of k columns in
-    ``rounds[k]`` rounds (a warp's column tiles at most); ``k_read[l]``
-    says whether padded K index l reads the operands (l < n) or zeros.
-    The arena and the launch are ``launch_config``'s."""
-    m_tiles: int
-    padded: int
-    warps: int
-    warps_per_m_tile: int
-    col_tiles: dict
-    rounds: dict
-    k_read: tuple
-    launch: build.TeamLaunch
-
-
-def tc_plan(n: int) -> TensorCorePlan:
-    """The tensor-core body's plan at stream count n (1 <= n <= max_n())."""
-    launch = launch_config(n)
-    np_ = build.tile_class(n, build.DEV_TILE_CLASSES)[0]
-    m_tiles, warps = np_ // 16, launch.team_threads // 32
-    per_tile = warps // m_tiles
-    col_tiles = {k: -(-k // 8) for k in product_widths(n)}
-    return TensorCorePlan(
-        m_tiles, 16 * m_tiles, warps, per_tile, col_tiles,
-        {k: -(-t // per_tile) for k, t in col_tiles.items()},
-        tuple(l < n for l in range(16 * m_tiles)), launch)
+def tc_plan(n: int) -> build.TensorCorePlan:
+    """The tensor-core body's plan at stream count n (1 <= n <= max_n();
+    build.tensor_core_plan over launch_config and product_widths)."""
+    return build.tensor_core_plan(n, launch_config(n), product_widths(n),
+                                  build.DEV_TILE_CLASSES)
 
 
 def max_n() -> int:

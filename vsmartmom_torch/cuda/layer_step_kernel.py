@@ -37,6 +37,8 @@ version's jvp the tangent (the JAX package's custom_jvp); no backward.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from vsmartmom_torch.core.precision import MATMUL_MODES, batch_mm, check_mode
@@ -62,6 +64,133 @@ def launch_config(n: int) -> build.TeamLaunch:
     threads at stream count n (the block shares the D diagonal,
     round4(n) floats)."""
     return build.team_launch_config(n, arena_floats, build.round4(n))
+
+
+#: the tile classes (padded width NP) whose "high" runs on the tensor cores
+#: (``high_on_tensor_cores`` in csrc/layer_step.cu); the wider classes keep
+#: the CUDA-core body at "high" (on_tensor_cores)
+TC_CLASSES = (16,)
+
+
+def on_tensor_cores(precision: str, n: int) -> bool:
+    """Whether the kernel at ``precision`` and width n runs its products on
+    the tensor cores: "high" in a class of TC_CLASSES. The plain form at
+    "high" moves by about as much when its sums change order as it lies
+    from "highest" (vsmartmom_torch/order_sensitivity.py --form plain): on
+    the CPU the wider classes' emulated orders moved by up to 1.4 times
+    that distance, so they keep the CUDA-core body, bit-equal to the plain
+    version."""
+    check_mode(precision, MATMUL_MODES)
+    return precision == "high" and build.tile_class(n)[0] in TC_CLASSES
+
+
+def entry_point(precision: str, n: int) -> str:
+    """The launch entry at ``precision`` and width n:
+    ``vsm_layer_step_tc`` (the tensor-core body) where on_tensor_cores,
+    ``vsm_layer_step`` (the body on the CUDA cores) otherwise."""
+    return ("vsm_layer_step_tc" if on_tensor_cores(precision, n)
+            else "vsm_layer_step")
+
+
+def x2_stride(n: int) -> int:
+    """Row stride of the interaction's X2 (``x2_stride`` in
+    csrc/layer_step.cu); X's is twice it."""
+    return build.round4(2 * n + 1)
+
+
+def product_widths(n: int) -> tuple:
+    """The column counts k of the step's (n x n) @ (n x k) products: the
+    doubling's n and 2n + 2, the interaction's n, 2n + 1 and the in-place
+    M [x1 | r2mp x2] of x2_stride(n) + 2n + 1."""
+    return (n, 2 * n + 1, 2 * n + 2, x2_stride(n) + 2 * n + 1)
+
+
+def tc_plan(n: int) -> build.TensorCorePlan:
+    """The tensor-core body's plan at stream count n (a width of
+    TC_CLASSES)."""
+    return build.tensor_core_plan(n, launch_config(n), product_widths(n),
+                                  diag=True)
+
+
+class Product(NamedTuple):
+    """One product of the step's arena (floats from the point's arena):
+    A (n x n at row stride lda) at ``a`` times B (n x k at ldb) at ``b``,
+    or with ``mv`` A times the vector at ``b``; ``writes``: the regions its
+    epilogue stores, each (offset, rows, columns, row stride); ``group``:
+    the products between two synchronisations; ``inplace``: it writes its
+    own B (in rounds, csrc/rt_device.cuh:mm_tc)."""
+    name: str
+    a: int
+    lda: int
+    b: int
+    ldb: int
+    k: int
+    writes: tuple
+    group: int
+    mv: bool = False
+    inplace: bool = False
+
+
+def tc_products(n: int, ld: int, step: bool = True) -> list:
+    """Every product of csrc/layer_step.cu's arena at width n and row
+    stride ld, in order, for each of the two slots T may be in (the
+    doubling swaps T and TMP each step) and, in the Newton-Schulz solves,
+    each parity of the iterates M0, M1: the doubling phase
+    (csrc/rt_device.cuh:doubling_phase), then with ``step`` the
+    interaction (X at W1, X2 after it, the composite's CRPM and CTMM at
+    step_composite_offset). Outputs to device memory are left out."""
+    o = build.arena(n, ld)
+    wx2 = x2_stride(n)
+    wx = 2 * wx2
+    x, x2 = o.w1, o.w1 + n * wx
+    crpm = o.w1 + max(2 * n * o.w2, 3 * n * wx2)
+    ctmm = crpm + n * ld
+    sq, col = (n, n, ld), (n, 1, 1)
+    out, group = [], [0]
+
+    def add(*products):
+        out.extend(Product(*p[:7], group[0], *p[7:]) for p in products)
+        group[0] += 1
+
+    def ns_then(last):
+        """Newton-Schulz from either iterate, then ``last(result)``."""
+        for cur, oth in ((o.m0, o.m1), (o.m1, o.m0)):
+            add(("A M", o.a, ld, cur, ld, n, ((o.tmp, *sq),)))
+            add(("M S", cur, ld, o.tmp, ld, n, ((oth, *sq),)))
+            last(oth)
+
+    for t, tmp in ((o.t, o.tmp), (o.tmp, o.t)):
+        o = o._replace(t=t, tmp=tmp)
+        add(("R R", o.r, ld, o.r, ld, n, ((o.a, *sq), (o.m0, *sq))))
+        ns_then(lambda m: (
+            add(("R T", o.r, ld, t, ld, n, ((o.w1, n, 2 * n, o.w2),)),
+                ("R JP", o.r, ld, o.jp, 1, 1,
+                 ((o.w1 + 2 * n, n, 1, o.w2),), True),
+                ("R J1M", o.r, ld, o.jm, 1, 1,
+                 ((o.w1 + 2 * n + 1, n, 1, o.w2),), True)),
+            add(("M W1", m, ld, o.w1, o.w2, 2 * n + 2,
+                 ((o.w2_slot, n, 2 * n + 2, o.w2),))),
+            add(("T W2", t, ld, o.w2_slot, o.w2, 2 * n + 2,
+                 ((o.r, *sq), (tmp, *sq), (o.jm, *col), (o.jp, *col))))))
+        if not step:
+            continue
+        # t2mm in TMP and c_jp in M1 until the solve takes their slots
+        add(("R X2", o.r, ld, x2, wx2, n, ((x, n, n, wx),)),
+            ("R CJP", o.r, ld, o.m1, 1, 1, ((x + 2 * n, n, 1, wx),), True),
+            ("CRPM T2", crpm, ld, tmp, ld, n, ((x2 + n, n, n, wx2),)),
+            ("CRPM JM", crpm, ld, o.jm, 1, 1, ((x2 + 2 * n, n, 1, wx2),),
+             True),
+            ("R CRPM", o.r, ld, crpm, ld, n, ((o.a, *sq), (o.m0, *sq))))
+        add(("R X2 wide", o.r, ld, x2, wx2, 2 * n + 1,
+             ((x + wx2, n, 2 * n + 1, wx),)))
+        ns_then(lambda m: (
+            add(("M X", m, ld, x, wx, wx2 + 2 * n + 1,
+                 ((x, n, wx2 + 2 * n + 1, wx),), False, True)),
+            add(("CTMM X", ctmm, ld, x, wx, 2 * n + 1, ()),
+                ("CRPM X", crpm, ld, x + wx2, wx, 2 * n + 1,
+                 ((x2, n, 2 * n + 1, wx2),))),
+            add(("T X2", t, ld, x2, wx2, 2 * n + 1, ()))))
+    return out
 
 
 def step_flops(n: int, ns_schedule, ni: int) -> int:
@@ -129,7 +258,13 @@ def fused_layer_step_plain(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, *,
     """Plain torch version of the kernel: the same doubling, unflip and
     push-through adding, one batched matmul at a time, each in
     ``precision``."""
-    mm = batch_mm(check_mode(precision))
+    return layer_step_body(comp, r_f, t, jp, jm_f, ek, d_vec, ns_schedule,
+                           ni, batch_mm(check_mode(precision)))
+
+
+def layer_step_body(comp: LayerRT, r_f, t, jp, jm_f, ek, d_vec, ns_schedule,
+                    ni: int, mm) -> LayerRT:
+    """fused_layer_step_plain's algebra with the product ``mm``."""
     r_f2, t2, jp2, jm_f2 = doubling_body(r_f, t, jp, jm_f, ek[:, None],
                                          ns_schedule, mm)
     d = d_vec[None, :]
@@ -220,7 +355,7 @@ def _launch(r_mp, r_pm, t_pp, t_mm, j_p, j_m, r_f, t, jp, jm_f, ek, d_vec,
         + [torch.empty_like(j_p) for _ in range(2)]
     if s == 0:
         return tuple(outs)
-    err = build.lib().vsm_layer_step(
+    err = getattr(build.lib(), entry_point(precision, n))(
         *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs),
         s, n, ld, sched, len(ns_schedule), int(ni),
         build.mode_code(precision), pts, smem,
