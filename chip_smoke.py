@@ -645,25 +645,35 @@ def build_phase(tag):
 
 
 #: the (row, reduced mode) pairs whose launches run on the tensor cores:
-#: row 3 at bf16x3 at every width, rows 1 and 4 at "high" where their
-#: wrappers route it there (on_tensor_cores)
+#: row 3 at bf16x3 at every width, rows 1 and 4 at "high" up to
+#: STEP_TC_MAX_N
 TC_MODES = (("kernel_dev", "bf16x3"), ("kernel", "high"),
             ("kernel_doubling", "high"))
+#: the widest N at which this script holds rows 1 and 4 at "high" as
+#: tensor-core launches (the N <= 16 class: a CPU emulation of the plain
+#: form summed in another order put every wider class above sep, PERF.md
+#: §6); at every other width and mode they are held bit-equal
+STEP_TC_MAX_N = 16
 
 
 def on_tensor_cores(engine, mode, n):
-    """Whether a launch of the row of ``engine`` at ``mode`` and width n
-    runs on the tensor cores: row 3 at bf16x3; rows 1 and 4 at "high" as
-    layer_step_kernel.on_tensor_cores says (the N <= 16 class). A tree
-    whose wrapper has no such routing (an older tree beside this script)
-    runs them on the CUDA cores."""
+    """Whether this script holds a launch of the row of ``engine`` at
+    ``mode`` and width n as a tensor-core launch: row 3 at bf16x3; rows 1
+    and 4 at "high" up to STEP_TC_MAX_N."""
     if (engine, mode) not in TC_MODES:
         return False
-    if engine == "kernel_dev":
-        return True
+    return engine == "kernel_dev" or n <= STEP_TC_MAX_N
+
+
+def check_step_routing():
+    """Fail if the wrappers of rows 1 and 4 route "high" to the tensor
+    cores at a width beyond STEP_TC_MAX_N."""
     from vsmartmom_torch.cuda import layer_step_kernel as lsk
-    route = getattr(lsk, "on_tensor_cores", None)
-    return route is not None and route(mode, n)
+    wide = [n for n in range(1, 64)
+            if lsk.on_tensor_cores("high", n) and n > STEP_TC_MAX_N]
+    check(not wide, f"rows 1 and 4 route \"high\" to the tensor cores at "
+          f"N = {wide}, beyond the N <= {STEP_TC_MAX_N} this script holds "
+          f"to sep")
 
 
 def reduced_ok(engine, mode, n, err, err_highest, sep):
@@ -1332,8 +1342,8 @@ def step_tc_line(name, label, mode, st, launches, tag, highest_ms,
 
 def step_tc_phase(torch, dev, tag):
     """Rows 1 (the layer step) and 4 (the doubling) at each mode of
-    ROW_MODES: "high" on the tensor-core bodies where their wrappers route
-    it (on_tensor_cores: the N <= 16 class), on the CUDA cores beyond;
+    ROW_MODES: "high" on the tensor-core bodies up to STEP_TC_MAX_N (held
+    as reduced_ok says), on the CUDA cores beyond (held bit-equal);
     "highest" and "default" on the CUDA cores. (a) The Float32 flagship
     (N = 15) through rt_run with engine kernel and kernel_doubling at
     matmul_precision=mode, the launch counts set to 0 just before each run
@@ -1468,12 +1478,13 @@ def step_tc_phase(torch, dev, tag):
 
 
 def step_tc_only():
-    """The build (phase 1) and step_tc_phase, on the card:
-    python3 -c 'import chip_smoke; chip_smoke.step_tc_only()'."""
+    """The build (phase 1), check_step_routing and step_tc_phase, on the
+    card: python3 -c 'import chip_smoke; chip_smoke.step_tc_only()'."""
     torch = setup()
     card = card_name()
     tag = f"[card: {card}]"
     build_phase(tag)
+    check_step_routing()
     entries = step_tc_phase(torch, torch.device("cuda:0"), tag)
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -3130,6 +3141,7 @@ def main():
 
     # ---- 1. build -----------------------------------------------------------
     build_phase(tag)
+    check_step_routing()
 
     # ---- 1b. the team kernels at every width class and its edges -----------
     widths, wide_ms = width_class_phase(torch, dev, lsk, dk, scn, lnk, ldk,

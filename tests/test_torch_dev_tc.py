@@ -23,6 +23,8 @@ from vsmartmom_torch.cuda import build
 from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
 from vsmartmom_torch.cuda import layer_step_kernel as lsk
 
+from test_torch_step_tc import tc_products
+
 
 @pytest.mark.parametrize("n", range(1, 76))
 def test_tc_plan_fits_hopper(n):
@@ -118,7 +120,7 @@ def _products(form, n):
     products of one arena layout at width n: the split form's (A at row
     stride ld, B at ld or the two-square slots' 2 ld, from offset 0), or
     every distinct operand layout of the plain form's step and doubling
-    (cuda/layer_step_kernel.py:tc_products: X, X2, W1, W2 and their
+    (tests/test_torch_step_tc.py:tc_products: X, X2, W1, W2 and their
     offsets in the step's arena)."""
     if form == "dev":
         plan = ldk.tc_plan(n)
@@ -128,7 +130,7 @@ def _products(form, n):
                                      (2 * n + 2, 2 * ld))]
     plan = lsk.tc_plan(n)
     seen = {}
-    for p in lsk.tc_products(n, plan.launch.ld):
+    for p in tc_products(n, plan.launch.ld):
         if not p.mv:
             seen.setdefault((p.name, p.lda, p.ldb, p.k),
                             (p.a, p.lda, p.b, p.ldb, p.k))

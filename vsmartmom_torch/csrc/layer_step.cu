@@ -248,15 +248,11 @@ layer_step_kernel_bf16(LAYER_STEP_PARAMS) {
   layer_step<C>(LAYER_STEP_ARGS);
 }
 
-// The tile classes whose "high" (bf16x3) runs on the tensor cores
-// (cuda/layer_step_kernel.py TC_CLASSES): the N <= 16 class alone. The
-// plain form at "high" moves by about as much when its sums change order as
-// it lies from "highest" (vsmartmom_torch/order_sensitivity.py --form
-// plain); the wider classes' emulated orders moved by up to 1.4 times that
-// distance, so they keep the body on the CUDA cores, whose fmaf chains sum
-// as the plain version does.
+// Whether class C has a tensor-core body: kTcDiag sums one k tile
+// (rt_device.cuh mm_tc), the N <= 16 class alone. Which widths take it is
+// the wrapper's choice (cuda/layer_step_kernel.py on_tensor_cores).
 template <class C>
-constexpr bool high_on_tensor_cores() {
+constexpr bool has_tc_body() {
   return C::NP == 16;
 }
 
@@ -395,10 +391,10 @@ int launch_doubling(Pick pick, DOUBLING_ENTRY_PARAMS) {
 
 // Launch one layer step on `stream`: ld is the arena's padded row stride
 // (>= n, a multiple of 4), mode the product mode (vsm::Mode),
-// pts_per_block the teams of a block. vsm_layer_step_tc takes "high" in the
-// classes of high_on_tensor_cores (the tensor-core body), vsm_layer_step
-// every other mode and class (the body on the CUDA cores); each refuses the
-// other's. Returns the cudaError_t of the launch (0 on success); the caller
+// pts_per_block the teams of a block. vsm_layer_step runs the body on the
+// CUDA cores at every mode and class, vsm_layer_step_tc the tensor-core body
+// at "high" (bf16x3) in the classes that have one (has_tc_body) and refuses
+// the rest. Returns the cudaError_t of the launch (0 on success); the caller
 // raises on anything else.
 extern "C" int vsm_layer_step(STEP_ENTRY_PARAMS) {
   return launch_step(
@@ -407,9 +403,8 @@ extern "C" int vsm_layer_step(STEP_ENTRY_PARAMS) {
         constexpr int M = decltype(m)::value;
         if constexpr (M == vsm::kHighest)
           return layer_step_kernel<C>;
-        else if constexpr (M == vsm::kBf16 || !high_on_tensor_cores<C>())
+        else
           return layer_step_kernel_bf16<vsm::WithMode<C, M>>;
-        return nullptr;
       },
       c_rmp, c_rpm, c_tpp, c_tmm, c_jp, c_jm, r_f, t, jp, jm_f, ek, d, o_rmp,
       o_rpm, o_tpp, o_tmm, o_jp, o_jm, S, n, ld, sched, nd, ni, mode,
@@ -421,7 +416,7 @@ extern "C" int vsm_layer_step_tc(STEP_ENTRY_PARAMS) {
       [](auto c, auto m) -> StepKernel {
         using C = decltype(c);
         if constexpr (decltype(m)::value == vsm::kBf16x3
-                      && high_on_tensor_cores<C>())
+                      && has_tc_body<C>())
           return layer_step_tc_kernel<vsm::WithTensorCores<C, vsm::kTcDiag>>;
         return nullptr;
       },
@@ -431,17 +426,15 @@ extern "C" int vsm_layer_step_tc(STEP_ENTRY_PARAMS) {
 }
 
 // Launch the doubling recursion alone on `stream`: (r, t, jp, jm) of S points
-// grown over the nd scheduled steps, products in `mode`. vsm_doubling_tc
-// takes "high" where vsm_layer_step_tc does, vsm_doubling the rest; each
-// refuses the other's. Returns the launch's cudaError_t.
+// grown over the nd scheduled steps, products in `mode`. vsm_doubling runs
+// the body on the CUDA cores at every mode and class, vsm_doubling_tc the
+// tensor-core body as vsm_layer_step_tc does. Returns the launch's
+// cudaError_t.
 extern "C" int vsm_doubling(DOUBLING_ENTRY_PARAMS) {
   return launch_doubling(
       [](auto c, auto m) -> DoublingKernel {
-        using C = decltype(c);
-        constexpr int M = decltype(m)::value;
-        if constexpr (M != vsm::kBf16x3 || !high_on_tensor_cores<C>())
-          return doubling_kernel<vsm::WithMode<C, M>>;
-        return nullptr;
+        return doubling_kernel<
+            vsm::WithMode<decltype(c), decltype(m)::value>>;
       },
       r_f, t, jp, jm_f, ek, o_r, o_t, o_jp, o_jm, S, n, ld, sched, nd, mode,
       pts_per_block, smem_bytes, stream);
@@ -452,7 +445,7 @@ extern "C" int vsm_doubling_tc(DOUBLING_ENTRY_PARAMS) {
       [](auto c, auto m) -> DoublingKernel {
         using C = decltype(c);
         if constexpr (decltype(m)::value == vsm::kBf16x3
-                      && high_on_tensor_cores<C>())
+                      && has_tc_body<C>())
           return doubling_tc_kernel<vsm::WithTensorCores<C, vsm::kTcDiag>>;
         return nullptr;
       },

@@ -47,9 +47,6 @@ _SIGNATURES = {
     # block, shared bytes, stream
     "vsm_layer_step": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
                                    _I, _I, _I, _P],
-    # the same at "high", on the tensor cores
-    "vsm_layer_step_tc": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I,
-                                      _I, _I, _I, _I, _P],
     # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, row
     # stride, schedule, nd, ni, product mode, points per block, shared
     # bytes, stream
@@ -62,9 +59,6 @@ _SIGNATURES = {
     # product mode, points per block, shared bytes, stream
     "vsm_doubling": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I, _I,
                                 _I, _P],
-    # the same at "high", on the tensor cores
-    "vsm_doubling_tc": [_P] * 9 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
-                                   _I, _I, _P],
     # tau, omega, tau_sum, zw, zpp_c, zmp_c, qp, wct2, i0, d, 6 composite
     # inputs, 6 outputs; S, n, row stride, nz, K, schedule, nd, ni, i_mu0_n,
     # n_stokes, mu0, mu0_node, wct02, points per block, shared bytes, stream
@@ -85,6 +79,10 @@ _SIGNATURES = {
     # stream
     "vsm_voigt": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _P, _P, _P],
 }
+# rows 1 and 4 at "high" on the tensor cores: the arguments of their
+# CUDA-core entries
+_SIGNATURES.update({name + "_tc": _SIGNATURES[name]
+                    for name in ("vsm_layer_step", "vsm_doubling")})
 
 _lib = None
 
@@ -258,35 +256,6 @@ def tensor_core_plan(n: int, launch: TeamLaunch, widths,
         m_tiles, 16 * m_tiles, warps, per_tile, col_tiles,
         {k: -(-t // per_tile) for k, t in col_tiles.items()},
         tuple(l < n for l in range(16 * m_tiles)), launch, diag)
-
-
-class Arena(NamedTuple):
-    """Offsets (floats) of the doubling phase's arena (``Arena`` in
-    csrc/rt_device.cuh) at width n and row stride ld: six n x ld squares
-    R, T, A, M0, M1, TMP, then JP and JM (round4(n) each), then W1 and W2
-    (n x w2, w2 = round4(2n + 2))."""
-    n: int
-    ld: int
-    w2: int
-    r: int
-    t: int
-    a: int
-    m0: int
-    m1: int
-    tmp: int
-    jp: int
-    jm: int
-    w1: int
-    w2_slot: int
-
-
-def arena(n: int, ld: int) -> Arena:
-    """The doubling arena's offsets at width n and row stride ld."""
-    sq, w2 = n * ld, round4(2 * n + 2)
-    jp = 6 * sq
-    w1 = jp + 2 * round4(n)
-    return Arena(n, ld, w2, 0, sq, 2 * sq, 3 * sq, 4 * sq, 5 * sq, jp,
-                 jp + round4(n), w1, w1 + n * w2)
 
 
 def doubling_arena_floats(n: int, ld: int) -> int:

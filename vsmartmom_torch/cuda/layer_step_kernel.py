@@ -37,8 +37,6 @@ version's jvp the tangent (the JAX package's custom_jvp); no backward.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from vsmartmom_torch.core.precision import MATMUL_MODES, batch_mm, check_mode
@@ -67,8 +65,9 @@ def launch_config(n: int) -> build.TeamLaunch:
 
 
 #: the tile classes (padded width NP) whose "high" runs on the tensor cores
-#: (``high_on_tensor_cores`` in csrc/layer_step.cu); the wider classes keep
-#: the CUDA-core body at "high" (on_tensor_cores)
+#: (the classes that have a tensor-core body, ``has_tc_body`` in
+#: csrc/layer_step.cu, take it); the wider classes keep the CUDA-core body at
+#: "high" (on_tensor_cores)
 TC_CLASSES = (16,)
 
 
@@ -110,87 +109,6 @@ def tc_plan(n: int) -> build.TensorCorePlan:
     TC_CLASSES)."""
     return build.tensor_core_plan(n, launch_config(n), product_widths(n),
                                   diag=True)
-
-
-class Product(NamedTuple):
-    """One product of the step's arena (floats from the point's arena):
-    A (n x n at row stride lda) at ``a`` times B (n x k at ldb) at ``b``,
-    or with ``mv`` A times the vector at ``b``; ``writes``: the regions its
-    epilogue stores, each (offset, rows, columns, row stride); ``group``:
-    the products between two synchronisations; ``inplace``: it writes its
-    own B (in rounds, csrc/rt_device.cuh:mm_tc)."""
-    name: str
-    a: int
-    lda: int
-    b: int
-    ldb: int
-    k: int
-    writes: tuple
-    group: int
-    mv: bool = False
-    inplace: bool = False
-
-
-def tc_products(n: int, ld: int, step: bool = True) -> list:
-    """Every product of csrc/layer_step.cu's arena at width n and row
-    stride ld, in order, for each of the two slots T may be in (the
-    doubling swaps T and TMP each step) and, in the Newton-Schulz solves,
-    each parity of the iterates M0, M1: the doubling phase
-    (csrc/rt_device.cuh:doubling_phase), then with ``step`` the
-    interaction (X at W1, X2 after it, the composite's CRPM and CTMM at
-    step_composite_offset). Outputs to device memory are left out."""
-    o = build.arena(n, ld)
-    wx2 = x2_stride(n)
-    wx = 2 * wx2
-    x, x2 = o.w1, o.w1 + n * wx
-    crpm = o.w1 + max(2 * n * o.w2, 3 * n * wx2)
-    ctmm = crpm + n * ld
-    sq, col = (n, n, ld), (n, 1, 1)
-    out, group = [], [0]
-
-    def add(*products):
-        out.extend(Product(*p[:7], group[0], *p[7:]) for p in products)
-        group[0] += 1
-
-    def ns_then(last):
-        """Newton-Schulz from either iterate, then ``last(result)``."""
-        for cur, oth in ((o.m0, o.m1), (o.m1, o.m0)):
-            add(("A M", o.a, ld, cur, ld, n, ((o.tmp, *sq),)))
-            add(("M S", cur, ld, o.tmp, ld, n, ((oth, *sq),)))
-            last(oth)
-
-    for t, tmp in ((o.t, o.tmp), (o.tmp, o.t)):
-        o = o._replace(t=t, tmp=tmp)
-        add(("R R", o.r, ld, o.r, ld, n, ((o.a, *sq), (o.m0, *sq))))
-        ns_then(lambda m: (
-            add(("R T", o.r, ld, t, ld, n, ((o.w1, n, 2 * n, o.w2),)),
-                ("R JP", o.r, ld, o.jp, 1, 1,
-                 ((o.w1 + 2 * n, n, 1, o.w2),), True),
-                ("R J1M", o.r, ld, o.jm, 1, 1,
-                 ((o.w1 + 2 * n + 1, n, 1, o.w2),), True)),
-            add(("M W1", m, ld, o.w1, o.w2, 2 * n + 2,
-                 ((o.w2_slot, n, 2 * n + 2, o.w2),))),
-            add(("T W2", t, ld, o.w2_slot, o.w2, 2 * n + 2,
-                 ((o.r, *sq), (tmp, *sq), (o.jm, *col), (o.jp, *col))))))
-        if not step:
-            continue
-        # t2mm in TMP and c_jp in M1 until the solve takes their slots
-        add(("R X2", o.r, ld, x2, wx2, n, ((x, n, n, wx),)),
-            ("R CJP", o.r, ld, o.m1, 1, 1, ((x + 2 * n, n, 1, wx),), True),
-            ("CRPM T2", crpm, ld, tmp, ld, n, ((x2 + n, n, n, wx2),)),
-            ("CRPM JM", crpm, ld, o.jm, 1, 1, ((x2 + 2 * n, n, 1, wx2),),
-             True),
-            ("R CRPM", o.r, ld, crpm, ld, n, ((o.a, *sq), (o.m0, *sq))))
-        add(("R X2 wide", o.r, ld, x2, wx2, 2 * n + 1,
-             ((x + wx2, n, 2 * n + 1, wx),)))
-        ns_then(lambda m: (
-            add(("M X", m, ld, x, wx, wx2 + 2 * n + 1,
-                 ((x, n, wx2 + 2 * n + 1, wx),), False, True)),
-            add(("CTMM X", ctmm, ld, x, wx, 2 * n + 1, ()),
-                ("CRPM X", crpm, ld, x + wx2, wx, 2 * n + 1,
-                 ((x2, n, 2 * n + 1, wx2),))),
-            add(("T X2", t, ld, x2, wx2, 2 * n + 1, ()))))
-    return out
 
 
 def step_flops(n: int, ns_schedule, ni: int) -> int:

@@ -6,13 +6,9 @@ csrc/rt_device.cuh:mm_tc) cannot equal the plain version bit for bit; this
 tool shows how far apart two such orders land, on the CPU, before any
 kernel exists. It runs a step's algebra twice at one mode: with torch's
 products (the plain version) and with every bf16 pass summed in float64
-and rounded once to float32 (``--tensor-cores G``: as a model of the
-tensor-core body's sum instead, the exact products aligned to the largest
-and cut toward zero to 24 + G bits, the a_hi b_hi pass's diagonal terms
-added after as the kernels of rows 1 and 4 add them, or with
-``--whole-tile`` inside the tile's sum; N <= 16). ``--form dev`` (the default)
-takes ``fused_layer_step_dev``'s algebra (core.rt doubling_dev, the
-D-unflip and interaction_dev); ``--form plain`` takes
+and rounded once to float32. ``--form dev`` (the default) takes
+``fused_layer_step_dev``'s algebra (core.rt doubling_dev, the D-unflip and
+interaction_dev); ``--form plain`` takes
 ``fused_layer_step_plain``'s and ``fused_doubling_plain``'s (rows 1 and
 4). The inputs are chip_smoke.py's width cases: S points of a passive
 random slab (``--seed``, 6 doublings unless ``--doublings`` says
@@ -28,8 +24,7 @@ the two orders land about as far apart as "high" lies from "highest".
 
     python3 -m vsmartmom_torch.order_sensitivity [--form dev|plain]
         [--widths N ...] [--points S] [--doublings ND] [--modes M ...]
-        [--seed SEED] [--tensor-cores G [--whole-tile]]
-        [--flagship EVERY]
+        [--seed SEED] [--flagship EVERY]
 
 prints one JSON line per width and mode: each field's max|diff| / max
 between the two orders (the plain form: the step's fields, then the
@@ -73,64 +68,19 @@ def _once(a, b):
     return torch.matmul(a.double(), b.double()).float()
 
 
-def _toward_zero(x):
-    """float64 x rounded toward zero to float32."""
-    f = x.float()
-    return torch.where(f.double().abs() > x.abs(),
-                       torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def _tensor_core_sum(guard: int, diag: bool = True):
-    """a @ b of bf16 values (K <= 16: one mma tile) as a model of the
-    tensor-core body's sum: the exact products aligned to the largest one's
-    exponent and each cut toward zero to 24 + ``guard`` bits, summed, the
-    sum cut toward zero to float32; with ``diag`` (kTcDiag's a_hi b_hi
-    pass, the kernels of rows 1 and 4) the terms l = i and l = j mod n left
-    out of that sum and added to it after, each rounded to nearest. Points
-    in chunks of 64."""
-    def once(a, b):
-        n, k = a.shape[-1], b.shape[-1]
-        if n > 16:
-            raise ValueError("the tensor-core model takes K <= 16")
-        i, l, j = (torch.arange(n)[:, None, None],
-                   torch.arange(n)[None, :, None],
-                   torch.arange(k)[None, None, :])
-        first = (l == i) & diag
-        second = (l == j % n) & (l != i) & diag
-        out = []
-        for s in range(0, a.shape[0], 64):
-            p = (a[s:s + 64].double()[..., :, :, None]
-                 * b[s:s + 64].double()[..., None, :, :])
-            rest = torch.where(first | second, torch.zeros_like(p), p)
-            _, e = torch.frexp(rest.abs().amax(dim=-2, keepdim=True))
-            q = torch.ldexp(torch.ones_like(e, dtype=p.dtype), e - 24 - guard)
-            acc = _toward_zero((torch.trunc(rest / q) * q).sum(dim=-2))
-            for term in (first, second):
-                acc = (acc.double()
-                       + torch.where(term, p, torch.zeros_like(p)).sum(-2)
-                       ).float()
-            out.append(acc)
-        return torch.cat(out)
-    return once
-
-
-def exact_sum_mm(mode: str, guard=None, diag=True):
+def exact_sum_mm(mode: str):
     """core.precision.batch_mm's function at ``mode`` with each pass summed
-    in float64 and rounded once (another order than torch's); with
-    ``guard`` each pass's sum is _tensor_core_sum(guard)'s instead, the
-    a_hi b_hi pass's with ``diag`` as the kernels of rows 1 and 4 sum it."""
+    in float64 and rounded once (another order than torch's)."""
     check_mode(mode, DD_MODES + ("high",))
-    once = _once if guard is None else _tensor_core_sum(guard, False)
-    main = _once if guard is None else _tensor_core_sum(guard, diag)
 
     def mm(a, b):
         if mode == "highest":
-            return once(a, b)
+            return _once(a, b)
         ah, al = _split(a)
         bh, bl = _split(b)
         if mode == "default":
-            return main(ah, bh)
-        return (once(ah, bl) + once(al, bh)) + main(ah, bh)
+            return _once(ah, bh)
+        return (_once(ah, bl) + _once(al, bh)) + _once(ah, bh)
     return mm
 
 
@@ -231,8 +181,7 @@ def plain_width_case(n: int, S: int, seed: int = 1, nd: int = 6):
 
 
 def plain_sensitivity(n: int, S: int, mode: str = "high", ni: int = 3,
-                      nd: int = 6, seed: int = 1, guard=None,
-                      diag=True) -> dict:
+                      nd: int = 6, seed: int = 1) -> dict:
     """sensitivity() of the plain form (rows 1 and 4): the step's fields,
     and the doubling's (r, t, jp, jm) under "doubling", each between
     torch's order and the exact-sum order at ``mode``; the plain
@@ -240,7 +189,7 @@ def plain_sensitivity(n: int, S: int, mode: str = "high", ni: int = 3,
     check_mode(mode, FORM_MODES["plain"][1])
     args, sched = plain_width_case(n, S, seed, nd)
     el = args[1:6]
-    alt_mm = exact_sum_mm(mode, guard, diag)
+    alt_mm = exact_sum_mm(mode)
 
     def step(precision):
         return fused_layer_step_plain(*args, ns_schedule=sched, ni=ni,
@@ -255,7 +204,7 @@ def plain_sensitivity(n: int, S: int, mode: str = "high", ni: int = 3,
     alt = layer_step_body(*args, sched, ni, alt_mm)
     alt_d = doubling_body(*el[:4], el[4][:, None], sched, alt_mm)
     return {"n": n, "S": S, "mode": mode, "form": "plain", "nd": nd,
-            "seed": seed, "guard": guard, "diag": diag,
+            "seed": seed,
             "fields": {k: _rel(a, b) for k, a, b
                        in zip(LayerRT._fields, alt, ref)},
             "doubling": {k: _rel(a, b) for k, a, b
@@ -266,14 +215,14 @@ def plain_sensitivity(n: int, S: int, mode: str = "high", ni: int = 3,
             "doubling_alt_from_highest": _worst(alt_d, full_d)}
 
 
-def flagship_sensitivity(every: int = 20, mode: str = "high", guard=None,
-                         diag=True) -> dict:
+def flagship_sensitivity(every: int = 20, mode: str = "high") -> dict:
     """The plain form on the flagship's own launches: default_parameters()
     in Float32 on the CPU, every ``every``-th spectral point, through
     rt_run_band at the schulz solver's schedules (those of the card) with
-    engine "kernel" (row 1) and "kernel_doubling" (row 4) at ``mode``. For each launch, its worst field between torch's order and
-    the exact-sum order, and the plain version's worst field between
-    ``mode`` and "highest", on that launch's inputs. Returns, per engine,
+    engine "kernel" (row 1) and "kernel_doubling" (row 4) at ``mode``. For
+    each launch, its worst field between torch's order and the exact-sum
+    order, and the plain version's worst field between ``mode`` and
+    "highest", on that launch's inputs. Returns, per engine,
     the largest of each, the largest ratio of the first to the second,
     and to the exact-sum order's own distance from "highest"
     ("ratio_to_alt": below 1, the exact-sum order lies nearer the plain
@@ -287,7 +236,7 @@ def flagship_sensitivity(every: int = 20, mode: str = "high", guard=None,
     params.float_type = "Float32"
     params.spec_bands = [params.spec_bands[0][::every]]
     model = vt.model_from_parameters(params, device="cpu")
-    alt_mm = exact_sum_mm(mode, guard, diag)
+    alt_mm = exact_sum_mm(mode)
     out = {}
 
     def step_alt(comp, r_f, t, jp, jm_f, ek, d_vec, *, ns_schedule, ni,
@@ -329,8 +278,7 @@ def flagship_sensitivity(every: int = 20, mode: str = "high", guard=None,
                        "ratio_to_alt": max(r[0] / max(r[2], 1e-30)
                                            for r in recs)}
     return {"path": "flagship", "points": len(params.spec_bands[0]),
-            "n": len(model.quad_points.qp_mu_n), "mode": mode,
-            "guard": guard, "diag": diag, **out}
+            "n": len(model.quad_points.qp_mu_n), "mode": mode, **out}
 
 
 def main(argv=None):
@@ -341,23 +289,14 @@ def main(argv=None):
     ap.add_argument("--doublings", type=int, default=6)
     ap.add_argument("--modes", nargs="+")
     ap.add_argument("--seed", type=int, default=1)
-    ap.add_argument("--tensor-cores", type=int, metavar="GUARD",
-                    help="the plain form's other order: the tensor cores' "
-                         "sum, products aligned to the largest and cut to "
-                         "24 + GUARD bits (N <= 16), the diagonal terms "
-                         "added after (the kernels of rows 1 and 4)")
-    ap.add_argument("--whole-tile", action="store_true",
-                    help="with --tensor-cores: every term in the tile's "
-                         "sum, the diagonal ones too")
     ap.add_argument("--flagship", type=int, metavar="EVERY",
                     help="the plain form on the flagship's launches at "
                          "every EVERY-th point instead of the widths")
     args = ap.parse_args(argv)
     if args.flagship:
         for mode in args.modes or FORM_MODES["plain"][0]:
-            print(json.dumps(flagship_sensitivity(
-                args.flagship, mode, args.tensor_cores,
-                not args.whole_tile)), flush=True)
+            print(json.dumps(flagship_sensitivity(args.flagship, mode)),
+                  flush=True)
         return
     widths = args.widths or (WIDTHS if args.form == "dev" else PLAIN_WIDTHS)
     modes = args.modes or FORM_MODES[args.form][0]
@@ -367,9 +306,7 @@ def main(argv=None):
                                seed=args.seed)
                    if args.form == "dev" else
                    plain_sensitivity(n, args.points, mode, nd=args.doublings,
-                                     seed=args.seed,
-                                     guard=args.tensor_cores,
-                                     diag=not args.whole_tile))
+                                     seed=args.seed))
             print(json.dumps(rec), flush=True)
 
 
