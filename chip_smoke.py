@@ -85,7 +85,7 @@ Run from the repository root:  python3 chip_smoke.py
    layers, 3 moments, merged spectral albedo): the model build with the
    launch counts reset just before (one Voigt launch per band and molecule
    with lines: 3) and rt_run(model, i_band=[0, 1, 2]) under auto (102
-   layer-step launches and nothing else), its stage spans, then
+   layer-step launches and nothing else), its host stage spans, then
    kernel_scan, kernel_dev and kernel_lanes with launch counts, each
    within 1e-3 of the float64 torch engine; kernel_dev at dd_precision
    "bf16x3" (the tensor-core body: 102 launches, counted, every launch
@@ -525,6 +525,66 @@ def ad_only():
     torch = setup()
     ad_phase(torch, torch.device("cuda:0"), f"[card: {card_name()}]",
              reset_counts, counts)
+
+
+def span_clock_only():
+    """The stage spans against the profiler's clock on the card: the
+    headline shape through the kernel engine (30 layer steps) under a
+    profiler of the device's activity alone (the benchmark's); each
+    ``layer_step`` span must hold its launch's cudaLaunchKernel runtime
+    event, matched to the launch by correlation id. One JSON line: the
+    spans, launches and launches held, the offsets of the launch's start
+    after the span's start and of the span's end after the launch's end
+    (min, median, max, microseconds), and whether the profiler probe read
+    True:
+    python3 -c 'import chip_smoke; chip_smoke.span_clock_only()'."""
+    torch = setup()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vsmartmom_torch.core.rt_run import rt_run_band
+    from vsmartmom_torch.util import timing
+    dev = torch.device("cuda:0")
+    pol, quad, band, surf = headline_shape()
+
+    def run():
+        rt_run_band(pol, quad, band, [0.0, 30.0], [0.0, 0.0], 3, surf,
+                    dtype=torch.float32, device=dev, engine="kernel")
+    run()                                      # build and warm-up
+    torch.cuda.synchronize()
+    timing.reset_timer()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    probe = torch.autograd._profiler_enabled()
+    run()
+    torch.cuda.synchronize()
+    prof.stop()
+    steps = [sp for sp in timing.spans() if sp.name == "layer_step"]
+    events = list(prof.profiler.kineto_results.events())
+    kernel = {e.correlation_id() for e in events
+              if e.device_type() == DeviceType.CUDA
+              and "layer_step_kernel" in e.name()}
+    launches = [e for e in events if e.device_type() == DeviceType.CPU
+                and e.name().startswith("cudaLaunchKernel")
+                and e.correlation_id() in kernel]
+    before, after = [], []
+    for e in launches:
+        held = [sp for sp in steps
+                if sp.start_ns <= e.start_ns() and e.end_ns() <= sp.end_ns]
+        if held:
+            before.append((e.start_ns() - held[0].start_ns) / 1e3)
+            after.append((held[0].end_ns - e.end_ns()) / 1e3)
+
+    def spread(xs):
+        return [float(np.min(xs)), float(np.median(xs)), float(np.max(xs))] \
+            if xs else None
+    print(json.dumps({"card": card_name(), "profiler_probe": probe,
+                      "layer_step_spans": len(steps),
+                      "launches": len(launches), "held": len(before),
+                      "launch_after_span_start_us": spread(before),
+                      "span_end_after_launch_us": spread(after)}))
+    check(probe and len(steps) == len(launches) == len(before) == 30,
+          "a layer_step span does not hold its launch's cudaLaunchKernel")
 
 
 def kernel_times(shapes=("flagship", "co2_hapi", "headline")):
@@ -1587,7 +1647,7 @@ def three_band_phase(torch, dev, tag, reset_counts, counts, works):
         timing.enable_timer(False)
     report = timing.timer_report().replace("\n", " | ")
     print(f"3-band auto: rt_run first {t_first:.3f} s, steady {t_auto:.3f} "
-          f"s = {n_spec / t_auto:.1f} points/s; spans (synchronised): "
+          f"s = {n_spec / t_auto:.1f} points/s; host spans: "
           f"{report} {tag}")
 
     # the float64 torch engine at the same Newton-Schulz schedules

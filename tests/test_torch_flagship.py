@@ -6,16 +6,20 @@ Tolerances: the model build (absorption, Rayleigh and aerosol optical
 depths, aerosol Greek coefficients) at rtol 1e-10; radiances R and T at
 rtol 1e-8 (34 layers of doubling and adding in another summation order).
 """
+import collections
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import vsmartmom as jax_pkg
 
 import vsmartmom_torch as port
 from vsmartmom_torch.core.model import model_from_arrays
+from vsmartmom_torch.util import timing
 
 torch.set_num_threads(2)
 
@@ -105,3 +109,38 @@ def test_kernel_engines_on_flagship_window(flagship):
     assert np.abs(R32 - R64).max() / np.abs(R64).max() < 1e-3
     # the schedules' quantized (finer) doubling stays inside the 6SV1 gate
     assert np.abs(R64 - tR).max() / np.abs(tR).max() < 6e-3
+
+
+def test_rt_run_span_tree(flagship):
+    """Under a profiler, a forward call through rt_run (the flagship cut to
+    three points) records one call: the root rt_run holds band_inputs,
+    schedules, to_device and each moment's Z moments, fourier step, fetch
+    and synthesis; each fourier step an elemental and a layer_step span a
+    layer, then surface."""
+    _, _, tm, _ = flagship
+    cut = dataclasses.replace(
+        tm, params=dataclasses.replace(tm.params,
+                                       spec_bands=[WINDOW[:3].copy()]),
+        tau_abs=[tm.tau_abs[0][:3]], tau_rayl=[tm.tau_rayl[0][:3]])
+    saved = list(timing._SPANS)
+    timing._SPANS.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            R, _ = port.rt_run(cut, device="cpu")
+        spans = timing.spans()
+    finally:
+        timing._SPANS[:] = saved
+    assert R.shape == (9, 1, 3)
+    children = collections.defaultdict(list)
+    for sp in sorted(spans, key=lambda sp: sp.start_ns):
+        children[sp.parent].append(sp)
+    [root] = children[None]
+    assert root.name == "rt_run" and {sp.call for sp in spans} == {root.id}
+    max_m, n_z = tm.params.max_m, tm.profile.n_layers
+    assert [sp.name for sp in children[root.id]] \
+        == ["band_inputs", "schedules", "to_device"] + [
+            "Z moments", "fourier step (layer scan + surface)",
+            "postprocessing (device fetch)", "synthesis"] * max_m
+    for sp in children[root.id][4::4]:
+        assert [c.name for c in children[sp.id]] \
+            == ["elemental", "layer_step"] * n_z + ["surface"]

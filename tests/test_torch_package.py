@@ -162,6 +162,8 @@ JAX_ONLY = {
         "_mie_ab_jax", "greek_stack_jax"},
     # its twin here is compute_Z_moments_torch
     "scattering/phase.py": {"compute_Z_moments_jax"},
+    # the port's loops draw no bars
+    "util/logging.py": {"progress"},
     "spectroscopy/voigt.py": {
         # the jitted line-sum body of absorption_cross_section
         "_xsec_kernel"},

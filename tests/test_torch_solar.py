@@ -5,14 +5,16 @@ Tolerances: Planck spectra, photon conversion and the solar transmission
 and spectrum at rtol 1e-12 (the same numpy arithmetic on the same
 data/solar/solar.out); the timer's and the reports' text equal as strings
 where the JAX output is deterministic (no timing data, a report of given
-stage statistics, the span names rt_run_band records, describe_parameters
-and describe_model).
+stage statistics, the JAX package's span names among those rt_run_band
+records, describe_parameters and describe_model); the port's span tree.
 """
+import collections
 import copy
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import vsmartmom as jax_pkg
 from vsmartmom import solar as jsolar
@@ -40,6 +42,7 @@ torch.set_num_threads(2)
 
 #: the Na D doublet and the K I line at 12 985 cm^-1
 GRIDS = [np.arange(16950.0, 16990.0, 0.01), np.arange(12980.0, 12990.0, 0.01)]
+FOURIER = "fourier step (layer scan + surface)"
 
 
 @pytest.mark.parametrize("T", [290.0, 1000.0, 3777.0, 5777.0])
@@ -98,7 +101,8 @@ def test_solar_transmission_without_file(monkeypatch, tmp_path):
 @pytest.fixture
 def timers():
     """Both timers emptied, the port's enabled; both restored after."""
-    saved = (dict(jtiming._STATS), dict(ttiming._STATS), ttiming._ENABLED)
+    saved = (dict(jtiming._STATS), dict(ttiming._STATS), ttiming._ENABLED,
+             list(ttiming._SPANS))
     jtiming.reset_timer()
     ttiming.reset_timer()
     ttiming.enable_timer()
@@ -107,6 +111,7 @@ def timers():
     for mod, stats in ((jtiming, saved[0]), (ttiming, saved[1])):
         mod.reset_timer()
         mod._STATS.update(stats)
+    ttiming._SPANS.extend(saved[3])
 
 
 def test_timer_reports_match_jax(timers):
@@ -121,21 +126,49 @@ def test_timer_reports_match_jax(timers):
 
 
 def test_rt_run_band_spans_match_jax(timers):
-    """rt_run_band records the JAX package's three spans, once a moment;
-    disabled, the timer records nothing."""
-    band = dict(tau=np.full((1, 2), 0.2), omega=np.ones((1, 2)),
-                zw=np.ones((1, 1, 2)))
+    """rt_run_band records the JAX package's three stage spans once a
+    moment, among the port's own. Under a profiler the port's span tree:
+    the driver's stages in order, each moment's fourier step holding an
+    elemental and a layer_step span a layer and then its surface span,
+    every span inside its parent and of its root's call. Disabled, the
+    timer records nothing."""
+    n_z, max_m = 2, 3
+    band = dict(tau=np.full((n_z, 2), 0.2), omega=np.ones((n_z, 2)),
+                zw=np.ones((n_z, 1, 2)))
     surf = {"type": "LambertianSurfaceScalar", "albedo": 0.1}
     jax_rt_run_band(JaxPol.from_name("Stokes_I"),
                     jax_streams("GaussQuadFullSphere", 8, 30.0, [0.0], 1),
                     JaxBand(**band, greeks=[jax_greek(0.0)]), [0.0], [0.0],
-                    3, surf)
-    rt_run_band(Polarization.from_name("Stokes_I"),
-                rt_set_streams("GaussQuadFullSphere", 8, 30.0, [0.0], 1),
-                BandRTInputs(**band, greeks=[get_greek_rayleigh(0.0)]),
-                [0.0], [0.0], 3, surf, device="cpu")
-    assert list(ttiming._STATS) == list(jtiming._STATS)
-    assert [v[0] for v in ttiming._STATS.values()] == [3, 3, 3]
+                    max_m, surf)
+    with profile(activities=[ProfilerActivity.CPU]):
+        rt_run_band(Polarization.from_name("Stokes_I"),
+                    rt_set_streams("GaussQuadFullSphere", 8, 30.0, [0.0], 1),
+                    BandRTInputs(**band, greeks=[get_greek_rayleigh(0.0)]),
+                    [0.0], [0.0], max_m, surf, device="cpu")
+    stages = ["Z moments", FOURIER, "postprocessing (device fetch)"]
+    assert list(jtiming._STATS) == stages
+    assert [ttiming._STATS[k][0] for k in stages] \
+        == [jtiming._STATS[k][0] for k in stages] == [max_m] * 3
+
+    spans = ttiming.spans()
+    by_id = {sp.id: sp for sp in spans}
+    children = collections.defaultdict(list)
+    for sp in sorted(spans, key=lambda sp: sp.start_ns):
+        children[sp.parent].append(sp)
+        if sp.parent is None:
+            assert sp.call == sp.id
+        else:
+            up = by_id[sp.parent]
+            assert sp.call == up.call
+            assert up.start_ns <= sp.start_ns <= sp.end_ns <= up.end_ns
+    assert [sp.name for sp in children[None]] == ["schedules", "to_device"] \
+        + [stages[0], FOURIER, stages[2], "synthesis"] * max_m
+    steps = [sp for sp in children[None] if sp.name == FOURIER]
+    for sp in steps:
+        assert [c.name for c in children[sp.id]] \
+            == ["elemental", "layer_step"] * n_z + ["surface"]
+    assert {sp.name for sp in spans if children[sp.id]} == {FOURIER}
+
     ttiming.reset_timer()
     ttiming.enable_timer(False)
     rt_run_band(Polarization.from_name("Stokes_I"),
@@ -143,6 +176,7 @@ def test_rt_run_band_spans_match_jax(timers):
                 BandRTInputs(**band, greeks=[get_greek_rayleigh(0.0)]),
                 [0.0], [0.0], 1, surf, device="cpu")
     assert ttiming.timer_report() == "(no timing data)"
+    assert ttiming.spans() == []
 
 
 def _params(pkg):

@@ -16,6 +16,7 @@ from vsmartmom_torch.core.rt_raman import rt_run_band_rrs
 from vsmartmom_torch.core.rt_run import BandRTInputs, rt_run_band
 from vsmartmom_torch.inelastic import make_rrs_profile, make_vs
 from vsmartmom_torch.util.device import DEFAULT_DEVICE
+from vsmartmom_torch.util.timing import timeit
 
 
 def build_band_inputs(model: RTModel, i_band: int,
@@ -221,7 +222,8 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
         specs = _raman_specs(model, ib, rs_type)
         cab = min((getattr(s, "omega_cabannes", 1.0) for s in specs),
                   default=1.0)
-        band = build_band_inputs(model, ib, omega_cabannes=cab)
+        with timeit("band_inputs"):
+            band = build_band_inputs(model, ib, omega_cabannes=cab)
         # Raman source strength: full Rayleigh fraction of the layer
         f_rayl = model.tau_rayl[ib].T / np.maximum(band.tau, 1e-300)
         return rt_run_band_rrs(
@@ -230,14 +232,20 @@ def rt_run(model: RTModel, i_band: Union[int, Sequence[int]] = 0,
             _band_surface(model, ib), dtype=dtype, device=device,
             ie_precision=ie_precision)
 
-    if not elastic_only:
-        outs = [run_raman(ib) for ib in bands]
-    else:
-        if len(bands) > 1:
-            surface = _concat_surface(model, bands)
-            if surface is not None:
-                return run(concat_band_inputs(model, bands), surface)
-        outs = [run(build_band_inputs(model, ib), _band_surface(model, ib))
-                for ib in bands]
-    return tuple(np.concatenate([o[i] for o in outs], axis=-1)
-                 for i in range(len(outs[0])))
+    with timeit("rt_run"):
+        if not elastic_only:
+            outs = [run_raman(ib) for ib in bands]
+        else:
+            if len(bands) > 1:
+                surface = _concat_surface(model, bands)
+                if surface is not None:
+                    with timeit("band_inputs"):
+                        band = concat_band_inputs(model, bands)
+                    return run(band, surface)
+            outs = []
+            for ib in bands:
+                with timeit("band_inputs"):
+                    band = build_band_inputs(model, ib)
+                outs.append(run(band, _band_surface(model, ib)))
+        return tuple(np.concatenate([o[i] for o in outs], axis=-1)
+                     for i in range(len(outs[0])))

@@ -28,6 +28,7 @@ from vsmartmom_torch.core.rt_run import (_fourier_step, _per_layer_schedules,
 from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 from vsmartmom_torch.util.quadrature import QuadPoints
+from vsmartmom_torch.util.timing import timeit
 
 #: the engines torch.func.jacfwd passes through, with their JAX
 #: counterparts: torch [xla], torch_dev [xla_dev], kernel [pallas_step],
@@ -109,21 +110,24 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
         quad.mu0, quad.qp_mu_n[quad.i_mu0_n], np.min(quad.qp_mu)))
 
     def radiance(tau, omega, zw, albedo):
-        albedo = torch.as_tensor(albedo, dtype=dtype, device=device)
-        R = torch.zeros((len(vza), n_stokes, n_spec), dtype=dtype,
-                        device=device)
-        with precision.matmul_precision("highest"):
+        with timeit("radiance"), precision.matmul_precision("highest"):
+            albedo = torch.as_tensor(albedo, dtype=dtype, device=device)
+            R = torch.zeros((len(vza), n_stokes, n_spec), dtype=dtype,
+                            device=device)
             for m in range(max_m):
-                comp, _ = _fourier_step(
-                    tau, omega, zw, z_pp[m], z_mp[m], qp, wt, d_vec, i0,
-                    albedo, None, mu0, mu0_node, min_mu,
-                    i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes, is_m0=(m == 0),
-                    solver=solver, layer_schedules=schedules, engine=engine,
-                    matmul_precision=matmul_precision,
-                    dd_precision=dd_precision)
-                j_m = comp.j_m[:, gather]        # (nSpec, n_vza, n_stokes)
-                R = R + csw[m][:, :, None] * j_m.permute(1, 2, 0)
-        return R
+                with timeit("fourier step (layer scan + surface)"):
+                    comp, _ = _fourier_step(
+                        tau, omega, zw, z_pp[m], z_mp[m], qp, wt, d_vec, i0,
+                        albedo, None, mu0, mu0_node, min_mu,
+                        i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
+                        is_m0=(m == 0), solver=solver,
+                        layer_schedules=schedules, engine=engine,
+                        matmul_precision=matmul_precision,
+                        dd_precision=dd_precision)
+                with timeit("synthesis"):
+                    j_m = comp.j_m[:, gather]    # (nSpec, n_vza, n_stokes)
+                    R = R + csw[m][:, :, None] * j_m.permute(1, 2, 0)
+            return R
 
     return radiance
 

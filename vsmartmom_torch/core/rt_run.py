@@ -201,11 +201,12 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                 raise ValueError(f"bucket at layer {start}: NS schedule of "
                                  f"{len(sched)} steps, ndoubl {nd}")
             sl = slice(start, start + count)
-            comp = fused_layer_scan(
-                comp, tau[sl], omega[sl], zw[sl], tau_sum_all[sl], z_pp_c,
-                z_mp_c, qp, wct2, i0_vec, d_vec, mu0_h, mu0_node_h,
-                0.5 if is_m0 else 0.25, ns_schedule=sched, i_mu0_n=i_mu0_n,
-                n_stokes=n_stokes, inter_iters=ni)
+            with timeit("layer_step"):
+                comp = fused_layer_scan(
+                    comp, tau[sl], omega[sl], zw[sl], tau_sum_all[sl],
+                    z_pp_c, z_mp_c, qp, wct2, i0_vec, d_vec, mu0_h,
+                    mu0_node_h, 0.5 if is_m0 else 0.25, ns_schedule=sched,
+                    i_mu0_n=i_mu0_n, n_stokes=n_stokes, inter_iters=ni)
             continue
         irs = (make_rsolve("schulz", ni)
                if solver == "schulz" and ni is not None else rsolve)
@@ -213,64 +214,76 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
         # layer has no NS schedule, as the JAX xla_dev engine does
         exact = solver != "schulz" or sched is None
         for iz in range(start, start + count):
-            tsm = None if tau_scat_max is None else float(tau_scat_max[iz])
-            z_pp = mix_z(zw[iz], z_pp_c)
-            z_mp = mix_z(zw[iz], z_mp_c)
-            layer = (tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp,
-                     wct2, wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0,
-                     d_vec)
-            if engine == "kernel":
-                r_f, t, jp, jm_f, ek, _ = elemental_flipped(
-                    *layer, min_qp_mu, ndoubl_static=nd, tau_scat_max=tsm)
-                comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek, d_vec,
-                                        ns_schedule=sched, ni=ni,
-                                        precision=matmul_precision)
-            elif engine == "kernel_lanes":
-                r_f, t, jp, jm_f, ek, _ = elemental_flipped(
-                    *layer, min_qp_mu, ndoubl_static=nd, tau_scat_max=tsm)
-                comp = fused_layer_step_lanes(
-                    comp, to_lanes_m(r_f), to_lanes_m(t), to_lanes_v(jp),
-                    to_lanes_v(jm_f), ek, d_vec, ns_schedule=sched, ni=ni)
-            elif engine == "kernel_dev":
-                r_f, g_el, e_el, jp, jm_f, ek = elemental_flipped_dev(
-                    *layer, nd)
-                comp = fused_layer_step_dev(comp, r_f, g_el, e_el, jp, jm_f,
-                                            ek, d_vec, ns_schedule=sched,
-                                            ni=ni, precision=dd)
-            elif engine == "torch_dev":
-                added = make_added_layer_dev(
-                    *layer, min_qp_mu, nd,
-                    ns_schedule=None if exact else sched,
-                    exact_eye=eye if exact else None)
-                comp = interaction_dev(comp, added,
-                                       ni=None if exact else ni,
-                                       exact_eye=eye if exact else None)
-            else:
-                added = make_added_layer(
-                    *layer, min_qp_mu, eye, rsolve=rsolve, ndoubl_static=nd,
-                    ns_schedule=sched,
-                    doubling_engine=("kernel" if engine == "kernel_doubling"
-                                     else "torch"), tau_scat_max=tsm,
-                    matmul_precision=matmul_precision)
-                comp = interaction(comp, added, eye, rsolve=irs)
+            with timeit("elemental"):
+                tsm = (None if tau_scat_max is None
+                       else float(tau_scat_max[iz]))
+                z_pp = mix_z(zw[iz], z_pp_c)
+                z_mp = mix_z(zw[iz], z_mp_c)
+                layer = (tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz],
+                         qp, wct2, wct02, i0_vec, i_mu0_n, n_stokes,
+                         mu0_node, mu0, d_vec)
+                if engine in ("kernel", "kernel_lanes"):
+                    r_f, t, jp, jm_f, ek, _ = elemental_flipped(
+                        *layer, min_qp_mu, ndoubl_static=nd,
+                        tau_scat_max=tsm)
+                    if engine == "kernel_lanes":
+                        r_f, t = to_lanes_m(r_f), to_lanes_m(t)
+                        jp, jm_f = to_lanes_v(jp), to_lanes_v(jm_f)
+                elif engine == "kernel_dev":
+                    r_f, g_el, e_el, jp, jm_f, ek = elemental_flipped_dev(
+                        *layer, nd)
+                elif engine == "torch_dev":
+                    added = make_added_layer_dev(
+                        *layer, min_qp_mu, nd,
+                        ns_schedule=None if exact else sched,
+                        exact_eye=eye if exact else None)
+                else:
+                    added = make_added_layer(
+                        *layer, min_qp_mu, eye, rsolve=rsolve,
+                        ndoubl_static=nd, ns_schedule=sched,
+                        doubling_engine=("kernel"
+                                         if engine == "kernel_doubling"
+                                         else "torch"), tau_scat_max=tsm,
+                        matmul_precision=matmul_precision)
+            with timeit("layer_step"):
+                if engine == "kernel":
+                    comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek,
+                                            d_vec, ns_schedule=sched, ni=ni,
+                                            precision=matmul_precision)
+                elif engine == "kernel_lanes":
+                    comp = fused_layer_step_lanes(
+                        comp, r_f, t, jp, jm_f, ek, d_vec,
+                        ns_schedule=sched, ni=ni)
+                elif engine == "kernel_dev":
+                    comp = fused_layer_step_dev(
+                        comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec,
+                        ns_schedule=sched, ni=ni, precision=dd)
+                elif engine == "torch_dev":
+                    comp = interaction_dev(comp, added,
+                                           ni=None if exact else ni,
+                                           exact_eye=eye if exact else None)
+                else:
+                    comp = interaction(comp, added, eye, rsolve=irs)
     if dev_form:
         comp = dev_to_full(comp)
     elif engine == "kernel_lanes":
         comp = from_lanes(comp)
 
-    if rho_brdf is not None:
-        surf = brdf_surface_layer(rho_brdf, n_spec, qp, wt, i0_vec,
-                                  tau_sum_all[-1], mu0)
-    else:
-        surf = lambertian_surface_layer(
-            albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1], mu0,
-            is_m0, spectral_albedo=spectral_albedo)
-    comp = interaction(comp, surf, eye, rsolve=rsolve)
+    with timeit("surface"):
+        if rho_brdf is not None:
+            surf = brdf_surface_layer(rho_brdf, n_spec, qp, wt, i0_vec,
+                                      tau_sum_all[-1], mu0)
+        else:
+            surf = lambertian_surface_layer(
+                albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1],
+                mu0, is_m0, spectral_albedo=spectral_albedo)
+        comp = interaction(comp, surf, eye, rsolve=rsolve)
 
-    # Surface-leaving radiance for hemispheric (HDRF/BHR) outputs: upwelling
-    # just above the surface = surface reflection of the full downwelling
-    # field + direct-beam reflection (ref: CoreKernel/interaction_hdrf.jl:9-45)
-    hdr_j_m = bmv(surf.r_mp, comp.j_p) + surf.j_m
+        # Surface-leaving radiance for hemispheric (HDRF/BHR) outputs:
+        # upwelling just above the surface = surface reflection of the full
+        # downwelling field + direct-beam reflection
+        # (ref: CoreKernel/interaction_hdrf.jl:9-45)
+        hdr_j_m = bmv(surf.r_mp, comp.j_p) + surf.j_m
     return comp, hdr_j_m
 
 
@@ -479,35 +492,38 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     bhr_uw = np.zeros(n_spec)
     bhr_dw = np.zeros(n_spec)
 
-    ndoubl_static, ns_schedule, layer_schedules = build_layer_schedules(
-        band.tau, band.omega, min_qp_mu, solver, tau_scat_max)
-    engine = select_engine(
-        engine, device, dtype, n,
-        ns_schedule is not None or layer_schedules is not None)
-    if engine in _DEV_ENGINES and layer_schedules is None \
-            and ndoubl_static is None:
-        # the split-form engines always need static per-layer doubling
-        # counts: under the lu solver borrow the schulz builder's buckets
-        # (torch_dev then solves each of them exactly)
-        _, _, layer_schedules = build_layer_schedules(
-            band.tau, band.omega, min_qp_mu, "schulz", tau_scat_max)
-    schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
-                                      ns_schedule, layer_schedules)
+    with timeit("schedules"):
+        ndoubl_static, ns_schedule, layer_schedules = build_layer_schedules(
+            band.tau, band.omega, min_qp_mu, solver, tau_scat_max)
+        engine = select_engine(
+            engine, device, dtype, n,
+            ns_schedule is not None or layer_schedules is not None)
+        if engine in _DEV_ENGINES and layer_schedules is None \
+                and ndoubl_static is None:
+            # the split-form engines always need static per-layer doubling
+            # counts: under the lu solver borrow the schulz builder's
+            # buckets (torch_dev then solves each of them exactly)
+            _, _, layer_schedules = build_layer_schedules(
+                band.tau, band.omega, min_qp_mu, "schulz", tau_scat_max)
+        schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
+                                          ns_schedule, layer_schedules)
 
     from vsmartmom_torch.util.logging import run_banner
     run_banner(pol, quad, n_spec, n_z, max_m, surface, engine, solver,
                dtype, device)
 
     with precision.matmul_precision(matmul_precision):
-        tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
-                                to_dev(band.zw))
-        qp_d, wt_d = to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n)
-        d_d, i0_d = to_dev(d_vec), to_dev(i0_vec)
-        albedo_d, mu0_d, mu0_node_d, min_mu_d = (
-            to_dev(v) for v in (albedo, quad.mu0, mu0_node, min_qp_mu))
+        with timeit("to_device"):
+            tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
+                                    to_dev(band.zw))
+            qp_d, wt_d = to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n)
+            d_d, i0_d = to_dev(d_vec), to_dev(i0_vec)
+            albedo_d, mu0_d, mu0_node_d, min_mu_d = (
+                to_dev(v) for v in (albedo, quad.mu0, mu0_node, min_qp_mu))
+        sl0 = slice(quad.i_mu0_n, quad.i_mu0_n + n_stokes)
         comps = []
         for m in range(max_m):
-            with timeit("Z moments", device):
+            with timeit("Z moments"):
                 z_pp_list, z_mp_list = [], []
                 for gc in band.greeks:
                     zpp, zmp = compute_Z_moments(pol, quad.qp_mu, gc, m)
@@ -523,7 +539,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                                                    n_stokes))
                         if is_brdf else None)
 
-            with timeit("fourier step (layer scan + surface)", device):
+            with timeit("fourier step (layer scan + surface)"):
                 comp, hdr_j_m_dev = _fourier_step(
                     tau_d, omega_d, zw_d, z_pp_c, z_mp_c, qp_d, wt_d, d_d,
                     i0_d, albedo_d, spectral_albedo, mu0_d, mu0_node_d,
@@ -533,44 +549,47 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                     tau_scat_max=tau_scat_max,
                     matmul_precision=matmul_precision,
                     dd_precision=dd_precision)
-            if return_composite:
-                comps.append(LayerRT(*(x.cpu().numpy() for x in comp)))
 
-            # --- azimuthal synthesis (ref: tools/postprocessing_vza.jl:9-60)
-            with timeit("postprocessing (device fetch)", device):
+            with timeit("postprocessing (device fetch)"):
+                if return_composite:
+                    comps.append(LayerRT(*(x.cpu().numpy() for x in comp)))
                 if sfi:
                     j_m = comp.j_m.cpu().numpy()     # (nSpec, N)
                     j_p = comp.j_p.cpu().numpy()
                 else:
+                    r_cols = comp.r_mp[:, :, sl0].cpu().numpy()
+                    t_cols = comp.t_pp[:, :, sl0].cpu().numpy()
+                hdr_j_m = hdr_j_m_dev.cpu().numpy() if return_hdr else None
+
+            # --- azimuthal synthesis (ref: tools/postprocessing_vza.jl:9-60)
+            with timeit("synthesis"):
+                if not sfi:
                     # operator columns at the mu0 node applied to the
                     # discretized delta beam I0/(w0 mu0); the operators
                     # carry the quadrature weight on the incoming column,
                     # so the beam node's weight divides out
-                    sl0 = slice(quad.i_mu0_n, quad.i_mu0_n + n_stokes)
                     i0_blk = np.asarray(pol.i0, np.float64)
                     w0 = float(quad.wt_mu_n[quad.i_mu0_n])
-                    r_cols = comp.r_mp[:, :, sl0].cpu().numpy()
-                    t_cols = comp.t_pp[:, :, sl0].cpu().numpy()
                     j_m = (r_cols @ i0_blk) / w0            # (nSpec, N)
                     j_p = (t_cols @ i0_blk) / w0
-            hdr_j_m = hdr_j_m_dev.cpu().numpy() if return_hdr else None
-            for i, (sl, big_cs) in enumerate(
-                    synthesis_weights(quad, vza, vaz, m, n_stokes)):
-                R_SFI[i] += big_cs[:, None] * j_m[:, sl].T
-                T_SFI[i] += big_cs[:, None] * j_p[:, sl].T
-                if return_hdr:
-                    hdr[i] += big_cs[:, None] * hdr_j_m[:, sl].T
+                for i, (sl, big_cs) in enumerate(
+                        synthesis_weights(quad, vza, vaz, m, n_stokes)):
+                    R_SFI[i] += big_cs[:, None] * j_m[:, sl].T
+                    T_SFI[i] += big_cs[:, None] * j_p[:, sl].T
+                    if return_hdr:
+                        hdr[i] += big_cs[:, None] * hdr_j_m[:, sl].T
 
-            if return_hdr and m == 0:
-                # bi-hemispheric fluxes: mu-weighted quadrature sums of the
-                # intensity components, + direct beam for the downwelling
-                # (ref: interaction_hdrf.jl:27-45)
-                qw = (quad.qp_mu_n * quad.wt_mu_n)[::n_stokes]
-                bhr_uw[:] = hdr_j_m[:, ::n_stokes] @ qw
-                i_sol = quad.i_mu0_n
-                direct = i0_vec[i_sol] * np.exp(
-                    -np.asarray(band.tau).sum(axis=0) / mu0_node) * mu0_node
-                bhr_dw[:] = j_p[:, ::n_stokes] @ qw + direct
+                if return_hdr and m == 0:
+                    # bi-hemispheric fluxes: mu-weighted quadrature sums of
+                    # the intensity components, + direct beam for the
+                    # downwelling (ref: interaction_hdrf.jl:27-45)
+                    qw = (quad.qp_mu_n * quad.wt_mu_n)[::n_stokes]
+                    bhr_uw[:] = hdr_j_m[:, ::n_stokes] @ qw
+                    i_sol = quad.i_mu0_n
+                    direct = i0_vec[i_sol] * np.exp(
+                        -np.asarray(band.tau).sum(axis=0) / mu0_node) \
+                        * mu0_node
+                    bhr_dw[:] = j_p[:, ::n_stokes] @ qw + direct
 
     out = [R_SFI, T_SFI]
     if return_hdr:

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from vsmartmom_torch._paths import BUILD_DIR
+from vsmartmom_torch.util.timing import timeit
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -291,11 +292,12 @@ def tangent_of_plain(plain, ctx, tangents):
     (``ctx.saved_tensors``, then the static ``ctx.statics``). Tangents
     that arrive as None are zeros. The JAX package's custom_jvp of its
     layer steps does the same with their jnp twins."""
-    primals = ctx.saved_tensors
-    tangents = tuple(torch.zeros_like(p) if t is None else t
-                     for p, t in zip(primals, tangents))
-    return torch.func.jvp(lambda *xs: plain(*xs, *ctx.statics), primals,
-                          tangents)[1]
+    with timeit("tangent"):
+        primals = ctx.saved_tensors
+        tangents = tuple(torch.zeros_like(p) if t is None else t
+                         for p, t in zip(primals, tangents))
+        return torch.func.jvp(lambda *xs: plain(*xs, *ctx.statics),
+                              primals, tangents)[1]
 
 
 def check_operands(name: str, xs, device):

@@ -1,17 +1,13 @@
-"""Run observability: the run banner, the aerosol AOD report, progress.
+"""Run observability: the run banner and the aerosol AOD report.
 
 ref: the reference's Julia @info run banner (rt_run.jl:99-106: geometry +
-array dims), the per-aerosol AOD report (model_from_parameters.jl:164) and
-ProgressMeter.@showprogress on host loops (rt_run.jl:142). Messages go to
-the ``vsmartmom_torch`` logger (stderr, INFO); silence them with the
-standard ``logging`` configuration. Progress bars are drawn on an
-interactive stream only, so batch logs stay clean.
+array dims) and the per-aerosol AOD report (model_from_parameters.jl:164).
+Messages go to the ``vsmartmom_torch`` logger (stderr, INFO); silence them
+with the standard ``logging`` configuration.
 """
 from __future__ import annotations
 
 import logging
-import sys
-import time
 
 import numpy as np
 
@@ -44,30 +40,3 @@ def aod_report(aerosol_names, tau_aer, band_label=""):
                     f" ({band_label})" if band_label else "",
                     float(np.sum(tau)))
 
-
-class progress:
-    """Minimal @showprogress for host loops: ``for iz in progress(range(
-    n_z), "layers"): ...`` yields the items of ``iterable`` and draws a
-    carriage-return bar on ``stream`` (default stderr) when it is a
-    terminal and the iterable has a length."""
-
-    def __init__(self, iterable, label: str = "", stream=None):
-        self.it = iterable
-        self.label = label
-        self.stream = stream if stream is not None else sys.stderr
-        self.n = len(iterable) if hasattr(iterable, "__len__") else None
-
-    def __iter__(self):
-        interactive = bool(self.n) and hasattr(self.stream, "isatty") \
-            and self.stream.isatty()
-        t0 = time.perf_counter()
-        for i, x in enumerate(self.it):
-            yield x
-            if interactive:
-                bar = "=" * int(40 * (i + 1) / self.n)
-                self.stream.write(
-                    f"\r{self.label} [{bar:<40}] {i + 1}/{self.n} "
-                    f"({time.perf_counter() - t0:.1f}s)")
-                self.stream.flush()
-        if interactive:
-            self.stream.write("\n")

@@ -1,62 +1,98 @@
-"""Stage timing reports (the reference instruments every stage with
-TimerOutputs @timeit and prints a report after rt_run;
+"""Stage spans: the port's one span recorder (the reference instruments
+every stage with TimerOutputs @timeit and prints a report after rt_run;
 ref: src/CoreRT/rt_run.jl:87-220, tools/gpu_batched.jl:39-41).
 
 Usage:
-    enable_timer()
-    with timeit("doubling", device):
+    with timeit("doubling"):
         ...
-    print_timer()      # flat report
-    reset_timer()
 
-Off by default: a disabled ``timeit`` costs one flag test. Enabled, a span
-on a CUDA ``device`` synchronises that device at its start and its end,
-so the span holds the device work launched inside it.
+A span never synchronises the device: its times are the host's, on the
+clock of ``time.time_ns`` (the epoch clock on which torch.profiler stamps
+its events), so a span holds the launches made inside it and a profiler's
+device intervals can be matched to it. Two read modes, each off by
+default:
+
+- ``enable_timer()``: the flat per-stage report of TimerOutputs
+  (``timer_report``, ``print_timer``), sums over every span of a name;
+- a running ``torch.profiler`` (as ``record_function`` records only
+  then): the span list (``spans``), one ``Span`` per span with its id, its
+  parent's id (the innermost open span, None at a root) and its call's id
+  (its root's).
+
+``reset_timer()`` clears both. With neither on, a span costs a flag test
+and the profiler probe, and stores nothing.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from collections import OrderedDict
 from contextlib import contextmanager
+from typing import NamedTuple, Optional
 
-import torch
+from torch.autograd import _profiler_enabled
 
 _ENABLED = False
 _STATS: "OrderedDict[str, list]" = OrderedDict()
+_SPANS: list = []
+#: (id, call id) of each open span, innermost last
+_OPEN: list = []
+_IDS = itertools.count(1)
+
+
+class Span(NamedTuple):
+    """One recorded span: start and end in ``time.time_ns`` nanoseconds."""
+    name: str
+    start_ns: int
+    end_ns: int
+    id: int
+    parent: Optional[int]
+    call: int
 
 
 def enable_timer(on: bool = True):
-    """Turn the spans of ``timeit`` on (or off)."""
+    """Turn the flat report's aggregates on (or off)."""
     global _ENABLED
     _ENABLED = on
 
 
-def _sync(device):
-    if device is not None and torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 @contextmanager
-def timeit(name: str, device=None):
-    """Add the wall time of the block to the stage ``name``."""
-    if not _ENABLED:
+def timeit(name: str):
+    """Record the block as a span ``name``, under the innermost open
+    span."""
+    aggregate = _ENABLED
+    keep = _profiler_enabled()
+    if not (aggregate or keep):
         yield
         return
-    _sync(device)
-    t0 = time.perf_counter()
+    sid = next(_IDS)
+    parent, call = _OPEN[-1] if _OPEN else (None, sid)
+    _OPEN.append((sid, call))
+    t0 = time.time_ns()
     try:
         yield
     finally:
-        _sync(device)
-        dt = time.perf_counter() - t0
-        ent = _STATS.setdefault(name, [0, 0.0, 0.0])
-        ent[0] += 1
-        ent[1] += dt
-        ent[2] = max(ent[2], dt)
+        t1 = time.time_ns()
+        _OPEN.pop()
+        if keep:
+            _SPANS.append(Span(name, t0, t1, sid, parent, call))
+        if aggregate:
+            dt = 1e-9 * (t1 - t0)
+            ent = _STATS.setdefault(name, [0, 0.0, 0.0])
+            ent[0] += 1
+            ent[1] += dt
+            ent[2] = max(ent[2], dt)
+
+
+def spans() -> list:
+    """The spans recorded while a profiler ran, in the order they
+    closed (a child before its parent)."""
+    return list(_SPANS)
 
 
 def reset_timer():
     _STATS.clear()
+    _SPANS.clear()
 
 
 def timer_report() -> str:
