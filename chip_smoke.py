@@ -3,8 +3,10 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-1. Builds the six hand-written kernels from the five sources in
+1. Builds the seven hand-written kernels from the six sources in
    vsmartmom_torch/csrc (one nvcc per source, all started together, sm_90a;
+   row 1's tangent kernel, csrc/layer_step_tangent.cu, is checked alone by
+   tangent_only();
    the split-form step has two bodies: the CUDA cores for "highest" and
    "default", the tensor cores for "bf16x3"; the layer step and the
    doubling have two too: the tensor cores for "high" at N <= 16, the
@@ -141,13 +143,15 @@ Run from the repository root:  python3 chip_smoke.py
    within 1e-10 of the port's CPU run of the same scene and solver.
 15. (k) Forward-mode AD (core/autodiff.py, scattering/mie_ad.py,
    spectroscopy/voigt.py:absorption_cross_section; rows 1 and 3 are
-   torch.autograd.Functions, kernel primal and plain-version tangent) at
+   torch.autograd.Functions with the kernel as primal, row 1's tangent
+   its tangent kernel, row 3's the plain version's jvp) at
    the flagship's full width, state (log scattering scale, albedo, log
    absorption scale) of vsmartmom_torch/retrieval_demo.py: the float64
    torch engine's torch.func.jacfwd Jacobian on the card against central
    differences (1e-5 of max); (a) the Jacobian through engine "kernel" in
    float32 at the static schulz schedules, with the launch counts set to 0
-   just before it (102 row-1 launches and nothing else), within 2e-3 of
+   just before it (102 row-1 launches and nothing else; 102 launches of
+   row 1's tangent kernel and no plain tangent), within 2e-3 of
    max of float64, its R within 1e-6 of rt_run_band's on that engine,
    first and steady seconds, the primal's seconds and peak device memory;
    (b) the same through "kernel_dev" (102 row-3 launches); (c)
@@ -651,6 +655,7 @@ def kernel_times(shapes=("flagship", "co2_hapi", "headline")):
 #: no stack above MAX_TEAM_STACK bytes (the N <= 16 layer step's once grew
 #: to 56 bytes and ran 30 % slower)
 TEAM_KERNELS = ("layer_step_kernel", "layer_step_tc_kernel",
+                "layer_step_tangent_kernel",
                 "layer_step_dev_kernel", "layer_step_dev_tc_kernel",
                 "doubling_kernel", "doubling_tc_kernel", "layer_scan_kernel",
                 "lanes_team_kernel", "lanes_wide_kernel")
@@ -1550,6 +1555,168 @@ def step_tc_only():
     print(json.dumps({"kernels": entries}))
 
 
+#: widths of tangent_only's synthetic check: the classes the tangent kernel
+#: is built for, their edges and its widest width (44)
+TANGENT_WIDTHS = (1, 13, 15, 16, 17, 30, 32, 33, 44)
+#: tangent columns of a flagship Jacobian (the retrieval state's three)
+TANGENT_K = 3
+
+
+def plain_tangent(torch, lsk, prim, tan, ns_schedule, ni, precision):
+    """The parent's tangent of row 1 for K columns: torch.func.jvp of the
+    plain version (build.tangent_of_plain) under a vmap over the columns,
+    as jacfwd runs it."""
+    def one(*t):
+        return torch.func.jvp(
+            lambda *xs: lsk._plain_flat(*xs, ns_schedule, ni, precision),
+            tuple(prim), t)[1]
+    return torch.func.vmap(one)(*tan)
+
+
+def tangent_work(lsk, prim, tan, ns_schedule, ni, **kw):
+    """(FLOPs, device bytes) of one tangent launch of K columns: (1 + 2K)
+    step_flops a point (the primal once, dA B + A dB a column); the primal
+    inputs read once, each column's tangent inputs read and its output
+    tangents written once."""
+    s, n = prim[6].shape[0], prim[6].shape[1]
+    k = tan[6].shape[0]
+    out_b = 4 * (4 * n * n + 2 * n)
+    in_b = lsk.step_bytes(n) - out_b
+    return (s * (1 + 2 * k) * lsk.step_flops(n, ns_schedule, ni),
+            s * (in_b + k * (in_b + out_b)))
+
+
+def tangent_only(widths=TANGENT_WIDTHS, modes=("highest", "high", "default")):
+    """Row 1's tangent kernel on the card (csrc/layer_step_tangent.cu), and
+    the flagship Jacobian's routing: python3 -c 'import chip_smoke;
+    chip_smoke.tangent_only()'.
+
+    (a) The build (phase 1). (b) At each width of ``widths`` on a synthetic
+    slab (S = 1 007, K = 3 random tangent columns) and each mode, the
+    kernel's output tangents against the parent's (plain_tangent): "highest"
+    within 1e-5 of each field's max; a reduced mode no farther from it
+    than the plain version's tangent at "highest" is (sep). (c) One flagship Jacobian
+    (jacfwd through engine kernel, float32, 3 columns) with the counters
+    reset before: 102 primal launches, 102 tangent launches, no plain
+    tangent. (d) The same Jacobian with every tangent launch held against
+    the parent's tangent on its inputs (1e-5 of each field's max) and both
+    timed with CUDA events; the kernel's share of its bound, FLOPs (1 + 2K)
+    step_flops. Last line: one JSON object."""
+    torch = setup()
+    import vsmartmom_torch as vt
+    import vsmartmom_torch.core.rt_run as rtr
+    from vsmartmom_torch.core.api import build_band_inputs
+    from vsmartmom_torch.core.rt import LayerRT
+    from vsmartmom_torch.cuda import layer_step_kernel as lsk
+    from vsmartmom_torch.retrieval_demo import state_radiance
+    card = card_name()
+    tag = f"[card: {card}]"
+    dev = torch.device("cuda:0")
+    build_phase(tag)
+    rng = np.random.default_rng(21)
+    widths_out = {}
+    for n in widths:
+        comp, elem, ek, d, sched = plain_width_case(
+            torch, dev, lsk, LayerRT, n, WIDTH_S, rng)
+        prim = [*comp, *elem, ek, d]
+        tan = [(torch.randn((TANGENT_K, *x.shape), device=dev,
+                            generator=torch.Generator(dev).manual_seed(i))
+                * x.abs().max().clamp_min(1e-3)).contiguous()
+               for i, x in enumerate(prim)]
+        ref_hi = plain_tangent(torch, lsk, prim, tan, sched, 3, "highest")
+        row = {}
+        for mode in modes:
+            got = lsk._launch_tangent(prim, tan, sched, 3, mode)
+            ref = (ref_hi if mode == "highest" else
+                   plain_tangent(torch, lsk, prim, tan, sched, 3, mode))
+            err = max(rel_field(torch, a, b) for a, b in zip(got, ref))
+            sep = max(rel_field(torch, a, b) for a, b in zip(ref_hi, ref))
+            row[mode] = (err, sep)
+            check(err < 1e-5 if mode == "highest" else err <= sep,
+                  f"tangent kernel N = {n} {mode}: {err:.3e} of max from "
+                  f"the plain tangent (sep {sep:.3e})")
+        widths_out[n] = row
+        print(f"tangent kernel N = {n}, S = {WIDTH_S}, K = {TANGENT_K}: "
+              f"(err, sep) by mode "
+              f"{ {m: ('%.3e' % e, '%.3e' % s) for m, (e, s) in row.items()} }"
+              f" {tag}")
+
+    params = vt.default_parameters()
+    params.float_type = "Float32"
+    model = vt.model_from_parameters(params, device=dev)
+    band = build_band_inputs(model, 0)
+    f32, _ = state_radiance(model.pol, model.quad_points, band,
+                            model.obs_geom.vza, model.obs_geom.vaz,
+                            params.max_m, torch.float32, dev, "kernel",
+                            "schulz")
+    n_z = band.tau.shape[0]
+    x = torch.tensor((0.0, float(params.surfaces[0]["albedo"]), 0.0),
+                     dtype=torch.float32, device=dev)
+    jac = torch.func.jacfwd(f32)
+    jac(x)
+    torch.cuda.synchronize()
+    lsk.launches = lsk.tangent_launches = lsk.plain_tangents = 0
+    t0 = time.perf_counter()
+    J = jac(x)
+    torch.cuda.synchronize()
+    t_jac = time.perf_counter() - t0
+    counters = {"launches": lsk.launches,
+                "tangent_launches": lsk.tangent_launches,
+                "plain_tangents": lsk.plain_tangents}
+    print(f"flagship Jacobian (jacfwd, engine kernel, float32, "
+          f"{TANGENT_K} columns): {t_jac:.3f} s, counters {counters} {tag}")
+    check(counters == {"launches": params.max_m * n_z,
+                       "tangent_launches": params.max_m * n_z,
+                       "plain_tangents": 0},
+          f"flagship Jacobian counters {counters}")
+
+    stats = KernelStats()
+    fields = {}
+    real = lsk._launch_tangent
+
+    def hooked(prim, tan, ns_schedule, ni, precision):
+        out = real(prim, tan, ns_schedule, ni, precision)
+        ref = plain_tangent(torch, lsk, prim, tan, ns_schedule, ni,
+                            precision)
+        for name, a, b in zip(LayerRT._fields, out, ref):
+            fields[name] = max(fields.get(name, 0.0),
+                               rel_field(torch, a, b))
+        flops, nbytes = tangent_work(lsk, prim, tan, ns_schedule, ni)
+        stats.calls += 1
+        stats.flops += flops
+        stats.nbytes += nbytes
+        stats.ms.append(cuda_ms(torch, lambda: real(
+            prim, tan, ns_schedule, ni, precision), 3))
+        stats.plain_ms.append(cuda_ms(torch, lambda: plain_tangent(
+            torch, lsk, prim, tan, ns_schedule, ni, precision), 1))
+        return out
+    lsk._launch_tangent = hooked
+    try:
+        J2 = jac(x)
+    finally:
+        lsk._launch_tangent = real
+    entry = stats.entry("layer_step_tangent_kernel",
+                        "csrc/layer_step_tangent.cu",
+                        "build.tangent_of_plain (torch.func.jvp of row 1's "
+                        "plain version)", stats.calls)
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    entry["max_rel_err_by_field"] = fields
+    print(f"flagship tangent launches: {stats.calls}, kernel "
+          f"{entry['ms']:.3f} ms a launch, plain tangent "
+          f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}), share {100 * entry['share_of_bound']:.2f}"
+          f" %; largest gap of max by field "
+          f"{ {k: '%.3e' % v for k, v in fields.items()} } {tag}")
+    check(max(fields.values()) < 1e-5, f"flagship tangent off the plain "
+          f"tangent by >= 1e-5 of max: {fields}")
+    check(rel_field(torch, J2, J) < 1e-6, "flagship Jacobian changed when "
+          "hooked")
+    print(f"card: {card}")
+    print(json.dumps({"tangent_kernel": entry, "jacobian_s": t_jac,
+                      "counters": counters,
+                      "widths": {str(k): v for k, v in widths_out.items()}}))
+
+
 def step_tc_times():
     """step_tc_phase alone, without the build's resource check, for a copy
     of this script beside an older tree:
@@ -2337,6 +2504,7 @@ def ad_phase(torch, dev, tag, reset_counts, counts):
     import vsmartmom_torch.core.rt_run as rtr
     from vsmartmom_torch.core.api import build_band_inputs
     from vsmartmom_torch.core.autodiff import gauss_newton
+    from vsmartmom_torch.cuda import layer_step_kernel as lsk
     from vsmartmom_torch.cuda import voigt_kernel as vk
     from vsmartmom_torch.retrieval_demo import (X_START, X_TRUE, retrieve,
                                                 state_radiance)
@@ -2412,8 +2580,10 @@ def ad_phase(torch, dev, tag, reset_counts, counts):
         x32 = torch.tensor(x_a, dtype=torch.float32, device=dev)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        lsk.tangent_launches = lsk.plain_tangents = 0
         J32, t_first = timed(lambda: torch.func.jacfwd(f32)(x32))
         c = counts()
+        tangents = (lsk.tangent_launches, lsk.plain_tangents)
         peak = torch.cuda.max_memory_allocated() / 2**30
         t_steady = min(timed(lambda: torch.func.jacfwd(f32)(x32))[1]
                        for _ in range(2))
@@ -2422,7 +2592,8 @@ def ad_phase(torch, dev, tag, reset_counts, counts):
         e_j = rel_err(J32, J64)
         print(f"AD ({'a' if engine == 'kernel' else 'b'}) {engine}, "
               f"float32: R vs rt_run_band {e_r:.3e} of max; jacfwd "
-              f"launches {c}; first {t_first:.3f} s, steady {t_steady:.3f} "
+              f"launches {c}, row 1's tangent launches and plain tangents "
+              f"{tangents}; first {t_first:.3f} s, steady {t_steady:.3f} "
               f"s per Jacobian (the primal alone {t_primal:.3f} s), peak "
               f"{peak:.2f} GiB; finite {bool(np.isfinite(J32).all())}; vs "
               f"float64 {e_j:.3e} of max {tag}")
@@ -2431,6 +2602,9 @@ def ad_phase(torch, dev, tag, reset_counts, counts):
         check(c[mod] == max_m * n_z
               and sum(c.values()) == c[mod], f"AD {engine}: launches {c}, "
               f"expected {max_m * n_z} of {mod} and nothing else")
+        check(tangents == ((max_m * n_z, 0) if engine == "kernel"
+                           else (0, 0)), f"AD {engine}: row 1's tangent "
+              f"launches and plain tangents {tangents}")
         check(np.isfinite(J32).all(), f"AD {engine}: non-finite tangent")
         check(e_j < 2e-3, f"AD {engine}: float32 Jacobian off float64 by "
               f">= 2e-3 of max")

@@ -92,6 +92,33 @@ def batch_mm(precision: str):
                      f"{MATMUL_MODES + ('bf16x3',)}")
 
 
+def batch_mm_tangent(precision: str):
+    """The tangent of batch_mm(precision) as torch.func.jvp takes it:
+    (a, da, b, db) -> d(a @ b), each pass's d(a, db) + d(da, b) (the split
+    of a tangent is the split's tangent), the passes summed as batch_mm
+    sums them. Broadcasts as torch.matmul does."""
+    if precision == "highest":
+        return lambda a, da, b, db: torch.matmul(da, b) + torch.matmul(a, db)
+    if precision in ("high", "bf16x3"):
+        def high(a, da, b, db):
+            (ah, al), (dah, dal) = _split(a), _split(da)
+            (bh, bl), (dbh, dbl) = _split(b), _split(db)
+            return (((torch.matmul(dah, bl) + torch.matmul(ah, dbl))
+                     + (torch.matmul(dal, bh) + torch.matmul(al, dbh)))
+                    + (torch.matmul(dah, bh) + torch.matmul(ah, dbh))
+                    ).to(da.dtype)
+        return high
+    if precision == "default":
+        def one(a, da, b, db):
+            def h(x):
+                return x.to(torch.bfloat16).float()
+            return (torch.matmul(h(da), h(b))
+                    + torch.matmul(h(a), h(db))).to(da.dtype)
+        return one
+    raise ValueError(f"unknown precision {precision!r}: expected one of "
+                     f"{MATMUL_MODES + ('bf16x3',)}")
+
+
 def active(slot: str = "matmul") -> str:
     """The mode set for ``slot`` in this thread ("matmul": the RT engines'
     products; "ie": the Raman ie products), "highest" outside any block."""

@@ -60,48 +60,18 @@ using vsm::each_flat;
 using vsm::each_row;
 using vsm::kMaxBlock;
 using vsm::kMaxSched;
+using vsm::launch_team;
+using vsm::load_elemental;
 using vsm::mm;
 using vsm::mv;
 using vsm::ns;
 using vsm::ns_seed;
 using vsm::round4;
 using vsm::Schedule;
+using vsm::step_arena_floats;
+using vsm::step_composite_offset;
 using vsm::Team;
-
-// Row strides of the interaction's X2 [n x wx2] and X [n x 2 wx2]: X holds
-// x1 (2n+1 columns) from column 0 and r2mp x2 from column wx2.
-__host__ __device__ inline int x2_stride(int n) { return round4(2 * n + 1); }
-
-// offset of CRPM in the step's arena (CTMM follows): after the doubling's
-// W1, W2 or the interaction's X, X2, whichever is larger
-__host__ __device__ inline int step_composite_offset(int n, int ld) {
-  const Arena o(n, ld);
-  return o.oW1 + max(2 * n * o.w2, 3 * n * x2_stride(n));
-}
-
-__host__ __device__ inline int step_arena_floats(int n, int ld) {
-  return step_composite_offset(n, ld) + 2 * n * ld;
-}
-
-// R, T, JP, JM of point p from device memory into the arena
-template <class C>
-__device__ __forceinline__ void
-load_elemental(const Team<C>& tm, float* ar, const Arena& o, int p,
-               const float* r_f, const float* t, const float* jp,
-               const float* jm_f) {
-  const int n = o.n, ld = o.ld;
-  const size_t gm = (size_t)p * n * n, gv = (size_t)p * n;
-  float* R = ar + o.oR;
-  float* T = ar + o.oT;
-  each_flat(tm, n, n, [=](int i, int j) {
-    R[i * ld + j] = r_f[gm + i * n + j];
-    T[i * ld + j] = t[gm + i * n + j];
-  });
-  each_row(tm, n, [=](int i) {
-    ar[o.oJP + i] = jp[gv + i];
-    ar[o.oJM + i] = jm_f[gv + i];
-  });
-}
+using vsm::x2_stride;
 
 // The layer step's parameters and their names (the body below and its two
 // kernels)
@@ -319,30 +289,6 @@ doubling_tc_kernel(DOUBLING_PARAMS) {
 // every layer-step kernel, and every doubling kernel, has this type
 using StepKernel = decltype(&layer_step_kernel<vsm::C16>);
 using DoublingKernel = decltype(&doubling_kernel<vsm::C16>);
-
-// Launches pick(class, mode)'s kernel (nullptr for a mode the entry does not
-// take) with `need` bytes of shared memory a block and `args`; returns the
-// cudaError_t of the launch.
-template <class Pick, class... Args>
-int launch_team(Pick pick, int S, int n, int ld, int mode, int pts_per_block,
-                int smem_bytes, size_t need, void* stream, Args... args) {
-  const int tt = vsm::team_threads(n, ld, pts_per_block, need, smem_bytes);
-  if (tt < 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (S + pts_per_block - 1) / pts_per_block;
-  const int err = vsm::with_class(n, [&](auto c) {
-    return vsm::with_mode(mode, [&](auto m) {
-      auto* kern = pick(c, m);
-      if (kern == nullptr) return (int)cudaErrorInvalidValue;
-      cudaError_t e = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-      if (e != cudaSuccess) return (int)e;
-      kern<<<blocks, pts_per_block * tt, smem_bytes,
-             (cudaStream_t)stream>>>(args...);
-      return (int)cudaGetLastError();
-    });
-  });
-  return err < 0 ? (int)cudaErrorInvalidValue : err;
-}
 
 // The layer step's launch entries' parameters (vsm_layer_step below)
 #define STEP_ENTRY_PARAMS                                                   \

@@ -1,7 +1,9 @@
 // Device helpers shared by the RT layer kernels (layer_step.cu,
-// layer_step_dev.cu, layer_scan.cu, lanes.cu): a team of whole warps per
-// spectral point, register-tiled products with fused stores, the
-// Newton-Schulz solves (plain and Y-form) and the plain-form doubling phase.
+// layer_step_tangent.cu, layer_step_dev.cu, layer_scan.cu, lanes.cu): a team
+// of whole warps per spectral point, register-tiled products with fused
+// stores and their forward-mode twins, the Newton-Schulz solves (plain and
+// Y-form), the plain-form doubling phase, the layer step's arena and the
+// team launch.
 //
 // A team of C::TT threads, whole warps, owns one spectral point and its
 // arena for the whole launch and synchronises only itself (__syncwarp, or a
@@ -507,6 +509,239 @@ __device__ __forceinline__ void mv(const Team<C>& tm, int n, const float* A,
   }
 }
 
+// Forward-mode products (the tangent kernel, layer_step_tangent.cu): the
+// product s = A B and its tangent ds = dA B + A dB in one pass over l, A and
+// dA of one row stride, B and dB of another. Each pass of C::MODE
+// contributes pass(dA, B) + pass(A, dB) to ds, and the passes sum as tile()
+// sums them: the tangent torch.func.jvp takes of batch_mm in that mode
+// (core/precision.py), term for term. Without P, s is not computed.
+template <class C, int KA, int KB, bool P>
+__device__ __forceinline__ void tile4j(float (&acc)[C::TM][C::TN],
+                                       float (&d1)[C::TM][C::TN],
+                                       float (&d2)[C::TM][C::TN],
+                                       const int (&ra)[C::TM], int n,
+                                       const float* A, const float* dA,
+                                       const float* B, const float* dB,
+                                       int ldb, int jb) {
+  static_assert(C::TN == 4, "float4 tiles are four columns wide");
+  const float* b = B + jb;
+  const float* db = dB + jb;
+  int l = 0;
+#pragma unroll 1
+  for (; l + 4 <= n; l += 4, b += 4 * ldb, db += 4 * ldb) {
+    float4 av[C::TM], dav[C::TM], bv[4], dbv[4];
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r) {
+      av[r] = part4<KA>(*reinterpret_cast<const float4*>(A + ra[r] + l));
+      dav[r] = part4<KA>(*reinterpret_cast<const float4*>(dA + ra[r] + l));
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      bv[q] = part4<KB>(*reinterpret_cast<const float4*>(b + q * ldb));
+      dbv[q] = part4<KB>(*reinterpret_cast<const float4*>(db + q * ldb));
+    }
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r) {
+      const float a4[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
+      const float da4[4] = {dav[r].x, dav[r].y, dav[r].z, dav[r].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float bq[4] = {bv[q].x, bv[q].y, bv[q].z, bv[q].w};
+        const float dbq[4] = {dbv[q].x, dbv[q].y, dbv[q].z, dbv[q].w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (P) acc[r][c] = fmaf(a4[q], bq[c], acc[r][c]);
+          d1[r][c] = fmaf(da4[q], bq[c], d1[r][c]);
+          d2[r][c] = fmaf(a4[q], dbq[c], d2[r][c]);
+        }
+      }
+    }
+  }
+#pragma unroll 1
+  for (; l < n; ++l, b += ldb, db += ldb) {
+    const float4 v = part4<KB>(*reinterpret_cast<const float4*>(b));
+    const float4 dv = part4<KB>(*reinterpret_cast<const float4*>(db));
+    const float bq[4] = {v.x, v.y, v.z, v.w};
+    const float dbq[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r) {
+      const float a = part<KA>(A[ra[r] + l]);
+      const float da = part<KA>(dA[ra[r] + l]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (P) acc[r][c] = fmaf(a, bq[c], acc[r][c]);
+        d1[r][c] = fmaf(da, bq[c], d1[r][c]);
+        d2[r][c] = fmaf(a, dbq[c], d2[r][c]);
+      }
+    }
+  }
+}
+
+// acc += p and dacc += d1 + d2, elementwise, rounded to nearest
+template <class C, bool P>
+__device__ __forceinline__ void add_pass(float (&acc)[C::TM][C::TN],
+                                         float (&dacc)[C::TM][C::TN],
+                                         const float (&p)[C::TM][C::TN],
+                                         const float (&d1)[C::TM][C::TN],
+                                         const float (&d2)[C::TM][C::TN]) {
+#pragma unroll
+  for (int r = 0; r < C::TM; ++r)
+#pragma unroll
+    for (int c = 0; c < C::TN; ++c) {
+      if (P) acc[r][c] = __fadd_rn(acc[r][c], p[r][c]);
+      dacc[r][c] = __fadd_rn(dacc[r][c], __fadd_rn(d1[r][c], d2[r][c]));
+    }
+}
+
+// One pass (KA, KB) of the tangent alone: dacc = d1 + d2 (first) or dacc +
+// (d1 + d2), d1 = pass(dA, B) and d2 = pass(A, dB), each by tile4.
+template <class C, int KA, int KB>
+__device__ __forceinline__ void tangent_pass(float (&dacc)[C::TM][C::TN],
+                                             bool first,
+                                             const int (&ra)[C::TM], int n,
+                                             const float* A, const float* dA,
+                                             const float* B, const float* dB,
+                                             int ldb, int jb) {
+  float d1[C::TM][C::TN], d2[C::TM][C::TN];
+  zero<C>(d1);
+  zero<C>(d2);
+  tile4<C, KA, KB>(d1, ra, n, dA, B, ldb, jb);
+  tile4<C, KA, KB>(d2, ra, n, A, dB, ldb, jb);
+#pragma unroll
+  for (int r = 0; r < C::TM; ++r)
+#pragma unroll
+    for (int c = 0; c < C::TN; ++c) {
+      const float t = __fadd_rn(d1[r][c], d2[r][c]);
+      dacc[r][c] = first ? t : __fadd_rn(dacc[r][c], t);
+    }
+}
+
+// The tile of one column block and its tangent in C::MODE. The N <= 16
+// class (two tile rows a thread) runs each pass's s, dA B and A dB in one
+// sweep of l (tile4j); the classes of three and four tile rows would spill
+// those twelve or sixteen accumulators and their operands, so they run
+// tile() for s and then each pass's dA B and A dB apart (tangent_pass).
+// Either way every sum is the same fmaf chain, added in the same order.
+template <class C, bool P>
+__device__ __forceinline__ void tilej(float (&acc)[C::TM][C::TN],
+                                      float (&dacc)[C::TM][C::TN],
+                                      const int (&ra)[C::TM], int n,
+                                      const float* A, const float* dA,
+                                      const float* B, const float* dB,
+                                      int ldb, int jb) {
+  constexpr int K0A = C::MODE == kHighest ? kF32 : kHi;
+  constexpr int K0B = C::MODE == kHighest ? kF32 : C::MODE == kBf16 ? kHi
+                                                                    : kLo;
+  if constexpr (C::TM > 2) {
+    if (P) tile<C>(acc, ra, n, A, B, ldb, jb);
+    tangent_pass<C, K0A, K0B>(dacc, true, ra, n, A, dA, B, dB, ldb, jb);
+    if constexpr (C::MODE == kBf16x3) {
+      tangent_pass<C, kLo, kHi>(dacc, false, ra, n, A, dA, B, dB, ldb, jb);
+      tangent_pass<C, kHi, kHi>(dacc, false, ra, n, A, dA, B, dB, ldb, jb);
+    }
+  } else {
+    float d2[C::TM][C::TN];
+    zero<C>(acc);
+    zero<C>(dacc);
+    zero<C>(d2);
+    tile4j<C, K0A, K0B, P>(acc, dacc, d2, ra, n, A, dA, B, dB, ldb, jb);
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r)
+#pragma unroll
+      for (int c = 0; c < C::TN; ++c)
+        dacc[r][c] = __fadd_rn(dacc[r][c], d2[r][c]);
+    if constexpr (C::MODE == kBf16x3) {
+#pragma unroll 1
+      for (int q = 0; q < 2; ++q) {
+        float p[C::TM][C::TN], d1[C::TM][C::TN];
+        zero<C>(p);
+        zero<C>(d1);
+        zero<C>(d2);
+        if (q == 0) {
+          tile4j<C, kLo, kHi, P>(p, d1, d2, ra, n, A, dA, B, dB, ldb, jb);
+        } else {
+          tile4j<C, kHi, kHi, P>(p, d1, d2, ra, n, A, dA, B, dB, ldb, jb);
+        }
+        add_pass<C, P>(acc, dacc, p, d1, d2);
+      }
+    }
+  }
+}
+
+// out(i, j, s, ds) for every output of A (n x n, row stride lda) @ B (n x k,
+// row stride ldb) and of its tangent dA B + A dB (dA of stride lda, dB of
+// stride ldb): s as mm() gives it (unset without P), ds as tilej. On the
+// CUDA cores in every mode. With Inplace the team synchronises before each
+// column block's stores, so out may write the block's columns of B and dB.
+template <class C, bool P = true, bool Inplace = false, class Out>
+__device__ __forceinline__ void mmj(const Team<C>& tm, int n, int k,
+                                    const float* A, const float* dA, int lda,
+                                    const float* B, const float* dB, int ldb,
+                                    Out out) {
+  static_assert(!C::TC, "the tangent's products run on the CUDA cores");
+  int ra[C::TM];
+#pragma unroll
+  for (int r = 0; r < C::TM; ++r)
+    ra[r] = min(tm.rg + r * C::RG, n - 1) * lda;
+  for (int c0 = 0; c0 < k; c0 += C::CB) {
+    const int j0 = c0 + tm.cg * C::TN;
+    float acc[C::TM][C::TN], dacc[C::TM][C::TN];
+    tilej<C, P>(acc, dacc, ra, n, A, dA, B, dB, ldb, min(j0, ldb - C::TN));
+    if (Inplace) tm.sync();
+#pragma unroll
+    for (int r = 0; r < C::TM; ++r) {
+      const int i = tm.rg + r * C::RG;
+      if (i < n) {
+#pragma unroll
+        for (int c = 0; c < C::TN; ++c)
+          if (j0 + c < k) out(i, j0 + c, acc[r][c], dacc[r][c]);
+      }
+    }
+  }
+}
+
+// One pass of a row of A times x and its tangent: s += pa(a) px(x), ds +=
+// pa(da) px(x) + pa(a) px(dx) (dot, and the pass's tangent).
+template <int KA, int KX, class X, class DX>
+__device__ __forceinline__ void dotj(const float* a, const float* da, int n,
+                                     X x, DX dx, float& s, float& ds) {
+  float p = 0.f, d1 = 0.f, d2 = 0.f;
+  for (int l = 0; l < n; ++l) {
+    const float al = part<KA>(a[l]), xl = part<KX>(x(l));
+    p = fmaf(al, xl, p);
+    d1 = fmaf(part<KA>(da[l]), xl, d1);
+    d2 = fmaf(al, part<KX>(dx(l)), d2);
+  }
+  s = p;
+  ds = __fadd_rn(d1, d2);
+}
+
+// out(i, s, ds) for every row of A (n x n, row stride lda) @ x, s as mv()
+// gives it and ds its tangent dA x + A dx, the passes summed as tilej.
+template <class C, class X, class DX, class Out>
+__device__ __forceinline__ void mvj(const Team<C>& tm, int n, const float* A,
+                                    const float* dA, int lda, X x, DX dx,
+                                    Out out) {
+  for (int i = tm.t; i < n; i += C::TT) {
+    const float* a = A + i * lda;
+    const float* da = dA + i * lda;
+    float s, ds;
+    if constexpr (C::MODE == kHighest) {
+      dotj<kF32, kF32>(a, da, n, x, dx, s, ds);
+    } else if constexpr (C::MODE == kBf16) {
+      dotj<kHi, kHi>(a, da, n, x, dx, s, ds);
+    } else {
+      float s2, ds2, s3, ds3;
+      dotj<kHi, kLo>(a, da, n, x, dx, s, ds);
+      dotj<kLo, kHi>(a, da, n, x, dx, s2, ds2);
+      dotj<kHi, kHi>(a, da, n, x, dx, s3, ds3);
+      s = __fadd_rn(__fadd_rn(s, s2), s3);
+      ds = __fadd_rn(__fadd_rn(ds, ds2), ds3);
+    }
+    out(i, s, ds);
+  }
+}
+
 // The epilogue of a product s that starts a Newton-Schulz solve:
 // A = I - s and the seed M0 = 2I - A, at element e (diagonal or not).
 __device__ __forceinline__ void ns_seed(float* a, float* m0, int e, bool diag,
@@ -678,6 +913,68 @@ doubling_phase(const Team<C>& tm, float* ar, Arena& o, float ek,
     o.oTMP = x;
     ek = __fmul_rn(ek, ek);
   }
+}
+
+// The layer step's arena beyond the doubling's (layer_step.cu,
+// layer_step_tangent.cu).
+// Row strides of the interaction's X2 [n x wx2] and X [n x 2 wx2]: X holds
+// x1 (2n+1 columns) from column 0 and r2mp x2 from column wx2.
+__host__ __device__ inline int x2_stride(int n) { return round4(2 * n + 1); }
+
+// offset of CRPM in the step's arena (CTMM follows): after the doubling's
+// W1, W2 or the interaction's X, X2, whichever is larger
+__host__ __device__ inline int step_composite_offset(int n, int ld) {
+  const Arena o(n, ld);
+  return o.oW1 + max(2 * n * o.w2, 3 * n * x2_stride(n));
+}
+
+__host__ __device__ inline int step_arena_floats(int n, int ld) {
+  return step_composite_offset(n, ld) + 2 * n * ld;
+}
+
+// R, T, JP, JM of point p from device memory into the arena
+template <class C>
+__device__ __forceinline__ void
+load_elemental(const Team<C>& tm, float* ar, const Arena& o, int p,
+               const float* r_f, const float* t, const float* jp,
+               const float* jm_f) {
+  const int n = o.n, ld = o.ld;
+  const size_t gm = (size_t)p * n * n, gv = (size_t)p * n;
+  float* R = ar + o.oR;
+  float* T = ar + o.oT;
+  each_flat(tm, n, n, [=](int i, int j) {
+    R[i * ld + j] = r_f[gm + i * n + j];
+    T[i * ld + j] = t[gm + i * n + j];
+  });
+  each_row(tm, n, [=](int i) {
+    ar[o.oJP + i] = jp[gv + i];
+    ar[o.oJM + i] = jm_f[gv + i];
+  });
+}
+
+// Launches pick(class, mode)'s kernel (nullptr for a mode the entry does not
+// take) on `teams` teams, pts_per_block a block, with `need` bytes of shared
+// memory a block and `args`; returns the cudaError_t of the launch.
+template <class Pick, class... Args>
+int launch_team(Pick pick, int teams, int n, int ld, int mode,
+                int pts_per_block, int smem_bytes, size_t need, void* stream,
+                Args... args) {
+  const int tt = team_threads(n, ld, pts_per_block, need, smem_bytes);
+  if (tt < 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (teams + pts_per_block - 1) / pts_per_block;
+  const int err = with_class(n, [&](auto c) {
+    return with_mode(mode, [&](auto m) {
+      auto* kern = pick(c, m);
+      if (kern == nullptr) return (int)cudaErrorInvalidValue;
+      cudaError_t e = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (e != cudaSuccess) return (int)e;
+      kern<<<blocks, pts_per_block * tt, smem_bytes,
+             (cudaStream_t)stream>>>(args...);
+      return (int)cudaGetLastError();
+    });
+  });
+  return err < 0 ? (int)cudaErrorInvalidValue : err;
 }
 
 // The launch parameters' schedule from a host array of nd counts.

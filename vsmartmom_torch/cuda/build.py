@@ -29,8 +29,8 @@ from vsmartmom_torch.util.timing import timeit
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-SOURCES = ("layer_step.cu", "layer_step_dev.cu", "layer_scan.cu",
-           "lanes.cu", "voigt.cu")
+SOURCES = ("layer_step.cu", "layer_step_tangent.cu", "layer_step_dev.cu",
+           "layer_scan.cu", "lanes.cu", "voigt.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -48,6 +48,12 @@ _SIGNATURES = {
     # block, shared bytes, stream
     "vsm_layer_step": [_P] * 18 + [_I, _I, _I, ctypes.POINTER(_I), _I, _I,
                                    _I, _I, _I, _P],
+    # the 12 inputs of vsm_layer_step, their tangents over K columns, 6
+    # output tangents; S, K, n, row stride, schedule, nd, ni, product mode,
+    # teams per block, shared bytes, stream
+    "vsm_layer_step_tangent": [_P] * 30 + [_I, _I, _I, _I,
+                                           ctypes.POINTER(_I), _I, _I, _I,
+                                           _I, _I, _P],
     # 7 composite + 5 elemental + ek + d inputs, 7 outputs; S, n, row
     # stride, schedule, nd, ni, product mode, points per block, shared
     # bytes, stream
@@ -266,9 +272,13 @@ def doubling_arena_floats(n: int, ld: int) -> int:
     return 6 * n * ld + 2 * round4(n) + 2 * n * round4(2 * n + 2)
 
 
-#: the kernels with a forward-mode rule (kernel primal, plain-version
-#: tangent), as the JAX package gives its two fused layer steps a
-#: custom_jvp; every other kernel raises under a torch.func transform
+#: the kernels with a forward-mode rule, as the JAX package gives its two
+#: fused layer steps a custom_jvp; every other kernel raises under a
+#: torch.func transform. The primal is the kernel. Row 1's tangent is the
+#: tangent kernel (csrc/layer_step_tangent.cu) at the widths it takes
+#: (layer_step_kernel.tangent_on_kernel), tangent_of_plain beyond them; row
+#: 3's (engine kernel_dev, which no benchmark cell runs) is
+#: tangent_of_plain at every width
 DIFFERENTIABLE = ("fused_layer_step (engine kernel)",
                   "fused_layer_step_dev (engine kernel_dev)")
 

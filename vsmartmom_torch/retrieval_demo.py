@@ -6,7 +6,8 @@ OCO-2 linearization prototype (ref: test/prototyping/AD_OCO2_test.jl:
 71-160) with a synthetic truth in place of the L1b granule. On the card
 the retrieval runs through the fused layer-step kernel (engine "kernel",
 float32, static Newton-Schulz schedules): the kernel computes the primal
-and its plain version's jvp the tangent, the analogue of the reference
+and its tangent kernel the tangent of every column in one launch, the
+analogue of the reference
 differentiating its CUBLAS path through Dual overloads (ref:
 gpu_batched.jl:100-151). With ``--device cpu`` it runs the float64 torch
 engine with LU solves.
