@@ -36,9 +36,14 @@ Run from the repository root:  python3 chip_smoke.py
    -> rt_run on cuda:0: 22 669 points, 34 layers, 3 Fourier moments) with the
    launch counts reset just before, and checks that the model build launched
    the Voigt kernel once per molecule with lines in the band (O2: one launch
-   for all 34 layers; the band is a declared line-free window of CO2) and
-   rt_run the layer-step kernel once per layer and moment (102).
-3. Re-runs both kernels' call sites with every launch compared against the
+   for all 34 layers; the band is a declared line-free window of CO2),
+   that rt_run under auto launched the layer-scan kernel once per schedule
+   bucket and moment (18) and no other layer kernel (rt_run.auto_choices:
+   one kernel_scan), and that rt_run(engine="kernel") launched the
+   layer-step kernel once per layer and moment (102) and nothing else;
+   first and steady seconds of both.
+3. Re-runs both kernels' call sites (the layer step's through
+   engine="kernel") with every launch compared against the
    kernel's plain torch version on the same inputs (layer step: max|diff| /
    max < 1e-5 per field; Voigt: max|diff| <= 2e-5 max sigma, and <= 1e-3 max
    sigma against the dense f64 engine at the bottom layer), plus the layer
@@ -51,8 +56,9 @@ Run from the repository root:  python3 chip_smoke.py
    layers (max|diff| <= 2e-5 max sigma) and timed with CUDA events, with
    its bound per launch and per layer; both Voigt phases print the
    blocking plan of their shape.
-4. Checks R and T: finite, physical, and within 1e-3 (max|dR| / max R) of the
-   float64 torch engine at the same Newton-Schulz schedules on the card.
+4. Checks R and T of the auto run and of the kernel engine's: finite,
+   physical, and within 1e-3 (max|dR| / max R) of the float64 torch engine
+   at the same Newton-Schulz schedules on the card.
 5. (a) The flagship again through rt_run(engine="kernel_dev"): 102 launches
    of the split-form layer-step kernel and none of the plain one, every
    launch within 1e-5 of its plain version per field, R/T within 1e-3 of
@@ -86,17 +92,20 @@ Run from the repository root:  python3 chip_smoke.py
    CO2, 29 944 points on one concatenated axis, Stokes_IQU N = 30, 34
    layers, 3 moments, merged spectral albedo): the model build with the
    launch counts reset just before (one Voigt launch per band and molecule
-   with lines: 3) and rt_run(model, i_band=[0, 1, 2]) under auto (102
-   layer-step launches and nothing else), its host stage spans, then
-   kernel_scan, kernel_dev and kernel_lanes with launch counts, each
-   within 1e-3 of the float64 torch engine; kernel_dev at dd_precision
+   with lines: 3) and rt_run(model, i_band=[0, 1, 2]) under auto (24
+   layer-scan launches, one a schedule bucket and moment, and nothing
+   else; rt_run.auto_choices: one kernel_scan), its host stage spans,
+   then kernel (102 layer-step launches), kernel_scan, kernel_dev and
+   kernel_lanes with launch counts, each within 1e-3 of the float64 torch
+   engine; kernel_dev at dd_precision
    "bf16x3" (the tensor-core body: 102 launches, counted, every launch
    within 1e-5 of max of its plain version at the mode, R within 1e-3 of
    float64); the concatenated run against
    the three per-band runs at its schedules (float32 within 1e-5, float64
-   within 1e-10); an RPV surface on every band through auto within 1e-3 of
-   float64; the layer step, the split-form step, the layer scan and the
-   lanes step at this shape, every launch within 1e-5 of its plain version
+   within 1e-10); an RPV surface on every band through auto (24
+   layer-scan launches and nothing else) within 1e-3 of float64; the layer
+   step, the split-form step, the layer scan and the lanes step at this
+   shape, every launch within 1e-5 of its plain version
    (the compared launches counted) and timed, and each Voigt launch of the
    build within 2e-5 of max sigma, with their bounds.
 13. (i) The Raman path (vsmartmom_torch/core/rt_raman.py: torch ops and
@@ -166,14 +175,16 @@ Run from the repository root:  python3 chip_smoke.py
    differences; (f) torch.func.jvp through rows 2, 4, 5 and 6 raises
    NotImplementedError and launches nothing.
 16. (l) Spectral sharding (parallel/sharding.py, parallel/distributed.py,
-   scaling_bench.py; no kernel of its own: each shard launches row 1, the
-   model build row 2): (a) the flagship in Float32, the build with the
-   launch counts reset just before (one Voigt launch) and
-   rt_run_band_sharded over 4 shards on cuda:0 under auto (4 x 102 row-1
+   scaling_bench.py; no kernel of its own: under auto each shard launches
+   row 5, the model build row 2): (a) the flagship in Float32, the build
+   with the launch counts reset just before (one Voigt launch) and
+   rt_run_band_sharded over 4 shards on cuda:0 under auto (4 x 18 row-5
+   launches and nothing else) and through engine "kernel" (4 x 102 row-1
    launches and nothing else), every launch held against its plain version
-   (1e-5 of max per field), R/T within 1e-6 of max of the unsharded rt_run
-   (bit equality printed), the float64 torch engine sharded against
-   unsharded at rtol 1e-12 (atol 1e-15), steady seconds of both; (b)
+   (1e-5 of max per field), R/T of each within 1e-6 of max of the
+   unsharded rt_run on the same engine (bit equality printed), the float64
+   torch engine sharded against unsharded at rtol 1e-12 (atol 1e-15),
+   steady seconds of both; (b)
    O2Parameters.yaml as written (Float64) through rt_run_band_rrs_sharded
    over 4 shards with the Raman halo, R, T, ieR and ieT within rtol 1e-11
    (atol 1e-16) of phase 13 (a), each shard's halo and redundant share,
@@ -947,6 +958,15 @@ def step_work(comp, r_f, *args, ns_schedule, ni, **kw):
     s_, n_ = r_f.shape[0], r_f.shape[1]
     return (s_ * lsk.step_flops(n_, ns_schedule, ni),
             s_ * lsk.step_bytes(n_))
+
+
+def scan_work(comp, tau_, omega_, zw_, *args, ns_schedule, inter_iters,
+              **kw):
+    """(product FLOPs, device bytes) of one layer-scan launch (row 5)."""
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
+    (nz_, s_), n_, k_ = tau_.shape, comp.r_mp.shape[-1], zw_.shape[1]
+    return (s_ * nz_ * scn.scan_flops(n_, ns_schedule, inter_iters, k_),
+            s_ * scn.scan_bytes(n_, nz_, k_))
 
 
 def doubling_work(r, *args, ns_schedule, **kw):
@@ -1834,8 +1854,9 @@ THREE_BAND_RPV = {"type": "rpvSurfaceScalar", "rho0": 0.1, "rho_c": 0.6,
 def three_band_phase(torch, dev, tag, reset_counts, counts, works):
     """12. (h) The reference's 3-band configuration at full width in
     Float32: model build (Voigt launches per band and molecule with lines)
-    and rt_run(model, i_band=[0, 1, 2]) under auto, kernel_scan, kernel_dev
-    and kernel_lanes, each held against the float64 torch engine; the
+    and rt_run(model, i_band=[0, 1, 2]) under auto (the scan), kernel,
+    kernel_scan, kernel_dev and kernel_lanes, each held against the float64
+    torch engine; the
     concatenated run against per-band runs at its schedules; an RPV surface
     on every band; rows 1, 3, 5 and 6 at this shape, every launch held
     against its plain version and timed with CUDA events (works maps each
@@ -1863,6 +1884,7 @@ def three_band_phase(torch, dev, tag, reset_counts, counts, works):
 
     # the main path: build and one run, launches counted
     reset_counts()
+    rtr.auto_choices.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = vt.model_from_parameters(params, device=dev)
@@ -1878,14 +1900,21 @@ def three_band_phase(torch, dev, tag, reset_counts, counts, works):
     n_z, max_m = model.profile.n_layers, params.max_m
     n = len(model.quad_points.qp_mu_n)
     band = concat_band_inputs(model, bands)
+    min_mu = float(np.min(model.quad_points.qp_mu))
+    sched = rtr.build_layer_schedules(band.tau, band.omega, min_mu, "schulz")
+    n_scan = max_m * len(rtr.schedule_buckets(
+        rtr._per_layer_schedules(n_z, "schulz", *sched)))
     print(f"3-band: nSpec={n_spec} ({[len(b) for b in params.spec_bands]}),"
           f" nZ={n_z}, max_m={max_m}, N={n}, K={band.zw.shape[1]}; build "
-          f"{t_build:.3f} s; launches: voigt {n_voigt}, rt_run {c} {tag}")
+          f"{t_build:.3f} s; launches: voigt {n_voigt}, rt_run {c} (auto "
+          f"took {rtr.auto_choices}) {tag}")
     check(n_voigt == len(voigt_calls), f"3-band: {n_voigt} Voigt launches, "
           f"expected one per band and molecule with lines: {voigt_calls}")
-    check(c["kernel"] == max_m * n_z and sum(c.values()) == c["kernel"]
-          + n_voigt, f"3-band auto: launches {c}, expected {max_m * n_z} "
-          f"layer steps and nothing else")
+    check(rtr.auto_choices == {"kernel_scan": 1}, f"3-band auto took "
+          f"{rtr.auto_choices}, expected kernel_scan")
+    check(c["kernel_scan"] == n_scan and sum(c.values()) == n_scan
+          + n_voigt, f"3-band auto: launches {c}, expected {n_scan} "
+          f"layer-scan launches and nothing else")
     check(R.shape == (1, 3, n_spec) and T.shape == R.shape,
           f"3-band R/T shape {R.shape}/{T.shape}")
     check(np.isfinite(R).all() and np.isfinite(T).all(),
@@ -1926,11 +1955,8 @@ def three_band_phase(torch, dev, tag, reset_counts, counts, works):
     check(rel_r < 1e-3 and rel_t < 1e-3, "3-band auto R/T off the float64 "
           "reference by >= 1e-3")
 
-    min_mu = float(np.min(model.quad_points.qp_mu))
-    sched = rtr.build_layer_schedules(band.tau, band.omega, min_mu, "schulz")
-    n_scan = max_m * len(rtr.schedule_buckets(
-        rtr._per_layer_schedules(n_z, "schulz", *sched)))
-    for engine, expected in (("kernel_scan", n_scan),
+    for engine, expected in (("kernel", max_m * n_z),
+                             ("kernel_scan", n_scan),
                              ("kernel_dev", max_m * n_z),
                              ("kernel_lanes", max_m * n_z)):
         reset_counts()
@@ -1994,8 +2020,9 @@ def three_band_phase(torch, dev, tag, reset_counts, counts, works):
           f"{rel_rr:.3e}, max|dT|/max T = {rel_tr:.3e}; nadir I / the "
           f"Lambertian run's: {float(np.median(Rr[0, 0] / R[0, 0])):.4f} "
           f"(median) {tag}")
-    check(cr["kernel"] == max_m * n_z and sum(cr.values()) == cr["kernel"],
-          f"3-band RPV auto: launches {cr}")
+    check(cr["kernel_scan"] == n_scan and sum(cr.values()) == n_scan,
+          f"3-band RPV auto: launches {cr}, expected {n_scan} layer-scan "
+          f"launches and nothing else")
     check(np.isfinite(Rr).all() and rel_rr < 1e-3 and rel_tr < 1e-3,
           "3-band RPV R/T off the float64 reference by >= 1e-3")
     del Rr, Tr, Rr64, Tr64, R64, T64
@@ -2949,11 +2976,13 @@ def sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref=None):
     """16. Spectral sharding (parallel/sharding.py, parallel/distributed.py,
     scaling_bench.py, the native HITRAN parser) on the one card. (a) The
     flagship in Float32 at full width, model build (one Voigt launch) and
-    rt_run_band_sharded over 4 shards on cuda:0 under auto with the launch
-    counts reset just before (4 x 102 row-1 launches, nothing else), every
-    launch held against its plain version (1e-5 of max per field), R/T
-    within 1e-6 of max of the unsharded rt_run, and the float64 torch engine
-    sharded against unsharded at rtol 1e-12; steady seconds of both. (b)
+    rt_run_band_sharded over 4 shards on cuda:0 under auto and through
+    engine "kernel", with the launch counts reset just before (4 x 18
+    row-5 launches under auto, 4 x 102 row-1 launches through kernel,
+    nothing else), every launch held against its plain version (1e-5 of
+    max per field), R/T within 1e-6 of max of the unsharded rt_run on the
+    same engine, and the float64 torch engine sharded against unsharded at
+    rtol 1e-12; steady seconds of both. (b)
     O2Parameters.yaml as written (Float64) through rt_run_band_rrs_sharded
     over 4 shards with the Raman halo, R, T, ieR and ieT within rtol 1e-11
     of phase 13 (a)'s unsharded run; halo per shard, seconds and peak
@@ -2973,7 +3002,9 @@ def sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref=None):
     from vsmartmom_torch.core.api import (_band_surface, _raman_specs,
                                           build_band_inputs)
     from vsmartmom_torch.core.rt_raman import build_coupling
-    from vsmartmom_torch.core.rt_run import rt_run_band
+    from vsmartmom_torch.core.rt_run import (build_layer_schedules,
+                                             rt_run_band, schedule_buckets)
+    from vsmartmom_torch.cuda import layer_scan_kernel as scn
     from vsmartmom_torch.cuda import layer_step_kernel as lsk
     from vsmartmom_torch.parallel.sharding import (
         raman_halo, raman_halo_stats, rt_run_band_rrs_sharded,
@@ -3003,51 +3034,61 @@ def sharding_phase(torch, dev, tag, reset_counts, counts, raman_ref=None):
     args = (model.pol, model.quad_points, band, model.obs_geom.vza,
             model.obs_geom.vaz, params.max_m, surf)
     n_z, n_spec = band.tau.shape
-    R1, T1 = vt.rt_run(model, device=dev)
-    reset_counts()
-    Rs, Ts = rt_run_band_sharded(*args, devices=devices,
-                                 dtype=torch.float32, engine="auto")
-    torch.cuda.synchronize()
-    c = counts()
-    expected = N_SHARDS * params.max_m * n_z
-    print(f"sharded flagship (Float32, nSpec={n_spec} in {N_SHARDS} shards "
-          f"of {sorted({hi - lo for lo, hi in shard_bounds(n_spec, N_SHARDS)})}"
-          f" points on {dev}): launches: build {c_build}, sharded run {c} "
-          f"{tag}")
     check(c_build["voigt"] == 1 and sum(c_build.values()) == 1,
           f"sharded flagship build: launches {c_build}, expected one Voigt")
-    check(c["kernel"] == expected and sum(c.values()) == expected,
-          f"sharded flagship: launches {c}, expected {expected} row-1 "
-          f"launches and nothing else")
-    st = KernelStats()
-    real = lsk.fused_layer_step
-    lsk.fused_layer_step = compare_hook(torch, st, real,
-                                        lsk.fused_layer_step_plain,
-                                        step_work)
-    try:
-        rt_run_band_sharded(*args, devices=devices, dtype=torch.float32,
-                            engine="auto")
-    finally:
-        lsk.fused_layer_step = real
-    check(st.calls == expected and st.rel < 1e-5, f"sharded flagship: "
-          f"{st.calls} compared launches (expected {expected}), "
-          f"{st.rel:.3e} of max from the plain version")
-    err_r, err_t = rel_err(Rs, R1), rel_err(Ts, T1)
-    bit = bool(np.array_equal(Rs, R1) and np.array_equal(Ts, T1))
-    t_sh = steady(lambda: rt_run_band_sharded(*args, devices=devices,
-                                              dtype=torch.float32))
-    t_un = steady(lambda: vt.rt_run(model, device=dev))
-    ms, plain_ms = st.mean_ms()
-    bound, by = st.bound()
-    print(f"sharded flagship float32: vs unsharded rt_run max|dR|/max R "
-          f"{err_r:.3e}, max|dT|/max T {err_t:.3e}, bit-equal {bit}; "
-          f"{st.calls} compared row-1 launches, max|diff| vs plain "
-          f"{st.abs:.3e} ({st.rel:.3e} of max); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}) per launch "
-          f"(mean); steady sharded {t_sh:.3f} s, unsharded {t_un:.3f} s "
-          f"{tag}")
-    check(err_r < 1e-6 and err_t < 1e-6, "sharded flagship float32 off the "
-          "unsharded run by >= 1e-6 of max")
+    _, _, ls = build_layer_schedules(band.tau, band.omega,
+                                     float(np.min(model.quad_points.qp_mu)),
+                                     "schulz")
+    n_buckets = len(schedule_buckets(ls)) if ls is not None else 1
+    # auto takes row 5 on every shard (the whole band's static schedules);
+    # row 1 runs by name
+    for engine, mod, fname, plain, work, key, per_shard in (
+            ("auto", scn, "fused_layer_scan", scn.fused_layer_scan_plain,
+             scan_work, "kernel_scan", params.max_m * n_buckets),
+            ("kernel", lsk, "fused_layer_step", lsk.fused_layer_step_plain,
+             step_work, "kernel", params.max_m * n_z)):
+        R1, T1 = vt.rt_run(model, device=dev, engine=engine)
+        reset_counts()
+        Rs, Ts = rt_run_band_sharded(*args, devices=devices,
+                                     dtype=torch.float32, engine=engine)
+        torch.cuda.synchronize()
+        c = counts()
+        expected = N_SHARDS * per_shard
+        print(f"sharded flagship {engine} (Float32, nSpec={n_spec} in "
+              f"{N_SHARDS} shards of "
+              f"{sorted({hi - lo for lo, hi in shard_bounds(n_spec, N_SHARDS)})}"
+              f" points on {dev}): launches: build {c_build}, sharded run "
+              f"{c} {tag}")
+        check(c[key] == expected and sum(c.values()) == expected,
+              f"sharded flagship {engine}: launches {c}, expected "
+              f"{expected} {key} launches and nothing else")
+        st = KernelStats()
+        real = getattr(mod, fname)
+        setattr(mod, fname, compare_hook(torch, st, real, plain, work))
+        try:
+            rt_run_band_sharded(*args, devices=devices, dtype=torch.float32,
+                                engine=engine)
+        finally:
+            setattr(mod, fname, real)
+        check(st.calls == expected and st.rel < 1e-5, f"sharded flagship "
+              f"{engine}: {st.calls} compared launches (expected "
+              f"{expected}), {st.rel:.3e} of max from the plain version")
+        err_r, err_t = rel_err(Rs, R1), rel_err(Ts, T1)
+        bit = bool(np.array_equal(Rs, R1) and np.array_equal(Ts, T1))
+        t_sh = steady(lambda: rt_run_band_sharded(
+            *args, devices=devices, dtype=torch.float32, engine=engine))
+        t_un = steady(lambda: vt.rt_run(model, device=dev, engine=engine))
+        ms, plain_ms = st.mean_ms()
+        bound, by = st.bound()
+        print(f"sharded flagship float32 {engine}: vs unsharded rt_run "
+              f"max|dR|/max R {err_r:.3e}, max|dT|/max T {err_t:.3e}, "
+              f"bit-equal {bit}; {st.calls} compared {key} launches, "
+              f"max|diff| vs plain {st.abs:.3e} ({st.rel:.3e} of max); "
+              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound:.4f} ms ({by}) per launch (mean); steady sharded "
+              f"{t_sh:.3f} s, unsharded {t_un:.3f} s {tag}")
+        check(err_r < 1e-6 and err_t < 1e-6, f"sharded flagship float32 "
+              f"{engine} off the unsharded run by >= 1e-6 of max")
     (R64, T64), t64 = timed(lambda: rt_run_band(
         *args, dtype=torch.float64, device=dev, engine="torch"))
     (Rs64, Ts64), t64s = timed(lambda: rt_run_band_sharded(
@@ -3497,6 +3538,7 @@ def main():
                   if has_lines(m, grid, ap.wing_cutoff)]
 
     reset_counts()
+    rtr.auto_choices.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = vt.model_from_parameters(params, device=dev)
@@ -3506,29 +3548,56 @@ def main():
     R, T = vt.rt_run(model, device=dev)
     torch.cuda.synchronize()
     t_rt_first = time.perf_counter() - t0
+    c_auto = counts()
     n_voigt = vk.launches
-    n_step = lsk.launches
     n_z = model.profile.n_layers
     max_m = params.max_m
+    band = build_band_inputs(model, 0)
+    nb_flag = n_buckets(band, model.quad_points)
+    # the same run through row 1, by name
+    reset_counts()
+    t0 = time.perf_counter()
+    R_k, T_k = vt.rt_run(model, device=dev, engine="kernel")
+    torch.cuda.synchronize()
+    t_k_first = time.perf_counter() - t0
+    c_k = counts()
+    n_step = c_k["kernel"]
     print(f"flagship: nSpec={n_spec}, nZ={n_z}, max_m={max_m}, "
-          f"N={len(model.quad_points.qp_mu_n)}; launches: voigt {n_voigt}, "
-          f"layer step {n_step} {tag}")
+          f"N={len(model.quad_points.qp_mu_n)}, {nb_flag} schedule buckets; "
+          f"launches: auto {c_auto} (auto took {rtr.auto_choices}), "
+          f"kernel {c_k} {tag}")
     check(n_voigt == len(voigt_mols), f"{n_voigt} Voigt launches in the "
           f"build, expected one per molecule with lines: {voigt_mols}")
-    check(n_step == max_m * n_z, f"{n_step} layer-step launches in rt_run, "
-          f"expected {max_m * n_z}")
-    check(R.shape == (len(params.vza), 1, n_spec) and T.shape == R.shape,
-          f"R/T shape {R.shape}/{T.shape}")
-    check(np.isfinite(R).all() and np.isfinite(T).all(), "non-finite R/T")
-    nadir = R[4, 0]
-    check(np.all(nadir > 0) and np.all(nadir < 1), "nadir R outside (0, 1)")
+    check(rtr.auto_choices == {"kernel_scan": 1}, f"flagship auto took "
+          f"{rtr.auto_choices}, expected kernel_scan")
+    check(c_auto["kernel_scan"] == max_m * nb_flag
+          and sum(c_auto.values()) == c_auto["kernel_scan"] + n_voigt,
+          f"flagship auto: launches {c_auto}, expected {max_m * nb_flag} "
+          f"layer-scan launches and nothing else")
+    check(n_step == max_m * n_z and sum(c_k.values()) == n_step,
+          f"flagship kernel: launches {c_k}, expected {max_m * n_z} "
+          f"layer-step launches and nothing else")
+    for name, (R_, T_) in (("auto", (R, T)), ("kernel", (R_k, T_k))):
+        check(R_.shape == (len(params.vza), 1, n_spec)
+              and T_.shape == R_.shape,
+              f"{name} R/T shape {R_.shape}/{T_.shape}")
+        check(np.isfinite(R_).all() and np.isfinite(T_).all(),
+              f"non-finite {name} R/T")
+        nadir = R_[4, 0]
+        check(np.all(nadir > 0) and np.all(nadir < 1),
+              f"{name} nadir R outside (0, 1)")
 
-    t_steady = np.inf
-    for _ in range(2):
-        t0 = time.perf_counter()
-        vt.rt_run(model, device=dev)
-        torch.cuda.synchronize()
-        t_steady = min(t_steady, time.perf_counter() - t0)
+    def steady_flag(**kw):
+        best = np.inf
+        for _ in range(2):
+            t0 = time.perf_counter()
+            vt.rt_run(model, device=dev, **kw)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    t_steady = steady_flag()
+    t_k_steady = steady_flag(engine="kernel")
     tau = np.zeros((n_spec, n_z))
     t0 = time.perf_counter()
     compute_absorption_profile(tau, "O2", ap, grid, 0.21, model.profile,
@@ -3536,8 +3605,10 @@ def main():
     torch.cuda.synchronize()
     t_voigt = time.perf_counter() - t0
     print(f"model build {t_build:.3f} s (Voigt for O2 alone {t_voigt:.3f} s); "
-          f"rt_run first {t_rt_first:.3f} s, steady {t_steady:.3f} s = "
-          f"{n_spec / t_steady:.1f} points/s {tag}")
+          f"rt_run auto first {t_rt_first:.3f} s, steady {t_steady:.3f} s = "
+          f"{n_spec / t_steady:.1f} points/s; kernel first {t_k_first:.3f} "
+          f"s, steady {t_k_steady:.3f} s = {n_spec / t_k_steady:.1f} "
+          f"points/s {tag}")
 
     # ---- 3a. Voigt kernel vs plain version, all layers in one launch -------
     (_, mol, _, vmr), (_, mol_c, grid_c, vmr_c) = voigt_shapes(params)
@@ -3596,12 +3667,6 @@ def main():
           f"{voigt_geometry(vk, grid_c, ct.nu, ap.wing_cutoff, n_z)}")
 
     # ---- 3b. layer-step kernel vs plain version at every layer and moment ---
-    def scan_work(comp, tau_, omega_, zw_, *args, ns_schedule, inter_iters,
-                  **kw):
-        (nz_, s_), n_, k_ = tau_.shape, comp.r_mp.shape[-1], zw_.shape[1]
-        return (s_ * nz_ * scn.scan_flops(n_, ns_schedule, inter_iters, k_),
-                s_ * scn.scan_bytes(n_, nz_, k_))
-
     def lanes_work(comp_l, r_f, *args, ns_schedule, ni, **kw):
         n_, s_ = r_f.shape[0], r_f.shape[2]
         return (s_ * lnk.step_flops(n_, ns_schedule, ni),
@@ -3613,7 +3678,7 @@ def main():
                                         lsk.fused_layer_step_plain,
                                         step_work)
     try:
-        vt.rt_run(model, device=dev)
+        vt.rt_run(model, device=dev, engine="kernel")
     finally:
         lsk.fused_layer_step = real_step
     check(s_stats.calls == max_m * n_z, "layer-step comparison did not "
@@ -3672,7 +3737,6 @@ def main():
     del comp, args44, out, ref
 
     # ---- 4. against the float64 torch engine at the same schedules ----------
-    band = build_band_inputs(model, 0)
     t0 = time.perf_counter()
     R64, T64 = rt_run_band(model.pol, model.quad_points, band,
                            model.obs_geom.vza, model.obs_geom.vaz, max_m,
@@ -3681,11 +3745,15 @@ def main():
     torch.cuda.synchronize()
     t64 = time.perf_counter() - t0
     rel_r, rel_t = rel_err(R, R64), rel_err(T, T64)
-    print(f"float32 kernel path vs float64 torch engine: max|dR|/max R = "
-          f"{rel_r:.3e}, max|dT|/max T = {rel_t:.3e} (float64 run "
-          f"{t64:.2f} s) {tag}")
-    check(rel_r < 1e-3 and rel_t < 1e-3, "flagship R/T off the float64 "
+    rel_rk, rel_tk = rel_err(R_k, R64), rel_err(T_k, T64)
+    print(f"float32 auto (kernel_scan) vs float64 torch engine: max|dR|/max "
+          f"R = {rel_r:.3e}, max|dT|/max T = {rel_t:.3e}; kernel engine "
+          f"{rel_rk:.3e}, {rel_tk:.3e} (float64 run {t64:.2f} s) {tag}")
+    check(rel_r < 1e-3 and rel_t < 1e-3, "flagship auto R/T off the float64 "
           "reference by >= 1e-3")
+    check(rel_rk < 1e-3 and rel_tk < 1e-3, "flagship kernel R/T off the "
+          "float64 reference by >= 1e-3")
+    del R_k, T_k
 
     # ---- 5. (a) the flagship through the split-form kernel ------------------
     reset_counts()
@@ -3730,14 +3798,13 @@ def main():
           f"step (mean) {tag}")
     print(f"flagship vs float64 torch engine: kernel_dev max|dR|/max R = "
           f"{rel_rd:.3e}, max|dT|/max T = {rel_td:.3e}; kernel (plain form) "
-          f"{rel_r:.3e}, {rel_t:.3e}; rt_run kernel_dev first "
+          f"{rel_rk:.3e}, {rel_tk:.3e}; rt_run kernel_dev first "
           f"{t_dev_first:.3f} s, steady {t_dev:.3f} s = "
           f"{n_spec / t_dev:.1f} points/s {tag}")
     check(rel_rd < 1e-3 and rel_td < 1e-3, "flagship kernel_dev R/T off the "
           "float64 reference by >= 1e-3")
 
     # ---- 8. (d), 9. (e) the flagship through kernel_scan and kernel_lanes --
-    nb_flag = n_buckets(band, model.quad_points)
     flag = {"kernel_scan": (scn, "fused_layer_scan",
                             scn.fused_layer_scan_plain, scan_work,
                             max_m * nb_flag),

@@ -269,23 +269,37 @@ def test_fused_layer_step_dev_plain_matches_jax(case, dtype):
         assert _rel(x.numpy(), y) < bound, (name, _rel(x.numpy(), y))
 
 
-def test_select_engine_auto_takes_the_split_form():
-    """auto: float32 CUDA beyond the kernel's N takes torch_dev (the
-    Natraj N), float64 the plain torch engine; the scan and lanes engines
-    run by their port names, and the JAX names raise. No card needed: only
-    the device's type is read."""
+_UNIFORM = ((4, (0, 1, 2, 3), 4),) * 2
+
+
+@pytest.mark.parametrize("engine, dtype, n, schedules, precision, want", [
+    ("auto", torch.float32, 148, _UNIFORM, "highest", "torch_dev"),
+    ("auto", torch.float32, 136, _UNIFORM, "highest", "torch_dev"),
+    ("auto", torch.float32, 136, _UNIFORM, "high", "torch_dev"),
+    ("auto", torch.float64, 148, _UNIFORM, "highest", "torch"),
+    ("auto", torch.float32, 148, ((4, None, None),) * 2, "highest",
+     "torch"),
+    ("auto", torch.float32, 44, _UNIFORM, "highest", "kernel_scan"),
+    ("auto", torch.float32, 44, _UNIFORM, "high", "kernel"),
+    ("kernel_scan", torch.float32, 44, _UNIFORM, "highest", "kernel_scan"),
+    ("kernel_lanes", torch.float32, 44, _UNIFORM, "highest", "kernel_lanes"),
+    ("pallas_scan", torch.float32, 148, _UNIFORM, "highest", ValueError),
+    ("pallas_lanes", torch.float32, 148, _UNIFORM, "highest", ValueError),
+])
+def test_select_engine_auto_takes_the_split_form(engine, dtype, n, schedules,
+                                                 precision, want):
+    """auto: float32 CUDA beyond the kernels' N takes torch_dev (the
+    Natraj N) at any product mode, float64 the plain torch engine; at the
+    headline N = 44 the scan at "highest", the layer step at "high"; the
+    scan and lanes engines run by their port names, and the JAX names
+    raise. No card needed: only the device's type is read."""
     cuda = torch.device("cuda")
-    assert select_engine("auto", cuda, torch.float32, 148, True) \
-        == "torch_dev"
-    assert select_engine("auto", cuda, torch.float32, 136, True) \
-        == "torch_dev"
-    assert select_engine("auto", cuda, torch.float64, 148, True) == "torch"
-    assert select_engine("auto", cuda, torch.float32, 148, False) == "torch"
-    for eng in ("kernel_scan", "kernel_lanes"):
-        assert select_engine(eng, cuda, torch.float32, 44, True) == eng
-    for eng in ("pallas_scan", "pallas_lanes"):
+    if want is ValueError:
         with pytest.raises(ValueError):
-            select_engine(eng, cuda, torch.float32, 148, True)
+            select_engine(engine, cuda, dtype, n, schedules, precision)
+    else:
+        assert select_engine(engine, cuda, dtype, n, schedules,
+                             precision) == want
 
 
 @pytest.mark.parametrize("n", range(1, 76))

@@ -209,20 +209,109 @@ def test_kernel_engine_matches_jax_pallas_step():
     assert np.abs(R32 - Rj).max() / np.abs(Rj).max() < 1e-5
 
 
-def test_engine_selection():
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert select_engine("auto", cuda, torch.float32, 12, True) == "kernel"
-    assert select_engine("auto", cuda, torch.float64, 12, True) == "torch"
-    assert select_engine("auto", cuda, torch.float32, 12, False) == "torch"
-    assert select_engine("auto", cpu, torch.float32, 12, True) == "torch"
-    assert select_engine("auto", cuda, torch.float32, 64, True) == "torch_dev"
-    for eng in ENGINES:
-        assert select_engine(eng, cpu, torch.float64, 12, True) == eng
+CUDA, CPU = torch.device("cuda"), torch.device("cpu")
+#: per-layer (ndoubl, ns_schedule, ni) entries: one uniform bucket, two
+#: buckets, a bucket whose schedule is shorter than its ndoubl, and no
+#: static NS schedules (the lu solver; per-layer counts)
+ONE_BUCKET = ((4, (0, 1, 2, 3), 4),) * 3
+TWO_BUCKETS = ((4, (0, 0, 1, 2), 2),) * 2 + ((8, (0,) * 5 + (1, 2, 3), 4),)
+SHORT_SCHEDULE = ((4, (0, 1, 2), 4),) + ((8, (0,) * 5 + (1, 2, 3), 4),)
+NO_NS = ((4, None, None),) * 3
+NO_STATIC = ((None, None, None),) * 3
+
+
+def _select_under(transform, *args):
+    """select_engine(*args) called inside ``transform`` ("jvp" or
+    "vmap") of a function of one tensor."""
+    picked = []
+
+    def f(x):
+        picked.append(select_engine(*args))
+        return x * 2.0
+
+    if transform == "jvp":
+        torch.func.jvp(f, (torch.ones(2),), (torch.ones(2),))
+    else:
+        torch.func.vmap(f)(torch.ones(3, 2))
+    return picked[0]
+
+
+_JAX_NAMES = ("xla", "xla_dev", "pallas_dd", "pallas", "pallas_scan",
+              "pallas_lanes")
+
+
+@pytest.mark.parametrize("engine, device, dtype, n, schedules, precision, "
+                         "want", [
+    # auto: the fused layer scan where it runs the band as the kernel
+    # engine would
+    ("auto", CUDA, torch.float32, 12, ONE_BUCKET, "highest", "kernel_scan"),
+    ("auto", CUDA, torch.float32, 30, TWO_BUCKETS, "highest", "kernel_scan"),
+    ("auto", CUDA, torch.float32, 63, ONE_BUCKET, "highest", "kernel_scan"),
+    # auto: the layer step at a reduced product mode or where a schedule
+    # is not ndoubl steps long
+    ("auto", CUDA, torch.float32, 12, ONE_BUCKET, "high", "kernel"),
+    ("auto", CUDA, torch.float32, 12, ONE_BUCKET, "default", "kernel"),
+    ("auto", CUDA, torch.float32, 30, SHORT_SCHEDULE, "highest", "kernel"),
+    # auto beyond the kernels' N, off CUDA, off float32, without NS
+    # schedules
+    ("auto", CUDA, torch.float32, 64, ONE_BUCKET, "highest", "torch_dev"),
+    ("auto", CUDA, torch.float64, 12, ONE_BUCKET, "highest", "torch"),
+    ("auto", CUDA, torch.float32, 12, NO_NS, "highest", "torch"),
+    ("auto", CUDA, torch.float32, 12, NO_STATIC, "highest", "torch"),
+    ("auto", CPU, torch.float32, 12, ONE_BUCKET, "highest", "torch"),
+    # explicit engines by their port names; the JAX names raise
+    *((e, CPU, torch.float64, 12, ONE_BUCKET, "highest", e)
+      for e in ENGINES),
+    *((e, CPU, torch.float64, 12, ONE_BUCKET, "highest", ValueError)
+      for e in _JAX_NAMES),
+])
+def test_engine_selection(engine, device, dtype, n, schedules, precision,
+                          want):
     assert {"kernel_scan", "kernel_lanes"} <= set(ENGINES)
-    for eng in ("xla", "xla_dev", "pallas_dd", "pallas", "pallas_scan",
-                "pallas_lanes"):
+    if want is ValueError:
         with pytest.raises(ValueError):
-            select_engine(eng, cpu, torch.float64, 12, True)
+            select_engine(engine, device, dtype, n, schedules, precision)
+    else:
+        assert select_engine(engine, device, dtype, n, schedules,
+                             precision) == want
+
+
+@pytest.mark.parametrize("transform", ["jvp", "vmap"])
+def test_engine_selection_under_a_transform(transform):
+    """Under an active torch.func transform auto keeps the layer step: the
+    scan kernel has no forward rule."""
+    args = ("auto", CUDA, torch.float32, 12, ONE_BUCKET)
+    assert select_engine(*args) == "kernel_scan"
+    assert _select_under(transform, *args) == "kernel"
+
+
+def test_scan_takes_every_n_auto_gives_it():
+    """auto's N bound for the kernels fits the scan kernel's arena too."""
+    from vsmartmom_torch.core.rt_run import KERNEL_MAX_N
+    from vsmartmom_torch.cuda import layer_scan_kernel as sk
+    assert sk.max_n() >= KERNEL_MAX_N
+
+
+def test_auto_choices_counts_each_call():
+    """rt_run_band counts each call's resolution of auto (none for an
+    explicit engine); clearing the dict resets it."""
+    from vsmartmom_torch.core import rt_run as rtr
+    quad = rt_set_streams("GaussQuadFullSphere", 2, 30.0, [0.0], 1)
+
+    def run(engine):
+        rt_run_band(Polarization.from_name("Stokes_I"), quad,
+                    _rayleigh_band(0.1), [0.0], [0.0], 1, LAMB0,
+                    device="cpu", engine=engine)
+
+    rtr.auto_choices.clear()
+    run("auto")
+    run("auto")
+    run("torch")
+    assert rtr.auto_choices == {"torch": 2}
+    rtr.auto_choices.clear()
+    assert rtr.auto_choices == {}
+    run("auto")
+    assert rtr.auto_choices == {"torch": 1}
 
 
 def test_schedule_builder_errors_propagate():

@@ -32,8 +32,9 @@ Engines for the layer scan (the JAX package's name in brackets):
                       (cuda/lanes_kernel.py) [pallas_lanes].
 The kernel engines need the Newton-Schulz solver's static schedules and
 raise on a layer without one; CPU tensors take each kernel's plain torch
-version. auto never picks kernel_dev, kernel_doubling, kernel_scan or
-kernel_lanes.
+version. auto picks kernel_scan where the scan can run the band as the
+kernel engine would (select_engine), and never kernel_dev, kernel_doubling
+or kernel_lanes.
 
 Matrix-product precision (core/precision.py), as the JAX package's
 ``matmul_precision`` and ``dd_precision``: a run's torch ops and the
@@ -75,6 +76,10 @@ KERNEL_MAX_N = 63
 ENGINES = ("torch", "kernel", "torch_dev", "kernel_dev", "kernel_doubling",
            "kernel_scan", "kernel_lanes")
 _DEV_ENGINES = ("torch_dev", "kernel_dev")
+
+#: rt_run_band calls by the engine that "auto" resolved to (explicit
+#: engines are not counted); clear it (or set it to {}) to reset
+auto_choices: dict = {}
 
 
 @dataclasses.dataclass
@@ -399,21 +404,39 @@ def surface_inputs(surface, n_spec: int, to_dev):
 
 
 def select_engine(engine: str, device: torch.device, dtype, n: int,
-                  static_schulz: bool) -> str:
-    """Resolve ``engine`` ("auto" or one of ENGINES).
+                  layer_schedules, matmul_precision: str = "highest") -> str:
+    """Resolve ``engine`` ("auto" or one of ENGINES) for a band whose
+    per-layer (ndoubl, ns_schedule, ni) entries are ``layer_schedules``.
 
-    "auto" takes the fused kernel for float32 CUDA tensors with N <= 63
-    and the schulz solver's static schedules; beyond N = 63 the torch ops
-    of the direct/diffuse split form, as the JAX package's auto does (its
-    plain float32 missed the Natraj I gate on the TPU; the split form's
-    float32 floor is lower); and plain torch ops otherwise. It never picks
-    kernel_dev, kernel_doubling, kernel_scan or kernel_lanes, as the JAX
-    package's auto never picks their TPU counterparts.
+    "auto" takes a kernel for float32 CUDA tensors with N <= 63 and the
+    schulz solver's static schedules on every layer: the fused layer scan
+    (kernel_scan: one launch a schedule bucket, the Z mixing and the
+    elemental layers inside it) where every layer's NS schedule has its
+    ndoubl steps (the scan doubles len(ns_schedule) times), the products
+    are at "highest" (the scan computes in full float32 whatever the mode)
+    and no torch.func transform is active (the scan has no forward rule),
+    else the fused layer step (kernel, which honours the mode). Beyond
+    N = 63 it takes the torch ops of the direct/diffuse split form, as the
+    JAX package's auto does (its plain float32 missed the Natraj I gate on
+    the TPU; the split form's float32 floor is lower); and plain torch ops
+    otherwise. The JAX package's auto never picks its TPU scan; this one
+    does because on the H100 the scan gives the kernel engine's answer in
+    less time (PERF.md). It never picks kernel_dev, kernel_doubling or
+    kernel_lanes.
     """
     if engine == "auto":
+        static_schulz = all(sched is not None
+                            for _, sched, _ in layer_schedules)
         if device.type == "cuda" and dtype == torch.float32 \
                 and static_schulz:
-            return "kernel" if n <= KERNEL_MAX_N else "torch_dev"
+            if n > KERNEL_MAX_N:
+                return "torch_dev"
+            if matmul_precision == "highest" \
+                    and all(len(sched) == nd and ni is not None
+                            for nd, sched, ni in layer_schedules) \
+                    and torch._C._functorch.peek_interpreter_stack() is None:
+                return "kernel_scan"
+            return "kernel"
         return "torch"
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
@@ -495,9 +518,13 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     with timeit("schedules"):
         ndoubl_static, ns_schedule, layer_schedules = build_layer_schedules(
             band.tau, band.omega, min_qp_mu, solver, tau_scat_max)
-        engine = select_engine(
-            engine, device, dtype, n,
-            ns_schedule is not None or layer_schedules is not None)
+        schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
+                                          ns_schedule, layer_schedules)
+        requested = engine
+        engine = select_engine(engine, device, dtype, n, schedules,
+                               matmul_precision)
+        if requested == "auto":
+            auto_choices[engine] = auto_choices.get(engine, 0) + 1
         if engine in _DEV_ENGINES and layer_schedules is None \
                 and ndoubl_static is None:
             # the split-form engines always need static per-layer doubling
@@ -505,8 +532,8 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
             # buckets (torch_dev then solves each of them exactly)
             _, _, layer_schedules = build_layer_schedules(
                 band.tau, band.omega, min_qp_mu, "schulz", tau_scat_max)
-        schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
-                                          ns_schedule, layer_schedules)
+            schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
+                                              ns_schedule, layer_schedules)
 
     from vsmartmom_torch.util.logging import run_banner
     run_banner(pol, quad, n_spec, n_z, max_m, surface, engine, solver,

@@ -94,7 +94,7 @@ class _Shards:
         n_z = args["tau"].shape[0]
         self.schedules = _per_layer_schedules(n_z, "schulz", nd, sched, ls)
         self.engines = [select_engine("auto", d, self.tdtype,
-                                      len(args["qp"]), True)
+                                      len(args["qp"]), self.schedules)
                         for d in devices]
 
         def put(x, axis=None):
