@@ -2637,7 +2637,6 @@ def ad_phase(torch, dev, tag, reset_counts, counts):
         aerosol_optics_with_derivs, greek_stack, make_setup)
     from vsmartmom_torch.scattering.nai2 import \
         compute_aerosol_optical_properties
-    from vsmartmom_torch.scattering.phase import compute_Z_moments
     from vsmartmom_torch.spectroscopy.profiles import (hitran_artifact,
                                                        read_linelist)
     from vsmartmom_torch.spectroscopy.voigt import (
@@ -2849,8 +2848,8 @@ def ad_phase(torch, dev, tag, reset_counts, counts):
     reset_counts()
     for engine in ("kernel_doubling", "kernel_scan", "kernel_lanes"):
         try:
-            fourier_jvp(torch, rtr, compute_Z_moments, pol, quad, small,
-                        surf, dev, engine, static)
+            fourier_jvp(torch, rtr, pol, quad, small, surf, dev, engine,
+                        static)
             raised[engine] = None
         except NotImplementedError as e:
             raised[engine] = str(e).split(" has no")[0]
@@ -2871,34 +2870,23 @@ def ad_phase(torch, dev, tag, reset_counts, counts):
     check(sum(c.values()) == 0, f"AD (f) launched kernels: {c}")
 
 
-def fourier_jvp(torch, rtr, compute_Z_moments, pol, quad, band, surf, dev,
-                engine, static):
+def fourier_jvp(torch, rtr, pol, quad, band, surf, dev, engine, static):
     """torch.func.jvp of moment 0's Fourier step through ``engine`` with
     respect to tau, in float32 on ``dev`` (what make_radiance_fn refuses
     for the engines without a forward rule)."""
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                               device=dev)
-    n = len(quad.qp_mu_n)
-    i0 = np.zeros(n)
-    i0[quad.i_mu0_n:quad.i_mu0_n + pol.n] = pol.i0
-    zs = [compute_Z_moments(pol, quad.qp_mu, gc, 0) for gc in band.greeks]
-    n_z = band.tau.shape[0]
+    geom = rtr.geometry(pol, quad, torch.float32, dev)
+    z_pp_c, z_mp_c = geom.z_moments(band.greeks, 0)
     schedules = rtr._per_layer_schedules(
-        n_z, "schulz", static["ndoubl_static"], static["ns_schedule"],
-        static["layer_schedules"])
+        band.tau.shape[0], "schulz", static["ndoubl_static"],
+        static["ns_schedule"], static["layer_schedules"])
 
     def step(tau):
         comp, _ = rtr._fourier_step(
-            tau, t(band.omega), t(band.zw), t([z[0] for z in zs]),
-            t([z[1] for z in zs]), t(quad.qp_mu_n), t(quad.wt_mu_n),
-            t(np.tile(pol.d, quad.n_quad)), t(i0), t(surf["albedo"]), None,
-            t(quad.mu0), t(quad.qp_mu_n[quad.i_mu0_n]),
-            t(np.min(quad.qp_mu)), i_mu0_n=quad.i_mu0_n, n_stokes=pol.n,
-            is_m0=True, solver="schulz", layer_schedules=schedules,
-            engine=engine)
+            tau, geom.to_dev(band.omega), geom.to_dev(band.zw), z_pp_c,
+            z_mp_c, geom, geom.to_dev(surf["albedo"]), None, m=0,
+            solver="schulz", layer_schedules=schedules, engine=engine)
         return comp.j_m
-    tau = t(band.tau)
+    tau = geom.to_dev(band.tau)
     return torch.func.jvp(step, (tau,), (torch.ones_like(tau),))
 
 

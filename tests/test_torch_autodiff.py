@@ -24,7 +24,8 @@ from vsmartmom.util.quadrature import rt_set_streams as jax_streams
 
 from vsmartmom_torch.core.autodiff import (AD_ENGINES, gauss_newton,
                                            make_radiance_fn)
-from vsmartmom_torch.core.rt_run import ENGINES, build_layer_schedules
+from vsmartmom_torch.core.rt_run import (ENGINES, BandRTInputs,
+                                         build_layer_schedules, rt_run_band)
 from vsmartmom_torch.cuda import layer_step_dev_kernel as ldk
 from vsmartmom_torch.cuda import layer_step_kernel as lsk
 from vsmartmom_torch.scattering.phase import Polarization, get_greek_rayleigh
@@ -167,6 +168,35 @@ def test_float32_engines_against_float64_differences(engine):
     f64 = _port_fn()
     fd = _central_differences(lambda x: f64(x)[0, 0, :], x0)
     assert np.abs(J - fd).max() < 2e-3 * np.abs(fd).max()
+
+
+@pytest.mark.parametrize("engine", ["torch", "kernel"])
+def test_radiance_fn_matches_rt_run_band(engine):
+    """make_radiance_fn's torch synthesis against rt_run_band's numpy
+    one: the same geometry, engine and static schulz schedules, Stokes_IQU
+    at two views, float64, within 1e-12 of max."""
+    pol = Polarization.from_name("Stokes_IQU")
+    quad = rt_set_streams("GaussQuadFullSphere", 10, 40.0, VZA, pol.n)
+    tau, omega = _profile()
+    zw = np.ones((N_Z, 1, N_SPEC))
+    greeks = [get_greek_rayleigh(0.03)]
+    nd, sched, scheds = build_layer_schedules(
+        tau, omega, float(np.min(quad.qp_mu)), "schulz")
+    assert sched is not None or scheds is not None
+    fn = make_radiance_fn(pol, quad, greeks, VZA, VAZ, 3, N_Z, N_SPEC,
+                          device="cpu", solver="schulz", engine=engine,
+                          layer_schedules=scheds, ndoubl_static=nd,
+                          ns_schedule=sched)
+    R = fn(*(torch.as_tensor(a, dtype=torch.float64)
+             for a in (tau, omega, zw)), 0.15).numpy()
+    R0, _ = rt_run_band(pol, quad, BandRTInputs(tau=tau, omega=omega, zw=zw,
+                                                greeks=greeks),
+                        VZA, VAZ, 3,
+                        {"type": "LambertianSurfaceScalar", "albedo": 0.15},
+                        device="cpu", solver="schulz", engine=engine)
+    assert R.shape == R0.shape == (len(VZA), pol.n, N_SPEC)
+    assert np.abs(R0[:, 1:]).max() > 0
+    assert np.abs(R - R0).max() <= 1e-12 * np.abs(R0).max()
 
 
 @pytest.mark.parametrize("engine", [e for e in ENGINES

@@ -195,19 +195,19 @@ def test_scan_plain_is_the_torch_engine_in_float64():
 def test_kernel_scan_refuses_a_bucket_whose_schedule_misses_its_ndoubl():
     """The scan doubles len(schedule) times: a bucket entry whose ndoubl
     differs raises instead of running another discretization."""
-    S, n, dt = 3, 4, torch.float64
+    S, dt = 3, torch.float64
+    geom = rtr.geometry(Polarization.from_name("Stokes_I"),
+                        rt_set_streams("GaussQuadFullSphere", 4, 30.0, [0.0],
+                                       1), dt, "cpu")
+    n = geom.qp.shape[0]
     args = [torch.full((1, S), 0.1, dtype=dt), torch.ones((1, S), dtype=dt),
             torch.ones((1, 1, S), dtype=dt),
             torch.zeros((1, n, n), dtype=dt), torch.zeros((1, n, n),
                                                           dtype=dt),
-            torch.linspace(0.2, 0.9, n, dtype=dt),
-            torch.full((n,), 0.25, dtype=dt), torch.ones(n, dtype=dt),
-            torch.zeros(n, dtype=dt), torch.zeros((), dtype=dt),
-            None, torch.tensor(0.5, dtype=dt), torch.tensor(0.5, dtype=dt),
-            torch.tensor(0.2, dtype=dt)]
+            geom, torch.zeros((), dtype=dt), None]
     with pytest.raises(ValueError, match="ndoubl"):
-        rtr._fourier_step(*args, i_mu0_n=0, n_stokes=1, is_m0=True,
-                          solver="schulz", layer_schedules=((3, (1, 1), 2),),
+        rtr._fourier_step(*args, m=0, solver="schulz",
+                          layer_schedules=((3, (1, 1), 2),),
                           engine="kernel_scan")
 
 

@@ -19,13 +19,13 @@ jacfwd only).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from vsmartmom_torch.core import precision
 from vsmartmom_torch.core.rt_run import (_fourier_step, _per_layer_schedules,
-                                         default_solver, synthesis_weights)
-from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
+                                         default_solver, geometry,
+                                         synthesis_weights)
+from vsmartmom_torch.scattering.phase import Polarization
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 from vsmartmom_torch.util.quadrature import QuadPoints
 from vsmartmom_torch.util.timing import timeit
@@ -83,31 +83,17 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
     solver = default_solver(device, solver)
     schedules = _per_layer_schedules(n_z, solver, ndoubl_static,
                                       ns_schedule, layer_schedules)
-    n = len(quad.qp_mu_n)
     n_stokes = pol.n
-
-    def to_dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-    i0_vec = np.zeros(n)
-    i0_vec[quad.i_mu0_n:quad.i_mu0_n + n_stokes] = pol.i0
-    z_pp, z_mp = [], []
-    for m in range(max_m):
-        zs = [compute_Z_moments(pol, quad.qp_mu, gc, m) for gc in greeks]
-        z_pp.append(to_dev(np.stack([z[0] for z in zs])))
-        z_mp.append(to_dev(np.stack([z[1] for z in zs])))
+    geom = geometry(pol, quad, dtype, device)
+    z = [geom.z_moments(greeks, m) for m in range(max_m)]
 
     # synthesis weights (max_m, n_vza, n_stokes) and the streams of each
     # view's Stokes components (n_vza, n_stokes)
     weights = [synthesis_weights(quad, vza, vaz, m, n_stokes)
                for m in range(max_m)]
-    csw = to_dev([[w for _, w in wm] for wm in weights])
+    csw = geom.to_dev([[w for _, w in wm] for wm in weights])
     gather = torch.as_tensor([list(range(sl.start, sl.stop))
                               for sl, _ in weights[0]], device=device)
-    qp, wt = to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n)
-    d_vec, i0 = to_dev(np.tile(pol.d, quad.n_quad)), to_dev(i0_vec)
-    mu0, mu0_node, min_mu = (to_dev(v) for v in (
-        quad.mu0, quad.qp_mu_n[quad.i_mu0_n], np.min(quad.qp_mu)))
 
     def radiance(tau, omega, zw, albedo):
         with timeit("radiance"), precision.matmul_precision("highest"):
@@ -117,11 +103,9 @@ def make_radiance_fn(pol: Polarization, quad: QuadPoints, greeks, vza, vaz,
             for m in range(max_m):
                 with timeit("fourier step (layer scan + surface)"):
                     comp, _ = _fourier_step(
-                        tau, omega, zw, z_pp[m], z_mp[m], qp, wt, d_vec, i0,
-                        albedo, None, mu0, mu0_node, min_mu,
-                        i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
-                        is_m0=(m == 0), solver=solver,
-                        layer_schedules=schedules, engine=engine,
+                        tau, omega, zw, *z[m], geom, albedo, None, m=m,
+                        solver=solver, layer_schedules=schedules,
+                        engine=engine,
                         matmul_precision=matmul_precision,
                         dd_precision=dd_precision)
                 with timeit("synthesis"):

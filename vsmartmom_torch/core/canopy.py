@@ -41,10 +41,9 @@ from vsmartmom_torch.core.brdf import brdf_fourier_matrix
 from vsmartmom_torch.core.multisensor import (interlayer_flux,
                                               segmented_composites)
 from vsmartmom_torch.core.precision import matmul_precision
-from vsmartmom_torch.core.rt_run import surface_inputs, synthesis_weights
-from vsmartmom_torch.core.surface import (brdf_surface_layer,
-                                          lambertian_surface_layer)
-from vsmartmom_torch.scattering.phase import GreekCoefs, compute_Z_moments
+from vsmartmom_torch.core.rt_run import (Synthesis, geometry,
+                                         surface_inputs, surface_layer)
+from vsmartmom_torch.scattering.phase import GreekCoefs
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -270,21 +269,13 @@ def rt_run_canopy(pol, quad, band, canopy: CanopyRTInputs, vza, vaz,
     n_stokes = pol.n
     vza = np.asarray(vza, dtype=np.float64)
     vaz = np.asarray(vaz, dtype=np.float64)
-
-    def to_dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
+    geom = geometry(pol, quad, dtype, device)
     albedo, spectral_albedo, is_brdf = surface_inputs(surface, n_spec,
-                                                      to_dev)
+                                                      geom.to_dev)
     sensors = sorted(sensor_levels) if sensor_levels else []
     if not all(0 <= s <= canopy.n_layers for s in sensors):
         raise ValueError(f"sensor levels {sensors} are canopy interface "
                          f"indices 0..{canopy.n_layers}")
-
-    i0_vec_np = np.zeros(n)
-    i0_vec_np[quad.i_mu0_n:quad.i_mu0_n + n_stokes] = pol.i0
-    mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
-    min_qp_mu = float(np.min(quad.qp_mu))
 
     # canopy geometry and optics (spectrally uniform phase, optional spectral
     # ssa) — the reference builds these once per moment from CanopyOptics
@@ -298,34 +289,24 @@ def rt_run_canopy(pol, quad, band, canopy: CanopyRTInputs, vza, vaz,
         ssa_default if canopy.ssa is None else canopy.ssa, np.float64),
         (n_spec,)).copy()
 
-    r_sfi = np.zeros((len(vza), n_stokes, n_spec))
-    t_sfi = np.zeros_like(r_sfi)
-    hdr = np.zeros_like(r_sfi)
-    bhr_uw = np.zeros(n_spec)
-    bhr_dw = np.zeros(n_spec)
-    uw_out = np.zeros((len(sensors), len(vza), n_stokes, n_spec))
-    dw_out = np.zeros_like(uw_out)
+    syn = Synthesis(geom, vza, vaz, n_spec, 3)
+    syn_sensors = Synthesis(geom, vza, vaz, n_spec, 2, n_sensor=len(sensors))
 
     with matmul_precision("highest"):
-        d_vec = to_dev(np.tile(pol.d, n // n_stokes))
-        i0_vec = to_dev(i0_vec_np)
-        qp = to_dev(quad.qp_mu_n)
-        wt = to_dev(quad.wt_mu_n)
-        mu0 = to_dev(quad.mu0)
-        mu0_node_d = to_dev(mu0_node)
-        min_mu_d = to_dev(min_qp_mu)
         eye = torch.eye(n, dtype=dtype, device=device).expand(n_spec, n, n)
-        g_proj = to_dev(g_np)
+        g_proj = geom.to_dev(g_np)
         g0 = float(g_proj[quad.i_mu0_n])
-        ssa_c = to_dev(ssa_np)
+        ssa_c = geom.to_dev(ssa_np)
         tau_slab = torch.full((n_spec,), canopy.lai / canopy.n_layers,
                               dtype=dtype, device=device)
-        tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
-                                to_dev(band.zw))
+        tau_d, omega_d, zw_d = (geom.to_dev(band.tau),
+                                geom.to_dev(band.omega),
+                                geom.to_dev(band.zw))
+        albedo_d = geom.to_dev(albedo)
 
         # effective (projection-weighted) beam path above each interface
-        tau_atm_tot = to_dev(np.asarray(band.tau).sum(axis=0))
-        tau_sum_atm = to_dev(np.concatenate(
+        tau_atm_tot = geom.to_dev(np.asarray(band.tau).sum(axis=0))
+        tau_sum_atm = geom.to_dev(np.concatenate(
             [np.zeros((1, n_spec)), np.cumsum(np.asarray(band.tau), axis=0)],
             axis=0))
         lai_above = [g0 * canopy.lai / canopy.n_layers * k
@@ -333,31 +314,22 @@ def rt_run_canopy(pol, quad, band, canopy: CanopyRTInputs, vza, vaz,
         tau_sum_soil = tau_atm_tot + lai_above[-1]
 
         for m in range(max_m):
-            wct02 = torch.tensor(0.5 if m == 0 else 0.25, dtype=dtype,
-                                 device=device)
-            wct2 = wt / 2.0 if m == 0 else wt / 4.0
-            z_list = [compute_Z_moments(pol, quad.qp_mu, gck, m)
-                      for gck in band.greeks]
-            z_pp_c = to_dev(np.stack([z[0] for z in z_list]))
-            z_mp_c = to_dev(np.stack([z[1] for z in z_list]))
-            zc_pp, zc_mp = compute_Z_moments(pol, quad.qp_mu, gc_can, m)
-            zc_pp = to_dev(zc_pp)[None]
-            zc_mp = to_dev(zc_mp)[None]
+            streams = geom.layer_args(m)
+            z_pp_c, z_mp_c = geom.z_moments(band.greeks, m)
+            zc_pp, zc_mp = geom.z_moments([gc_can], m)
 
             def atm_layer(iz):
                 z_pp = mix_z(zw_d[iz], z_pp_c)
                 z_mp = mix_z(zw_d[iz], z_mp_c)
                 return make_added_layer(
-                    tau_d[iz], omega_d[iz], z_pp, z_mp, tau_sum_atm[iz], qp,
-                    wct2, wct02, i0_vec, quad.i_mu0_n, n_stokes, mu0_node_d,
-                    mu0, d_vec, min_mu_d, eye, rsolve=rsolve)
+                    tau_d[iz], omega_d[iz], z_pp, z_mp, tau_sum_atm[iz],
+                    *streams, geom.min_qp_mu, eye, rsolve=rsolve)
 
             def canopy_layer(k):
                 return make_canopy_layer(
                     tau_slab, ssa_c, zc_pp, zc_mp, g_proj,
-                    tau_atm_tot + lai_above[k], qp, wct2, wct02, i0_vec,
-                    quad.i_mu0_n, n_stokes, mu0_node_d, mu0, d_vec,
-                    min_qp_mu, eye, rsolve=rsolve)
+                    tau_atm_tot + lai_above[k], *streams, geom.min_qp_mu_h,
+                    eye, rsolve=rsolve)
 
             def layer(iz):
                 # the atmosphere from TOA, then the canopy slabs
@@ -365,16 +337,11 @@ def rt_run_canopy(pol, quad, band, canopy: CanopyRTInputs, vza, vaz,
                         else canopy_layer(iz - n_z_atm))
 
             # soil
-            if is_brdf:
-                rho = to_dev(brdf_fourier_matrix(surface, quad.qp_mu, m,
-                                                 n_stokes))
-                surf = brdf_surface_layer(rho, n_spec, qp, wt, i0_vec,
-                                          tau_sum_soil, mu0)
-            else:
-                surf = lambertian_surface_layer(
-                    to_dev(albedo), n_spec, n_stokes, qp, wt, i0_vec,
-                    tau_sum_soil, mu0, m == 0,
-                    spectral_albedo=spectral_albedo)
+            rho = (geom.to_dev(brdf_fourier_matrix(surface, quad.qp_mu, m,
+                                                   n_stokes))
+                   if is_brdf else None)
+            surf = surface_layer(geom, m, tau_sum_soil, albedo_d,
+                                 spectral_albedo, rho)
 
             # composites at the soil's top and at each canopy sensor
             tops, bots = segmented_composites(
@@ -386,30 +353,23 @@ def rt_run_canopy(pol, quad, band, canopy: CanopyRTInputs, vza, vaz,
             # --- azimuthal synthesis (same as rt_run_band) ---------------
             j_m = comp.j_m.cpu().numpy()
             j_p = comp.j_p.cpu().numpy()
-            synth = synthesis_weights(quad, vza, vaz, m, n_stokes)
-            for i, (sl, cs) in enumerate(synth):
-                r_sfi[i] += cs[:, None] * j_m[:, sl].T
-                t_sfi[i] += cs[:, None] * j_p[:, sl].T
-                hdr[i] += cs[:, None] * hdr_j_m[:, sl].T
+            syn.add(m, j_m, j_p, hdr_j_m)
             if m == 0:
-                qw = (quad.qp_mu_n * quad.wt_mu_n)[::n_stokes]
-                bhr_uw[:] = hdr_j_m[:, ::n_stokes] @ qw
-                direct = i0_vec_np[quad.i_mu0_n] * np.exp(
-                    -tau_sum_soil.cpu().numpy() / mu0_node) * mu0_node
-                bhr_dw[:] = j_p[:, ::n_stokes] @ qw + direct
+                syn.add_bhr(hdr_j_m, j_p, tau_sum_soil.cpu().numpy())
 
             # --- in-canopy sensors: interlayer flux coupling -------------
             # (ref: interlayer_flux.jl:7-25; synthesis as rt_run_band_ms)
-            for si, s in enumerate(sensors):
-                uw_j, dw_j = (x.cpu().numpy() for x in interlayer_flux(
-                    tops[n_z_atm + s], bots[n_z_atm + s], eye, rsolve))
-                for i, (sl, cs) in enumerate(synth):
-                    uw_out[si, i] += cs[:, None] * uw_j[:, sl].T
-                    dw_out[si, i] += cs[:, None] * dw_j[:, sl].T
+            if sensors:
+                pairs = [interlayer_flux(tops[n_z_atm + s],
+                                         bots[n_z_atm + s], eye, rsolve)
+                         for s in sensors]
+                syn_sensors.add(
+                    m, torch.stack([u for u, _ in pairs]).cpu().numpy(),
+                    torch.stack([d for _, d in pairs]).cpu().numpy())
             # free this moment's composites before the next moment's scans
             del tops, bots, comp
 
-    out = [r_sfi, t_sfi, hdr, bhr_uw, bhr_dw]
+    out = syn.outs + list(syn.bhr)
     if sensors:
-        out += [uw_out, dw_out]
+        out += syn_sensors.outs
     return tuple(out)

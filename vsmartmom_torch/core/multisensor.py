@@ -32,11 +32,10 @@ from vsmartmom_torch.core.rt import (bmm, bmv, interaction,
                                      make_added_layer, make_rsolve,
                                      mix_z, vacuum_layer)
 from vsmartmom_torch.core.precision import matmul_precision
-from vsmartmom_torch.core.rt_run import (BandRTInputs, default_solver,
-                                         surface_inputs, synthesis_weights)
-from vsmartmom_torch.core.surface import (brdf_surface_layer,
-                                          lambertian_surface_layer)
-from vsmartmom_torch.scattering.phase import Polarization, compute_Z_moments
+from vsmartmom_torch.core.rt_run import (BandRTInputs, Geometry, Synthesis,
+                                         default_solver, geometry,
+                                         surface_inputs, surface_layer)
+from vsmartmom_torch.scattering.phase import Polarization
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 from vsmartmom_torch.util.quadrature import QuadPoints
 
@@ -83,19 +82,17 @@ def segmented_composites(layer, n_z: int, levels, surf, vacuum, eye,
     return tops, bots
 
 
-def _fourier_step_ms(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
-                     albedo, spectral_albedo, mu0, mu0_node, min_qp_mu,
-                     rho_brdf=None, *, i_mu0_n, n_stokes, is_m0, solver,
+def _fourier_step_ms(tau, omega, zw, z_pp_c, z_mp_c, geom: Geometry, albedo,
+                     spectral_albedo, rho_brdf=None, *, m, solver,
                      sensor_levels):
-    """One Fourier moment: the segmented scans and the coupling at every
+    """Fourier moment m: the segmented scans and the coupling at every
     sensor. Returns (uw, dw), each (nSensor, nSpec, N)."""
     rsolve = make_rsolve(solver)
     dtype, device = tau.dtype, tau.device
     n_z, n_spec = tau.shape
-    n = qp.shape[0]
+    n = geom.qp.shape[0]
     eye = torch.eye(n, dtype=dtype, device=device).expand(n_spec, n, n)
-    wct02 = torch.tensor(0.5 if is_m0 else 0.25, dtype=dtype, device=device)
-    wct2 = wt / 2.0 if is_m0 else wt / 4.0
+    streams = geom.layer_args(m)
     tau_sum_all = torch.cat([torch.zeros((1, n_spec), dtype=dtype,
                                          device=device),
                              torch.cumsum(tau, dim=0)], dim=0)
@@ -104,17 +101,11 @@ def _fourier_step_ms(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
         z_pp = mix_z(zw[iz], z_pp_c)
         z_mp = mix_z(zw[iz], z_mp_c)
         return make_added_layer(
-            tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], qp, wct2,
-            wct02, i0_vec, i_mu0_n, n_stokes, mu0_node, mu0, d_vec,
-            min_qp_mu, eye, rsolve=rsolve)
+            tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz], *streams,
+            geom.min_qp_mu, eye, rsolve=rsolve)
 
-    if rho_brdf is not None:
-        surf = brdf_surface_layer(rho_brdf, n_spec, qp, wt, i0_vec,
-                                  tau_sum_all[-1], mu0)
-    else:
-        surf = lambertian_surface_layer(
-            albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1], mu0,
-            is_m0, spectral_albedo=spectral_albedo)
+    surf = surface_layer(geom, m, tau_sum_all[-1], albedo, spectral_albedo,
+                         rho_brdf)
     tops, bots = segmented_composites(
         layer, n_z, sensor_levels, surf, vacuum_layer(n_spec, n, dtype,
                                                       device), eye, rsolve)
@@ -145,8 +136,6 @@ def rt_run_band_ms(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     device = resolve_device(device)
     solver = default_solver(device, solver)
     n_spec = band.tau.shape[1]
-    n = len(quad.qp_mu_n)
-    n_stokes = pol.n
     n_z = band.tau.shape[0]
     sensor_levels = tuple(int(s) for s in sensor_levels)
     if not all(0 <= s <= n_z for s in sensor_levels):
@@ -154,50 +143,27 @@ def rt_run_band_ms(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     vza = np.asarray(vza, dtype=np.float64)
     vaz = np.asarray(vaz, dtype=np.float64)
 
-    def to_dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-    i0_vec = np.zeros(n)
-    i0_vec[quad.i_mu0_n:quad.i_mu0_n + n_stokes] = pol.i0
-    d_vec = np.tile(pol.d, quad.n_quad)
-    mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
-    min_qp_mu = float(np.min(quad.qp_mu))
-
+    geom = geometry(pol, quad, dtype, device)
     albedo, spectral_albedo, is_brdf = surface_inputs(surface, n_spec,
-                                                      to_dev)
-
-    uw_out = np.zeros((len(sensor_levels), len(vza), n_stokes, n_spec))
-    dw_out = np.zeros_like(uw_out)
+                                                      geom.to_dev)
+    syn = Synthesis(geom, vza, vaz, n_spec, 2, n_sensor=len(sensor_levels))
     with matmul_precision("highest"):
-        tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
-                                to_dev(band.zw))
-        consts = dict(qp=to_dev(quad.qp_mu_n), wt=to_dev(quad.wt_mu_n),
-                      d_vec=to_dev(d_vec), i0_vec=to_dev(i0_vec),
-                      albedo=to_dev(albedo),
-                      spectral_albedo=spectral_albedo, mu0=to_dev(quad.mu0),
-                      mu0_node=to_dev(mu0_node), min_qp_mu=to_dev(min_qp_mu))
+        tau_d, omega_d, zw_d = (geom.to_dev(band.tau),
+                                geom.to_dev(band.omega),
+                                geom.to_dev(band.zw))
+        albedo_d = geom.to_dev(albedo)
         for m in range(max_m):
-            z_list = [compute_Z_moments(pol, quad.qp_mu, gc, m)
-                      for gc in band.greeks]
-            rho_brdf = (to_dev(brdf_fourier_matrix(surface, quad.qp_mu, m,
-                                                   n_stokes))
+            z_pp_c, z_mp_c = geom.z_moments(band.greeks, m)
+            rho_brdf = (geom.to_dev(brdf_fourier_matrix(surface, quad.qp_mu,
+                                                        m, pol.n))
                         if is_brdf else None)
             uw_j, dw_j = _fourier_step_ms(
-                tau_d, omega_d, zw_d, to_dev(np.stack([z[0] for z in z_list])),
-                to_dev(np.stack([z[1] for z in z_list])), rho_brdf=rho_brdf,
-                i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes, is_m0=(m == 0),
-                solver=solver, sensor_levels=sensor_levels, **consts)
-            uw_j = uw_j.cpu().numpy()
-            dw_j = dw_j.cpu().numpy()
-
+                tau_d, omega_d, zw_d, z_pp_c, z_mp_c, geom, albedo_d,
+                spectral_albedo, rho_brdf, m=m, solver=solver,
+                sensor_levels=sensor_levels)
             # azimuthal synthesis (ref: tools/postprocessing_vza_ms.jl)
-            for i, (sl, cs) in enumerate(
-                    synthesis_weights(quad, vza, vaz, m, n_stokes)):
-                uw_out[:, i] += (cs[None, :, None]
-                                 * uw_j[:, :, sl].transpose(0, 2, 1))
-                dw_out[:, i] += (cs[None, :, None]
-                                 * dw_j[:, :, sl].transpose(0, 2, 1))
-    return uw_out, dw_out
+            syn.add(m, uw_j.cpu().numpy(), dw_j.cpu().numpy())
+    return tuple(syn.outs)
 
 
 def rt_run_ms(model, sensor_levels: Sequence[int], i_band: int = 0,

@@ -42,9 +42,8 @@ from vsmartmom_torch.core.rt import (EXP_DIFF_CUT, LayerRT, bmm, bmv,
                                      doubling_number, elemental,
                                      make_rsolve, mix_z,
                                      ns_doubling_schedule, vacuum_layer)
-from vsmartmom_torch.core.rt_run import default_solver, synthesis_weights
-from vsmartmom_torch.core.surface import lambertian_surface_layer
-from vsmartmom_torch.scattering.phase import compute_Z_moments
+from vsmartmom_torch.core.rt_run import (Geometry, Synthesis, default_solver,
+                                         geometry, surface_layer)
 from vsmartmom_torch.util.device import DEFAULT_DEVICE, resolve_device
 
 
@@ -472,17 +471,9 @@ class _MomentInputs(NamedTuple):
     z_pp_r: torch.Tensor
     z_mp_r: torch.Tensor
     f_rayl: torch.Tensor
-    qp: torch.Tensor
-    wt: torch.Tensor
-    d_vec: torch.Tensor
-    i0_vec: torch.Tensor
+    geom: Geometry
     albedo: torch.Tensor
-    mu0: torch.Tensor
-    mu0_node: torch.Tensor
-    min_qp_mu: float
-    i_mu0_n: int
-    n_stokes: int
-    is_m0: bool
+    m: int
     solver: str
     #: (nZ,) host maxima of tau * omega over the whole band, or None
     tau_scat_max: Optional[np.ndarray] = None
@@ -493,12 +484,10 @@ def _layer_fn(mi: _MomentInputs, srcs, valids, w_shifts, gids):
     optional per-layer static (ndoubl, NS schedule)."""
     rsolve = make_rsolve(mi.solver)
     n_spec = mi.tau.shape[1]
-    n = mi.qp.shape[0]
+    n = mi.geom.qp.shape[0]
     dtype, device = mi.tau.dtype, mi.tau.device
     eye = torch.eye(n, dtype=dtype, device=device).expand(n_spec, n, n)
-    wct02 = torch.tensor(0.5 if mi.is_m0 else 0.25, dtype=dtype,
-                         device=device)
-    wct2 = mi.wt / 2.0 if mi.is_m0 else mi.wt / 4.0
+    streams = mi.geom.layer_args(mi.m)
     tau_sum_all = torch.cat([torch.zeros((1, n_spec), dtype=dtype,
                                          device=device),
                              torch.cumsum(mi.tau, dim=0)], dim=0)
@@ -510,15 +499,12 @@ def _layer_fn(mi: _MomentInputs, srcs, valids, w_shifts, gids):
         return raman_make_added_layer(
             mi.tau[iz], mi.omega[iz], z_pp, z_mp, mi.z_pp_r, mi.z_mp_r,
             tau_sum_all[iz], mi.f_rayl[iz], (srcs, valids), w_z, gids,
-            mi.qp, wct2, wct02, mi.i0_vec, mi.i_mu0_n, mi.n_stokes,
-            mi.mu0_node, mi.mu0, mi.d_vec, mi.min_qp_mu, eye, rsolve,
+            *streams, mi.geom.min_qp_mu_h, eye, rsolve,
             ndoubl_static=nd, ns_schedule=sched,
             tau_scat_max=(None if mi.tau_scat_max is None
                           else float(mi.tau_scat_max[iz])))
 
-    surf = lambertian_surface_layer(
-        mi.albedo, n_spec, mi.n_stokes, mi.qp, mi.wt, mi.i0_vec,
-        tau_sum_all[-1], mi.mu0, mi.is_m0)
+    surf = surface_layer(mi.geom, mi.m, tau_sum_all[-1], mi.albedo)
     return layer, surf, eye, rsolve
 
 
@@ -534,7 +520,7 @@ def _fourier_step_rrs(mi: _MomentInputs, srcs, valids, w_shifts, gids,
     Returns (composite LayerRT, ie j_p and j_m summed over the rows).
     """
     layer, surf, eye, rsolve = _layer_fn(mi, srcs, valids, w_shifts, gids)
-    n_spec, n = mi.tau.shape[1], mi.qp.shape[0]
+    n_spec, n = mi.tau.shape[1], mi.geom.qp.shape[0]
     comp = vacuum_layer(n_spec, n, mi.tau.dtype, mi.tau.device)
     comp_ie = zero_ie(srcs.shape[0], n_spec, n, mi.tau.dtype, mi.tau.device)
     for iz in range(mi.tau.shape[0]):
@@ -645,6 +631,7 @@ class _RamanRun(NamedTuple):
     gids: torch.Tensor
     chunk: int
     moment: callable          # m -> _MomentInputs
+    geom: Geometry
 
 
 def _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
@@ -658,17 +645,8 @@ def _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
             f"reference), not {surface['type']!r}")
     specs = list(rrs) if isinstance(rrs, (list, tuple)) else [rrs]
     n_spec = band.tau.shape[1]
-    n = len(quad.qp_mu_n)
-    n_stokes = pol.n
-
-    def to_dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-    i0_vec = np.zeros(n)
-    i0_vec[quad.i_mu0_n:quad.i_mu0_n + n_stokes] = pol.i0
-    d_vec = np.tile(pol.d, quad.n_quad)
-    mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
-    min_qp_mu = float(np.min(quad.qp_mu))
+    geom = geometry(pol, quad, dtype, device)
+    to_dev = geom.to_dev
 
     srcs_np, valids_np, ws_np, gids_np = (
         build_coupling(specs, n_spec) if coupling is None else coupling)
@@ -676,28 +654,21 @@ def _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
     valids = torch.as_tensor(valids_np, device=device)
     shared = dict(
         tau=to_dev(band.tau), omega=to_dev(band.omega), zw=to_dev(band.zw),
-        f_rayl=to_dev(f_rayl), qp=to_dev(quad.qp_mu_n),
-        wt=to_dev(quad.wt_mu_n), d_vec=to_dev(d_vec), i0_vec=to_dev(i0_vec),
-        albedo=to_dev(float(surface["albedo"])), mu0=to_dev(quad.mu0),
-        mu0_node=to_dev(mu0_node), min_qp_mu=min_qp_mu,
-        i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes, solver=solver,
+        f_rayl=to_dev(f_rayl), geom=geom,
+        albedo=to_dev(float(surface["albedo"])), solver=solver,
         tau_scat_max=tau_scat_max)
 
     def moment(m):
-        z = [compute_Z_moments(pol, quad.qp_mu, gc, m) for gc in band.greeks]
-        z_r = [compute_Z_moments(pol, quad.qp_mu, s.greek_raman, m)
-               for s in specs]
-        return _MomentInputs(
-            z_pp_c=to_dev(np.stack([a for a, _ in z])),
-            z_mp_c=to_dev(np.stack([b for _, b in z])),
-            z_pp_r=to_dev(np.stack([a for a, _ in z_r])),
-            z_mp_r=to_dev(np.stack([b for _, b in z_r])),
-            is_m0=(m == 0), **shared)
+        z_pp_c, z_mp_c = geom.z_moments(band.greeks, m)
+        z_pp_r, z_mp_r = geom.z_moments([s.greek_raman for s in specs], m)
+        return _MomentInputs(z_pp_c=z_pp_c, z_mp_c=z_mp_c, z_pp_r=z_pp_r,
+                             z_mp_r=z_mp_r, m=m, **shared)
 
     return _RamanRun(srcs, valids, to_dev(ws_np),
                      torch.as_tensor(gids_np, device=device).long(),
-                     ie_chunk_rows(len(srcs_np), n_spec, n, dtype, device),
-                     moment)
+                     ie_chunk_rows(len(srcs_np), n_spec,
+                                   len(quad.qp_mu_n), dtype, device),
+                     moment, geom)
 
 
 def _chunks(run: _RamanRun):
@@ -743,7 +714,6 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     device = resolve_device(device)
     solver = default_solver(device, solver)
     n_spec = band.tau.shape[1]
-    n_stokes = pol.n
     vza = np.asarray(vza, dtype=np.float64)
     vaz = np.asarray(vaz, dtype=np.float64)
 
@@ -760,10 +730,7 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
 
     run = _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
                        solver, tau_scat_max, coupling)
-    R = np.zeros((len(vza), n_stokes, n_spec))
-    T = np.zeros_like(R)
-    ieR = np.zeros_like(R)
-    ieT = np.zeros_like(R)
+    syn = Synthesis(run.geom, vza, vaz, n_spec, 4)
     with precision.matmul_precision("highest"), \
             precision.scoped("ie", ie_precision):
         for m in range(max_m):
@@ -777,13 +744,8 @@ def rt_run_band_rrs(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                 ie_m = iejm if ie_m is None else ie_m + iejm
             j_m, j_p = comp.j_m.cpu().numpy(), comp.j_p.cpu().numpy()
             ie_m, ie_p = ie_m.cpu().numpy(), ie_p.cpu().numpy()
-            for i, (sl, cs) in enumerate(
-                    synthesis_weights(quad, vza, vaz, m, n_stokes)):
-                R[i] += cs[:, None] * j_m[:, sl].T
-                T[i] += cs[:, None] * j_p[:, sl].T
-                ieR[i] += cs[:, None] * ie_m[:, sl].T
-                ieT[i] += cs[:, None] * ie_p[:, sl].T
-    return R, T, ieR, ieT
+            syn.add(m, j_m, j_p, ie_m, ie_p)
+    return tuple(syn.outs)
 
 
 # --- inelastic multi-sensor (interior-level radiances with Raman) -----------
@@ -837,7 +799,7 @@ def _fourier_step_rrs_ms(mi: _MomentInputs, srcs, valids, w_shifts, gids,
     ie ones summed over the rows."""
     layer, surf, eye, rsolve = _layer_fn(mi, srcs, valids, w_shifts, gids)
     n_z, n_spec = mi.tau.shape
-    n = mi.qp.shape[0]
+    n = mi.geom.qp.shape[0]
     dtype, device = mi.tau.dtype, mi.tau.device
     rows = (srcs, valids)
 
@@ -890,7 +852,6 @@ def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
     device = resolve_device(device)
     solver = default_solver(device, solver)
     n_spec = band.tau.shape[1]
-    n_stokes = pol.n
     n_z = band.tau.shape[0]
     sensor_levels = tuple(int(s) for s in sensor_levels)
     if not all(0 <= s <= n_z for s in sensor_levels):
@@ -900,8 +861,8 @@ def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
 
     run = _setup_raman(pol, quad, band, rrs, f_rayl, surface, dtype, device,
                        solver)
-    shape = (len(sensor_levels), len(vza), n_stokes, n_spec)
-    outs = [np.zeros(shape) for _ in range(4)]
+    syn = Synthesis(run.geom, vza, vaz, n_spec, 4,
+                    n_sensor=len(sensor_levels))
     with precision.matmul_precision("highest"), \
             precision.scoped("ie", ie_precision):
         for m in range(max_m):
@@ -912,10 +873,5 @@ def rt_run_band_rrs_ms(pol, quad, band, rrs, f_rayl, vza, vaz, max_m: int,
                 # the elastic fields are the same for every chunk
                 acc = list(res) if acc is None else \
                     acc[:2] + [acc[2] + res[2], acc[3] + res[3]]
-            arrs = [a.cpu().numpy() for a in acc]
-            for i, (sl, cs) in enumerate(
-                    synthesis_weights(quad, vza, vaz, m, n_stokes)):
-                for out, arr in zip(outs, arrs):
-                    out[:, i] += (cs[None, :, None]
-                                  * arr[:, :, sl].transpose(0, 2, 1))
-    return tuple(outs)
+            syn.add(m, *(a.cpu().numpy() for a in acc))
+    return tuple(syn.outs)

@@ -120,6 +120,124 @@ def synthesis_weights(quad, vza, vaz, m, n_stokes):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """A run's geometry: the beam and the streams of one polarization and
+    quadrature, on the host and as tensors of the run's dtype on its
+    device. Every Fourier-moment loop of the package takes its constants
+    from here (``geometry`` builds it)."""
+    pol: Polarization
+    quad: QuadPoints
+    dtype: torch.dtype
+    device: torch.device
+    #: (N,) host beam vector: pol.i0 on the solar node's Stokes block
+    i0: np.ndarray
+    #: host floats: the solar node's mu and the smallest stream mu
+    mu0_node_h: float
+    min_qp_mu_h: float
+    # the device copies
+    qp: torch.Tensor
+    wt: torch.Tensor
+    d_vec: torch.Tensor
+    i0_vec: torch.Tensor
+    mu0: torch.Tensor
+    mu0_node: torch.Tensor
+    min_qp_mu: torch.Tensor
+
+    @property
+    def n_stokes(self) -> int:
+        return self.pol.n
+
+    @property
+    def i_mu0_n(self) -> int:
+        return self.quad.i_mu0_n
+
+    def to_dev(self, x):
+        """``x`` as a tensor of the run's dtype on its device."""
+        return torch.as_tensor(np.asarray(x), dtype=self.dtype,
+                               device=self.device)
+
+    def weights(self, m: int):
+        """Moment m's quadrature weights (wct02, wct2): the beam's, a 0-dim
+        tensor, and the streams', (N,)."""
+        wct02 = torch.tensor(0.5 if m == 0 else 0.25, dtype=self.dtype,
+                             device=self.device)
+        return wct02, self.wt / 2.0 if m == 0 else self.wt / 4.0
+
+    def layer_args(self, m: int):
+        """The stream arguments an elemental layer of moment m takes after
+        its optical depth above: (qp, wct2, wct02, i0_vec, i_mu0_n,
+        n_stokes, mu0_node, mu0, d_vec)."""
+        wct02, wct2 = self.weights(m)
+        return (self.qp, wct2, wct02, self.i0_vec, self.i_mu0_n,
+                self.n_stokes, self.mu0_node, self.mu0, self.d_vec)
+
+    def z_moments(self, greeks, m: int):
+        """Moment m's stacked (K, N, N) Z components (z_pp, z_mp) of the
+        Greek coefficients ``greeks``, on the device."""
+        zs = [compute_Z_moments(self.pol, self.quad.qp_mu, gc, m)
+              for gc in greeks]
+        return (self.to_dev(np.stack([z[0] for z in zs])),
+                self.to_dev(np.stack([z[1] for z in zs])))
+
+
+def geometry(pol: Polarization, quad: QuadPoints, dtype,
+             device) -> Geometry:
+    """The Geometry of a run at ``dtype`` on ``device``."""
+    i0 = np.zeros(len(quad.qp_mu_n))
+    i0[quad.i_mu0_n:quad.i_mu0_n + pol.n] = pol.i0
+    mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
+    min_qp_mu = float(np.min(quad.qp_mu))
+
+    def to_dev(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return Geometry(pol, quad, dtype, device, i0, mu0_node, min_qp_mu,
+                    to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n),
+                    to_dev(np.tile(pol.d, quad.n_quad)), to_dev(i0),
+                    to_dev(quad.mu0), to_dev(mu0_node), to_dev(min_qp_mu))
+
+
+class Synthesis:
+    """Host accumulator of a run's azimuthal synthesis (ref:
+    tools/postprocessing_vza.jl:9-60, postprocessing_vza_ms.jl): ``n_out``
+    float64 outputs of shape (n_vza, n_stokes, nSpec), with a leading
+    sensor axis of ``n_sensor`` where given, and moment 0's bi-hemispheric
+    fluxes ``bhr`` (up, down), each (nSpec,)."""
+
+    def __init__(self, geom: Geometry, vza, vaz, n_spec: int, n_out: int,
+                 n_sensor: Optional[int] = None):
+        self.geom, self.vza, self.vaz = geom, vza, vaz
+        lead = () if n_sensor is None else (n_sensor,)
+        self.outs = [np.zeros(lead + (len(vza), geom.n_stokes, n_spec))
+                     for _ in range(n_out)]
+        self.bhr = (np.zeros(n_spec), np.zeros(n_spec))
+
+    def add(self, m: int, *vecs):
+        """Add moment m's fetched source vectors, each ([nSensor,] nSpec,
+        N), into the outputs (the first len(vecs) of them)."""
+        g = self.geom
+        for i, (sl, cs) in enumerate(
+                synthesis_weights(g.quad, self.vza, self.vaz, m,
+                                  g.n_stokes)):
+            for out, vec in zip(self.outs, vecs):
+                out[..., i, :, :] += cs[:, None] * vec[..., sl].swapaxes(-1,
+                                                                         -2)
+
+    def add_bhr(self, hdr_j_m, j_p, tau_column):
+        """Moment 0's bi-hemispheric fluxes at the surface: mu-weighted
+        quadrature sums of the intensity components of the surface-leaving
+        ``hdr_j_m`` and the downwelling ``j_p`` ((nSpec, N) each), plus the
+        direct beam through ``tau_column`` (nSpec,) for the downwelling
+        (ref: interaction_hdrf.jl:27-45)."""
+        g = self.geom
+        ns, mu0_node = g.n_stokes, g.mu0_node_h
+        qw = (g.quad.qp_mu_n * g.quad.wt_mu_n)[::ns]
+        self.bhr[0][:] = hdr_j_m[:, ::ns] @ qw
+        direct = g.i0[g.i_mu0_n] * np.exp(-tau_column / mu0_node) * mu0_node
+        self.bhr[1][:] = j_p[:, ::ns] @ qw + direct
+
+
 def schedule_buckets(layer_schedules):
     """Runs of consecutive layers sharing one (ndoubl, NS schedule, ni)
     entry, as (entry, start, count) triples."""
@@ -132,12 +250,11 @@ def schedule_buckets(layer_schedules):
     return [tuple(b) for b in buckets]
 
 
-def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
-                  albedo, spectral_albedo, mu0, mu0_node, min_qp_mu,
-                  *, i_mu0_n, n_stokes, is_m0, solver, layer_schedules,
-                  engine, rho_brdf=None, tau_scat_max=None,
+def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, geom: Geometry, albedo,
+                  spectral_albedo, *, m, solver, layer_schedules, engine,
+                  rho_brdf=None, tau_scat_max=None,
                   matmul_precision: str = "highest", dd_precision=None):
-    """One Fourier moment: layer scan + surface. Returns the composite
+    """Fourier moment m: layer scan + surface. Returns the composite
     layer and the surface-leaving source vector (hdr).
 
     ``matmul_precision``: the product mode of the kernel and
@@ -147,7 +264,8 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     ``_fourier_step_body`` takes the enclosing default precision.
 
     ``rho_brdf``: the BRDF surface's (N, N) Fourier matrix of this moment,
-    or None for a Lambertian surface (``albedo``, ``spectral_albedo``).
+    or None for a Lambertian surface (``albedo``, ``spectral_albedo``;
+    surface_layer).
 
     ``layer_schedules``: one (ndoubl, ns_schedule, ni) entry per layer;
     ndoubl None derives each layer's doubling count from its optical depth,
@@ -161,10 +279,10 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     rsolve = make_rsolve(solver)
     dtype, device = tau.dtype, tau.device
     n_spec = tau.shape[1]
-    n = qp.shape[0]
+    n = geom.qp.shape[0]
     eye = torch.eye(n, dtype=dtype, device=device).expand(n_spec, n, n)
-    wct02 = torch.tensor(0.5 if is_m0 else 0.25, dtype=dtype, device=device)
-    wct2 = wt / 2.0 if is_m0 else wt / 4.0
+    # (qp, wct2, wct02, ...): every elemental layer's stream arguments
+    streams = geom.layer_args(m)
 
     # cumulative optical depth above each layer (TOA -> BOA)
     tau_sum_all = torch.cat([torch.zeros((1, n_spec), dtype=dtype,
@@ -179,7 +297,7 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
     elif engine == "kernel_scan":
         from vsmartmom_torch.cuda.layer_scan_kernel import fused_layer_scan
         # host scalars for the kernel's launch (one read per moment)
-        mu0_h, mu0_node_h = float(mu0), float(mu0_node)
+        mu0_h, mu0_node_h = float(geom.mu0), float(geom.mu0_node)
     elif engine == "kernel_lanes":
         from vsmartmom_torch.cuda.lanes_kernel import (
             fused_layer_step_lanes, from_lanes, to_lanes, to_lanes_m,
@@ -209,9 +327,10 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
             with timeit("layer_step"):
                 comp = fused_layer_scan(
                     comp, tau[sl], omega[sl], zw[sl], tau_sum_all[sl],
-                    z_pp_c, z_mp_c, qp, wct2, i0_vec, d_vec, mu0_h,
-                    mu0_node_h, 0.5 if is_m0 else 0.25, ns_schedule=sched,
-                    i_mu0_n=i_mu0_n, n_stokes=n_stokes, inter_iters=ni)
+                    z_pp_c, z_mp_c, geom.qp, streams[1], geom.i0_vec,
+                    geom.d_vec, mu0_h, mu0_node_h, 0.5 if m == 0 else 0.25,
+                    ns_schedule=sched, i_mu0_n=geom.i_mu0_n,
+                    n_stokes=geom.n_stokes, inter_iters=ni)
             continue
         irs = (make_rsolve("schulz", ni)
                if solver == "schulz" and ni is not None else rsolve)
@@ -225,11 +344,10 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                 z_pp = mix_z(zw[iz], z_pp_c)
                 z_mp = mix_z(zw[iz], z_mp_c)
                 layer = (tau[iz], omega[iz], z_pp, z_mp, tau_sum_all[iz],
-                         qp, wct2, wct02, i0_vec, i_mu0_n, n_stokes,
-                         mu0_node, mu0, d_vec)
+                         *streams)
                 if engine in ("kernel", "kernel_lanes"):
                     r_f, t, jp, jm_f, ek, _ = elemental_flipped(
-                        *layer, min_qp_mu, ndoubl_static=nd,
+                        *layer, geom.min_qp_mu, ndoubl_static=nd,
                         tau_scat_max=tsm)
                     if engine == "kernel_lanes":
                         r_f, t = to_lanes_m(r_f), to_lanes_m(t)
@@ -239,12 +357,12 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
                         *layer, nd)
                 elif engine == "torch_dev":
                     added = make_added_layer_dev(
-                        *layer, min_qp_mu, nd,
+                        *layer, geom.min_qp_mu, nd,
                         ns_schedule=None if exact else sched,
                         exact_eye=eye if exact else None)
                 else:
                     added = make_added_layer(
-                        *layer, min_qp_mu, eye, rsolve=rsolve,
+                        *layer, geom.min_qp_mu, eye, rsolve=rsolve,
                         ndoubl_static=nd, ns_schedule=sched,
                         doubling_engine=("kernel"
                                          if engine == "kernel_doubling"
@@ -253,15 +371,15 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
             with timeit("layer_step"):
                 if engine == "kernel":
                     comp = fused_layer_step(comp, r_f, t, jp, jm_f, ek,
-                                            d_vec, ns_schedule=sched, ni=ni,
-                                            precision=matmul_precision)
+                                            geom.d_vec, ns_schedule=sched,
+                                            ni=ni, precision=matmul_precision)
                 elif engine == "kernel_lanes":
                     comp = fused_layer_step_lanes(
-                        comp, r_f, t, jp, jm_f, ek, d_vec,
+                        comp, r_f, t, jp, jm_f, ek, geom.d_vec,
                         ns_schedule=sched, ni=ni)
                 elif engine == "kernel_dev":
                     comp = fused_layer_step_dev(
-                        comp, r_f, g_el, e_el, jp, jm_f, ek, d_vec,
+                        comp, r_f, g_el, e_el, jp, jm_f, ek, geom.d_vec,
                         ns_schedule=sched, ni=ni, precision=dd)
                 elif engine == "torch_dev":
                     comp = interaction_dev(comp, added,
@@ -275,13 +393,8 @@ def _fourier_step(tau, omega, zw, z_pp_c, z_mp_c, qp, wt, d_vec, i0_vec,
         comp = from_lanes(comp)
 
     with timeit("surface"):
-        if rho_brdf is not None:
-            surf = brdf_surface_layer(rho_brdf, n_spec, qp, wt, i0_vec,
-                                      tau_sum_all[-1], mu0)
-        else:
-            surf = lambertian_surface_layer(
-                albedo, n_spec, n_stokes, qp, wt, i0_vec, tau_sum_all[-1],
-                mu0, is_m0, spectral_albedo=spectral_albedo)
+        surf = surface_layer(geom, m, tau_sum_all[-1], albedo,
+                             spectral_albedo, rho_brdf)
         comp = interaction(comp, surf, eye, rsolve=rsolve)
 
         # Surface-leaving radiance for hemispheric (HDRF/BHR) outputs:
@@ -403,6 +516,22 @@ def surface_inputs(surface, n_spec: int, to_dev):
     raise NotImplementedError(kind)
 
 
+def surface_layer(geom: Geometry, m: int, tau_total, albedo,
+                  spectral_albedo=None, rho_brdf=None):
+    """Moment m's surface layer under a column of total optical depth
+    ``tau_total`` ((nSpec,) on the device): the BRDF's where ``rho_brdf``
+    (its (N, N) Fourier matrix of moment m) is given, else the
+    Lambertian's (``albedo`` on the device and ``spectral_albedo``, as
+    surface_inputs gives them)."""
+    n_spec = tau_total.shape[0]
+    if rho_brdf is not None:
+        return brdf_surface_layer(rho_brdf, n_spec, geom.qp, geom.wt,
+                                  geom.i0_vec, tau_total, geom.mu0)
+    return lambertian_surface_layer(
+        albedo, n_spec, geom.n_stokes, geom.qp, geom.wt, geom.i0_vec,
+        tau_total, geom.mu0, m == 0, spectral_albedo=spectral_albedo)
+
+
 def select_engine(engine: str, device: torch.device, dtype, n: int,
                   layer_schedules, matmul_precision: str = "highest") -> str:
     """Resolve ``engine`` ("auto" or one of ENGINES) for a band whose
@@ -496,24 +625,7 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
     n_stokes = pol.n
     vza = np.asarray(vza, dtype=np.float64)
     vaz = np.asarray(vaz, dtype=np.float64)
-
-    i0_vec = np.zeros(n)
-    i0_vec[quad.i_mu0_n:quad.i_mu0_n + n_stokes] = pol.i0
-    d_vec = np.tile(pol.d, quad.n_quad)
-    mu0_node = float(quad.qp_mu_n[quad.i_mu0_n])
     min_qp_mu = float(np.min(quad.qp_mu))
-
-    def to_dev(x):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-
-    albedo, spectral_albedo, is_brdf = surface_inputs(surface, n_spec,
-                                                      to_dev)
-
-    R_SFI = np.zeros((len(vza), n_stokes, n_spec))
-    T_SFI = np.zeros((len(vza), n_stokes, n_spec))
-    hdr = np.zeros((len(vza), n_stokes, n_spec))
-    bhr_uw = np.zeros(n_spec)
-    bhr_dw = np.zeros(n_spec)
 
     with timeit("schedules"):
         ndoubl_static, ns_schedule, layer_schedules = build_layer_schedules(
@@ -541,39 +653,33 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
 
     with precision.matmul_precision(matmul_precision):
         with timeit("to_device"):
-            tau_d, omega_d, zw_d = (to_dev(band.tau), to_dev(band.omega),
-                                    to_dev(band.zw))
-            qp_d, wt_d = to_dev(quad.qp_mu_n), to_dev(quad.wt_mu_n)
-            d_d, i0_d = to_dev(d_vec), to_dev(i0_vec)
-            albedo_d, mu0_d, mu0_node_d, min_mu_d = (
-                to_dev(v) for v in (albedo, quad.mu0, mu0_node, min_qp_mu))
+            geom = geometry(pol, quad, dtype, device)
+            tau_d, omega_d, zw_d = (geom.to_dev(band.tau),
+                                    geom.to_dev(band.omega),
+                                    geom.to_dev(band.zw))
+            albedo, spectral_albedo, is_brdf = surface_inputs(
+                surface, n_spec, geom.to_dev)
+            albedo_d = geom.to_dev(albedo)
+        syn = Synthesis(geom, vza, vaz, n_spec, 3 if return_hdr else 2)
         sl0 = slice(quad.i_mu0_n, quad.i_mu0_n + n_stokes)
         comps = []
         for m in range(max_m):
             with timeit("Z moments"):
-                z_pp_list, z_mp_list = [], []
-                for gc in band.greeks:
-                    zpp, zmp = compute_Z_moments(pol, quad.qp_mu, gc, m)
-                    z_pp_list.append(zpp)
-                    z_mp_list.append(zmp)
-                z_pp_c = to_dev(np.stack(z_pp_list))
-                z_mp_c = to_dev(np.stack(z_mp_list))
+                z_pp_c, z_mp_c = geom.z_moments(band.greeks, m)
 
             # brdf_fourier_matrix carries the (2/pi) integral factor common
             # to every moment (the reference splits it as ff * 2 between
             # reflectance() and create_surface_layer!, same total)
-            rho_brdf = (to_dev(brdf_fourier_matrix(surface, quad.qp_mu, m,
-                                                   n_stokes))
+            rho_brdf = (geom.to_dev(brdf_fourier_matrix(surface, quad.qp_mu,
+                                                        m, n_stokes))
                         if is_brdf else None)
 
             with timeit("fourier step (layer scan + surface)"):
                 comp, hdr_j_m_dev = _fourier_step(
-                    tau_d, omega_d, zw_d, z_pp_c, z_mp_c, qp_d, wt_d, d_d,
-                    i0_d, albedo_d, spectral_albedo, mu0_d, mu0_node_d,
-                    min_mu_d, i_mu0_n=quad.i_mu0_n, n_stokes=n_stokes,
-                    is_m0=(m == 0), solver=solver, layer_schedules=schedules,
-                    engine=engine, rho_brdf=rho_brdf,
-                    tau_scat_max=tau_scat_max,
+                    tau_d, omega_d, zw_d, z_pp_c, z_mp_c, geom, albedo_d,
+                    spectral_albedo, m=m, solver=solver,
+                    layer_schedules=schedules, engine=engine,
+                    rho_brdf=rho_brdf, tau_scat_max=tau_scat_max,
                     matmul_precision=matmul_precision,
                     dd_precision=dd_precision)
 
@@ -588,7 +694,6 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                     t_cols = comp.t_pp[:, :, sl0].cpu().numpy()
                 hdr_j_m = hdr_j_m_dev.cpu().numpy() if return_hdr else None
 
-            # --- azimuthal synthesis (ref: tools/postprocessing_vza.jl:9-60)
             with timeit("synthesis"):
                 if not sfi:
                     # operator columns at the mu0 node applied to the
@@ -599,28 +704,15 @@ def rt_run_band(pol: Polarization, quad: QuadPoints, band: BandRTInputs,
                     w0 = float(quad.wt_mu_n[quad.i_mu0_n])
                     j_m = (r_cols @ i0_blk) / w0            # (nSpec, N)
                     j_p = (t_cols @ i0_blk) / w0
-                for i, (sl, big_cs) in enumerate(
-                        synthesis_weights(quad, vza, vaz, m, n_stokes)):
-                    R_SFI[i] += big_cs[:, None] * j_m[:, sl].T
-                    T_SFI[i] += big_cs[:, None] * j_p[:, sl].T
-                    if return_hdr:
-                        hdr[i] += big_cs[:, None] * hdr_j_m[:, sl].T
-
+                syn.add(m, *((j_m, j_p, hdr_j_m) if return_hdr
+                             else (j_m, j_p)))
                 if return_hdr and m == 0:
-                    # bi-hemispheric fluxes: mu-weighted quadrature sums of
-                    # the intensity components, + direct beam for the
-                    # downwelling (ref: interaction_hdrf.jl:27-45)
-                    qw = (quad.qp_mu_n * quad.wt_mu_n)[::n_stokes]
-                    bhr_uw[:] = hdr_j_m[:, ::n_stokes] @ qw
-                    i_sol = quad.i_mu0_n
-                    direct = i0_vec[i_sol] * np.exp(
-                        -np.asarray(band.tau).sum(axis=0) / mu0_node) \
-                        * mu0_node
-                    bhr_dw[:] = j_p[:, ::n_stokes] @ qw + direct
+                    syn.add_bhr(hdr_j_m, j_p,
+                                np.asarray(band.tau).sum(axis=0))
 
-    out = [R_SFI, T_SFI]
+    out = syn.outs
     if return_hdr:
-        out += [hdr, bhr_uw, bhr_dw]
+        out += list(syn.bhr)
     if return_composite:
         out.append(comps)
     return tuple(out)

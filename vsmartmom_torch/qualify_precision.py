@@ -160,10 +160,11 @@ def kernel_vs_torch_delta(token: str, device="cuda", n_spec: int = 512,
     from vsmartmom_torch.scaling_bench import example_inputs
     from vsmartmom_torch.util.device import resolve_device
     device = resolve_device(device)
-    args, static = example_inputs(n_spec, n_quad_half=8, n_stokes=4,
-                                  n_z=n_z)
+    args, geom_at = example_inputs(n_spec, n_quad_half=8, n_stokes=4,
+                                   n_z=n_z)
+    geom, z = geom_at(device)
     nd, sched, ls = build_layer_schedules(
-        args["tau"], args["omega"], float(args["min_qp_mu"]), "schulz")
+        args["tau"], args["omega"], float(geom.min_qp_mu), "schulz")
     schedules = _per_layer_schedules(n_z, "schulz", nd, sched, ls)
     t = {k: torch.as_tensor(np.asarray(v), device=device)
          for k, v in args.items()}
@@ -171,11 +172,8 @@ def kernel_vs_torch_delta(token: str, device="cuda", n_spec: int = 512,
     def run(engine, mode, dd=None):
         with precision.matmul_precision(mode):
             comp, _ = _fourier_step(
-                t["tau"], t["omega"], t["zw"], t["z_pp_c"], t["z_mp_c"],
-                t["qp"], t["wt"], t["d_vec"], t["i0_vec"], t["albedo"],
-                None, t["mu0"], t["mu0_node"], t["min_qp_mu"],
-                i_mu0_n=static["i_mu0_n"], n_stokes=static["n_stokes"],
-                is_m0=True, solver="schulz", layer_schedules=schedules,
+                t["tau"], t["omega"], t["zw"], *z, geom, t["albedo"], None,
+                m=0, solver="schulz", layer_schedules=schedules,
                 engine=engine, matmul_precision=mode, dd_precision=dd)
         return comp.j_m.double().cpu().numpy()
 

@@ -45,34 +45,30 @@ def example_inputs(n_spec, n_quad_half=8, n_stokes=4, n_z=10,
     layer, absorption uniform on [0, 0.5) from seed 0, albedo 0.15) on a
     Gauss full-sphere quadrature of ``2 n_quad_half - 1``: the inputs of
     the JAX package's __graft_entry__._example_inputs, built by the port.
-    Returns (args, static) with host arrays of ``dtype``."""
+    Returns (args, geom_at): host arrays of ``dtype`` (tau, omega, zw,
+    albedo), and ``geom_at(device)``, the run's rt_run.Geometry on
+    ``device`` with moment 0's Z pair (z_pp_c, z_mp_c) there, which every
+    moment of the harness takes."""
+    from vsmartmom_torch.core.rt_run import geometry
     from vsmartmom_torch.scattering.phase import (Polarization,
-                                                  compute_Z_moments,
                                                   get_greek_rayleigh)
     from vsmartmom_torch.util.quadrature import rt_set_streams
     pol = Polarization.from_name(
         {1: "Stokes_I", 3: "Stokes_IQU", 4: "Stokes_IQUV"}[n_stokes])
     quad = rt_set_streams("GaussQuadFullSphere", 2 * n_quad_half - 1, 45.0,
                           [0.0, 30.0], pol.n)
-    zpp, zmp = compute_Z_moments(pol, quad.qp_mu, get_greek_rayleigh(0.0),
-                                 0)
     rng = np.random.default_rng(0)
     tau_scat = np.full((n_z, n_spec), 0.05)
     tau = tau_scat + rng.uniform(0.0, 0.5, size=(n_z, n_spec))
-    n = len(quad.qp_mu_n)
-    i0_vec = np.zeros(n)
-    i0_vec[quad.i_mu0_n:quad.i_mu0_n + pol.n] = pol.i0
     args = dict(
         tau=tau.astype(dtype), omega=(tau_scat / tau).astype(dtype),
-        zw=np.ones((n_z, 1, n_spec), dtype),
-        z_pp_c=zpp[None].astype(dtype), z_mp_c=zmp[None].astype(dtype),
-        qp=quad.qp_mu_n.astype(dtype), wt=quad.wt_mu_n.astype(dtype),
-        d_vec=np.tile(pol.d, quad.n_quad).astype(dtype),
-        i0_vec=i0_vec.astype(dtype), albedo=dtype(0.15),
-        mu0=dtype(quad.mu0), mu0_node=dtype(quad.qp_mu_n[quad.i_mu0_n]),
-        min_qp_mu=dtype(quad.qp_mu.min()))
-    static = dict(i_mu0_n=quad.i_mu0_n, n_stokes=pol.n, n_spec=n_spec)
-    return args, static
+        zw=np.ones((n_z, 1, n_spec), dtype), albedo=dtype(0.15))
+    tdtype = torch.float32 if dtype == np.float32 else torch.float64
+
+    def geom_at(device):
+        geom = geometry(pol, quad, tdtype, device)
+        return geom, geom.z_moments([get_greek_rayleigh(0.0)], 0)
+    return args, geom_at
 
 
 class _Shards:
@@ -85,16 +81,20 @@ class _Shards:
                                                  select_engine)
         from vsmartmom_torch.parallel.sharding import (
             global_tau_scat_max, replicate, shard_spectral)
-        args, self.static = example_inputs(n_spec, dtype=dtype)
-        self.tdtype = torch.float32 if dtype == np.float32 else torch.float64
+        args, geom_at = example_inputs(n_spec, dtype=dtype)
+        # one geometry and Z pair per shard, on its device
+        self.geoms = [geom_at(d) for d in devices]
+        g0 = self.geoms[0][0]
+        self.tdtype = g0.dtype
         tsm = global_tau_scat_max(args["tau"], args["omega"])
-        min_mu = float(args["min_qp_mu"])
+        # the schedules of the run's own (rounded) smallest stream mu
+        min_mu = float(g0.min_qp_mu)
         nd, sched, ls = build_layer_schedules(args["tau"], args["omega"],
                                               min_mu, "schulz", tsm)
         n_z = args["tau"].shape[0]
         self.schedules = _per_layer_schedules(n_z, "schulz", nd, sched, ls)
         self.engines = [select_engine("auto", d, self.tdtype,
-                                      len(args["qp"]), self.schedules)
+                                      g0.qp.shape[0], self.schedules)
                         for d in devices]
 
         def put(x, axis=None):
@@ -104,25 +104,19 @@ class _Shards:
 
         self.tau, self.omega = put(args["tau"], 1), put(args["omega"], 1)
         self.zw = put(args["zw"], 2)
-        self.rest = {k: put(args[k]) for k in (
-            "z_pp_c", "z_mp_c", "qp", "wt", "d_vec", "i0_vec", "albedo",
-            "mu0", "mu0_node", "min_qp_mu")}
+        self.albedo = put(args["albedo"])
 
-    def run(self, is_m0):
-        """One Fourier step on every shard (launched in turn); returns each
+    def run(self, m):
+        """Fourier step m on every shard (launched in turn); returns each
         shard's j_m, not synchronised."""
         from vsmartmom_torch.core.rt_run import _fourier_step
         out = []
         for i, eng in enumerate(self.engines):
-            r = {k: v[i] for k, v in self.rest.items()}
+            geom, z = self.geoms[i]
             comp, _ = _fourier_step(
-                self.tau[i], self.omega[i], self.zw[i], r["z_pp_c"],
-                r["z_mp_c"], r["qp"], r["wt"], r["d_vec"], r["i0_vec"],
-                r["albedo"], None, r["mu0"], r["mu0_node"],
-                r["min_qp_mu"], i_mu0_n=self.static["i_mu0_n"],
-                n_stokes=self.static["n_stokes"], is_m0=is_m0,
-                solver="schulz", layer_schedules=self.schedules,
-                engine=eng)
+                self.tau[i], self.omega[i], self.zw[i], *z, geom,
+                self.albedo[i], None, m=m, solver="schulz",
+                layer_schedules=self.schedules, engine=eng)
             out.append(comp.j_m)
         return out
 
@@ -137,13 +131,13 @@ def time_steps(shards: _Shards, reps: int = 3, full: bool = True) -> float:
     steps over every shard (``full``), or of one moment-0 step, averaged
     over ``reps`` after a warm-up."""
     from vsmartmom_torch.core.precision import matmul_precision
-    pattern = (True, False, False) if full else (True,)
+    moments = (0, 1, 2) if full else (0,)
     with matmul_precision("highest"):
-        _sync([x for m0 in pattern for x in shards.run(m0)])
+        _sync([x for m in moments for x in shards.run(m)])
         t0 = time.perf_counter()
         outs = []
         for _ in range(reps):
-            outs = [x for m0 in pattern for x in shards.run(m0)]
+            outs = [x for m in moments for x in shards.run(m)]
         _sync(outs)
         return (time.perf_counter() - t0) / reps
 
